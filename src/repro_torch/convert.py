@@ -1,0 +1,100 @@
+"""State carried across from the JAX package: its fitted synopses and its
+store snapshots, rebuilt as the port's objects from numpy arrays (the
+system's counterpart of carrying weights across).  Counterpart: the
+reference's `TelemetryStore.to_state()` / `from_state()`."""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.aqp import KDESynopsis
+from repro_torch.data.aqp_store import (CategoricalSketch, MultiReservoir,
+                                        Reservoir, TelemetryStore)
+from repro_torch.device import DTYPE, DeviceLike, resolve_device
+
+STATE_FORMAT = 1     # the reference's `repro.data.aqp_store.STATE_FORMAT`
+
+
+def synopsis_from_numpy(x, h, n_source: int, selector: str,
+                        device: DeviceLike = None) -> KDESynopsis:
+    """The port's synopsis from a reference synopsis's fields as numpy
+    arrays: sample `x`, bandwidth `h` (scalar or per axis)."""
+    dev = resolve_device(device)
+    return KDESynopsis(
+        x=torch.tensor(np.asarray(x, np.float32), dtype=DTYPE, device=dev),
+        h=torch.tensor(np.asarray(h, np.float32), dtype=DTYPE, device=dev),
+        n_source=int(n_source), selector=selector)
+
+
+def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
+                     device: DeviceLike = None) -> TelemetryStore:
+    """The port's store from `repro.data.aqp_store.TelemetryStore.to_state()`.
+
+    Carries reservoir buffers with `n_seen`, `n_filled`, version and RNG
+    state (so later `add_batch` calls sample as the reference would), joints
+    with their backfill flags, exact categorical sketches, and cached
+    synopses with a bandwidth vector (plugin, silverman).  The reference
+    fits on its plain path, so its cached synopses serve the port's plain
+    backend ("torch"); a "cuda" query refits on the kernel.  `meta["metrics"]`
+    and `meta["plans"]` are skipped: the port has no metrics registry yet,
+    and plans rebuild from the synopses on first use.  Tiered reservoirs,
+    count-min sketches and full-H or RFF cache entries raise
+    NotImplementedError.
+    """
+    if int(meta.get("format", -1)) != STATE_FORMAT:
+        raise ValueError(f"unsupported store-state format "
+                         f"{meta.get('format')!r} (want {STATE_FORMAT})")
+    store = TelemetryStore(capacity=int(meta["capacity"]),
+                           seed=int(meta["seed"]), device=device)
+    cap = store.capacity
+    with store._write_lock:
+        for name, m in meta["columns"].items():
+            if m.get("kind") == "tiered":
+                raise NotImplementedError(
+                    f"column {name!r} is a tiered reservoir, not ported yet "
+                    f"(ROADMAP queue 1.7)")
+            res = Reservoir(cap, seed=store._col_seed(name))
+            res.load_state(arrays[f"columns/{name}/buf"], m)
+            store.columns[name] = res
+        for i, m in enumerate(meta["joints"]):
+            cols = tuple(m["columns"])
+            if m.get("kind") == "tiered":
+                raise NotImplementedError(
+                    f"joint {cols!r} is a tiered reservoir, not ported yet "
+                    f"(ROADMAP queue 1.7)")
+            res = MultiReservoir(cols, cap, seed=store._col_seed("|".join(cols)))
+            res.load_state(arrays[f"joints/{i}/buf"], m)
+            store.joints[cols] = res
+        for name, m in meta["categoricals"].items():
+            if m["kind"] != "exact":
+                raise NotImplementedError(
+                    f"sketch {name!r} of kind {m['kind']!r} is not ported yet "
+                    f"(ROADMAP queue 1.7)")
+            prefix = f"categoricals/{name}/"
+            sketch = CategoricalSketch.from_state(
+                {k[len(prefix):]: v for k, v in arrays.items()
+                 if k.startswith(prefix)}, m)
+            res = store.columns.get(name)
+            if res is not None and sketch.n_rows > res.n_seen:
+                raise ValueError(
+                    f"inconsistent snapshot: sketch for {name!r} has seen "
+                    f"{sketch.n_rows} rows but its reservoir only {res.n_seen}")
+            store.categoricals[name] = sketch
+    for i, ent in enumerate(meta["cache"]):
+        col = tuple(ent["column"]) if ent["is_tuple"] else ent["column"]
+        if ent.get("synopsis") is not None:
+            raise NotImplementedError(
+                f"cache entry {col!r} is a {ent['synopsis'].get('backend')!r} "
+                f"synopsis, not ported yet (ROADMAP queue 1.10)")
+        if f"cache/{i}/H" in arrays:
+            raise NotImplementedError(
+                f"cache entry {col!r} has a full bandwidth matrix, not ported "
+                f"yet (ROADMAP queue 1.10)")
+        syn = synopsis_from_numpy(arrays[f"cache/{i}/x"], arrays[f"cache/{i}/h"],
+                                  ent["n_source"], str(ent["syn_selector"]),
+                                  device=store.device)
+        store.cache.put(col, str(ent["selector"]), int(ent["version"]), syn,
+                        backend="torch")
+    return store

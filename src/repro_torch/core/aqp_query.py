@@ -1,0 +1,679 @@
+"""Declarative AQP queries and the engine that answers them.
+Counterpart: `repro/core/aqp_query.py`.
+
+  `AqpQuery`    — COUNT/SUM/AVG under a conjunction of predicate terms:
+      Range(column, a, b)   a <= column <= b        (eqs. 9-10 closed forms)
+      Box(columns, lo, hi)  axis-aligned box        (eq. 11 product kernel)
+      Eq(column, value)     dictionary/categorical equality (code +- 1/2)
+  `QueryEngine` — normalizes a heterogeneous batch against a
+                  `TelemetryStore`, groups it by (column tuple, selector) and
+                  answers each group in one batched pass:
+
+      path      synopsis                 pass
+      -------   ----------------------   -----------------------------------
+      exact     categorical sketch       per-code counts, zero-width CI
+      range1d   1-D sample, scalar h     closed forms (`batch_query_1d`;
+                                         the aqp_batch kernel on ":cuda")
+      box       rows, diagonal h         eq. 11 (`batch_query_box`; the
+                                         aqp_boxes kernel on ":cuda")
+
+  `AqpResult`   — estimate, path, analytic confidence interval, synopsis
+                  version.
+
+Not ported yet, and raising NotImplementedError when asked for: the GROUP BY
+family path `box:grouped` (ROADMAP queue 1.8), the full-H paths `qmc` and
+`qmc:rff` (queue 1.10, they need the LSCV_H selector of queue 1.9) and
+progressive execution over tiered reservoirs (queue 1.7).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_backend
+
+from .aqp import (OP_CODES, OP_COUNT, OP_SUM, KDESynopsis, batch_query_1d,
+                  canonical_selector)
+from .aqp_ci import (DEFAULT_CI_LEVEL, moments_1d, moments_box, norm_ppf,
+                     se_from_moments)
+from .aqp_multid import batch_query_box
+
+ColumnKey = Union[None, str, Tuple[str, ...]]
+
+EQ_HALFWIDTH = 0.5   # dictionary codes are unit-spaced: `== v` is v +- 1/2
+WIDE = 1e30          # "unconstrained axis": Phi saturates to {0,1}, phi to 0
+
+
+# --- predicate terms --------------------------------------------------------
+
+@dataclass(frozen=True)
+class Range:
+    """a <= column <= b.  `column=None` addresses a bare (unnamed) synopsis."""
+    column: Optional[str]
+    a: float
+    b: float
+
+    def __post_init__(self):
+        object.__setattr__(self, "a", float(self.a))
+        object.__setattr__(self, "b", float(self.b))
+
+
+@dataclass(frozen=True)
+class Eq:
+    """Dictionary/categorical equality: column == value.
+
+    Dictionary-coded columns hold unit-spaced numeric codes, so equality is
+    the range [value - halfwidth, value + halfwidth] over the code axis — the
+    KDE mass the synopsis assigns to that code's bucket.
+    """
+    column: Optional[str]
+    value: float
+    halfwidth: float = EQ_HALFWIDTH
+
+    def __post_init__(self):
+        object.__setattr__(self, "value", float(self.value))
+        object.__setattr__(self, "halfwidth", float(self.halfwidth))
+        if self.halfwidth <= 0:
+            raise ValueError(f"Eq halfwidth must be positive, got {self.halfwidth}")
+
+
+@dataclass(frozen=True)
+class Box:
+    """Axis-aligned box: lo_j <= columns_j <= hi_j.  `columns=None` addresses
+    the positional axes of a bare (unnamed) multi-d synopsis."""
+    columns: Optional[Tuple[str, ...]]
+    lo: Tuple[float, ...]
+    hi: Tuple[float, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "lo", tuple(float(v) for v in np.ravel(self.lo)))
+        object.__setattr__(self, "hi", tuple(float(v) for v in np.ravel(self.hi)))
+        if len(self.lo) != len(self.hi):
+            raise ValueError(f"lo/hi dimensionality mismatch: "
+                             f"{len(self.lo)} vs {len(self.hi)}")
+        if self.columns is not None:
+            object.__setattr__(self, "columns", tuple(self.columns))
+            if len(self.columns) != len(self.lo):
+                raise ValueError(f"box has {len(self.lo)} axes but names "
+                                 f"{len(self.columns)} columns")
+
+
+Predicate = Union[Range, Box, Eq]
+
+
+@dataclass(frozen=True)
+class GroupBy:
+    """GROUP BY over a dictionary column.  `values=None` discovers the code
+    set from the store's reservoir sample at execution time."""
+    column: str
+    values: Optional[Tuple[float, ...]] = None
+
+    def __post_init__(self):
+        if self.values is not None:
+            object.__setattr__(self, "values",
+                               tuple(float(v) for v in self.values))
+
+
+@dataclass(frozen=True)
+class AqpQuery:
+    """One declarative aggregate: COUNT/SUM/AVG of `target` under the
+    conjunction of `predicates`, optionally per `group_by` category.
+
+    `selector` overrides the engine's bandwidth selector for this query only
+    (the engine groups by (columns, selector)).
+    """
+    aggregate: str                               # "count" | "sum" | "avg"
+    predicates: Tuple[Predicate, ...] = ()
+    target: Optional[Union[str, int]] = None     # SUM/AVG column (or axis)
+    group_by: Optional[Union[str, "GroupBy"]] = None
+    selector: Optional[str] = None               # per-query selector override
+
+    def __post_init__(self):
+        agg = str(self.aggregate).lower()
+        if agg not in OP_CODES:
+            raise ValueError(f"unknown aggregate {self.aggregate!r}; "
+                             f"expected one of {sorted(OP_CODES)}")
+        object.__setattr__(self, "aggregate", agg)
+        preds = self.predicates
+        if isinstance(preds, (Range, Box, Eq)):
+            preds = (preds,)
+        preds = tuple(preds)
+        for p in preds:
+            if not isinstance(p, (Range, Box, Eq)):
+                raise TypeError(f"predicate terms must be Range/Box/Eq, "
+                                f"got {type(p).__name__}")
+        object.__setattr__(self, "predicates", preds)
+        if isinstance(self.group_by, str):
+            object.__setattr__(self, "group_by", GroupBy(self.group_by))
+        if self.group_by is not None and not isinstance(self.group_by, GroupBy):
+            raise TypeError("group_by must be a column name or GroupBy")
+        if agg == "count":
+            if self.target is not None:
+                raise ValueError("COUNT takes no target column")
+            if not preds and self.group_by is None:
+                raise ValueError("COUNT needs at least one predicate term")
+        elif not preds and self.target is None:
+            raise ValueError("SUM/AVG needs a predicate term or a target column")
+
+
+@dataclass(frozen=True)
+class AqpResult:
+    """One answered aggregate.
+
+    estimate         — the approximate answer
+    path             — "range1d" | "box" | "exact", with a ":cuda" suffix
+                       when the hand-written kernels ran the KDE pass
+    ci_lo / ci_hi    — confidence interval at `ci_level`: analytic
+                       product-kernel variance on range1d/box, zero width on
+                       exact.  Infinite endpoints mean no finite bound (AVG
+                       over an effectively empty selection).
+    ci_level         — nominal coverage of [ci_lo, ci_hi] (default 0.95)
+    n_effective      — rows behind the answer: the retained sample size on
+                       the KDE paths, the sketch's row count on exact
+    rel_width        — deprecated accuracy proxy (narrowest constrained axis
+                       in bandwidths); 0.0 on exact, inf when unconstrained
+    synopsis_version — reservoir version of the synopsis that answered it
+    group            — group_by category code (None outside GROUP BY)
+    query            — the originating AqpQuery spec
+    """
+    estimate: float
+    path: str
+    rel_width: float
+    synopsis_version: int
+    group: Optional[float] = None
+    query: Optional[AqpQuery] = None
+    ci_lo: float = float("nan")
+    ci_hi: float = float("nan")
+    ci_level: float = DEFAULT_CI_LEVEL
+    n_effective: int = 0
+
+    @property
+    def ci_width(self) -> float:
+        return self.ci_hi - self.ci_lo
+
+    def __float__(self) -> float:
+        return self.estimate
+
+
+# --- normalization: AqpQuery -> one axis-aligned box per (sub-)query --------
+
+@dataclass
+class _Compiled:
+    """One execution unit: an axis-aligned box (possibly with wide, i.e.
+    unconstrained, axes) plus the aggregate opcode and target axis."""
+    slot: int                            # output row
+    query: AqpQuery
+    group: Optional[float]
+    cols: Optional[Tuple[str, ...]]      # None -> positional (bare synopsis)
+    lo: List[float]
+    hi: List[float]
+    constrained: List[bool]              # wide target fills are False
+    op: int
+    tgt: int
+    selector: Optional[str]
+    all_eq: bool = False                 # every interval is a code window
+    group_axis: Optional[int] = None     # axis of the group_by column
+
+
+def _compile(query: AqpQuery, slot: int,
+             group_value: Optional[float] = None) -> _Compiled:
+    """Normalize one query (plus its group term) to a canonical box: terms
+    merge per column by interval intersection, SUM/AVG targets outside the
+    predicate columns get a wide (unconstrained) axis."""
+    intervals: "Dict[Union[str, int], List]" = {}
+    eq_only: "Dict[Union[str, int], bool]" = {}
+    named: Optional[bool] = None
+
+    def add(key, lo_v, hi_v, is_named, is_eq=False):
+        nonlocal named
+        if named is None:
+            named = is_named
+        elif named != is_named:
+            raise ValueError("cannot mix named and positional (column=None) "
+                             "predicate terms in one AqpQuery")
+        eq_only[key] = eq_only.get(key, True) and is_eq
+        ent = intervals.get(key)
+        if ent is None:
+            intervals[key] = [float(lo_v), float(hi_v), True]
+        else:
+            ent[0] = max(ent[0], float(lo_v))
+            ent[1] = min(ent[1], float(hi_v))
+            if ent[1] < ent[0]:           # empty conjunction -> zero measure
+                ent[1] = ent[0]
+
+    for p in query.predicates:
+        if isinstance(p, Range):
+            add(p.column if p.column is not None else 0, p.a, p.b,
+                p.column is not None)
+        elif isinstance(p, Eq):
+            add(p.column if p.column is not None else 0,
+                p.value - p.halfwidth, p.value + p.halfwidth,
+                p.column is not None, is_eq=True)
+        else:
+            if p.columns is None:
+                for j, (lo_v, hi_v) in enumerate(zip(p.lo, p.hi)):
+                    add(j, lo_v, hi_v, False)
+            else:
+                for c, lo_v, hi_v in zip(p.columns, p.lo, p.hi):
+                    add(c, lo_v, hi_v, True)
+
+    # Implicit-target resolution runs BEFORE the group term is appended:
+    # "SUM(b) WHERE ... GROUP BY code" has one predicate column even though
+    # the executed box gains the code axis.
+    tgt = 0
+    if query.aggregate in ("sum", "avg"):
+        t = query.target
+        if t is None:
+            if len(intervals) != 1:
+                raise ValueError("SUM/AVG needs an explicit target unless "
+                                 "exactly one predicate column is given")
+        elif isinstance(t, bool):
+            raise TypeError("target must be a column name or axis index")
+        elif isinstance(t, (int, np.integer)):
+            if not 0 <= int(t) < len(intervals):
+                raise ValueError(f"target axis {t} out of range for "
+                                 f"d={len(intervals)}")
+            tgt = int(t)
+        else:
+            if named is False:
+                raise ValueError("a string target needs named predicate "
+                                 "columns")
+            if t not in intervals:
+                named = True
+                intervals[t] = [-WIDE, WIDE, False]
+                eq_only[t] = False
+            tgt = list(intervals).index(t)
+
+    if group_value is not None:
+        g = query.group_by
+        # the group term is a dictionary-code window, i.e. an Eq term
+        add(g.column, group_value - EQ_HALFWIDTH, group_value + EQ_HALFWIDTH,
+            True, is_eq=True)
+
+    if named is False:
+        keys = sorted(intervals)
+        if keys != list(range(len(keys))):
+            raise ValueError(f"positional predicate axes must be contiguous "
+                             f"from 0, got {keys}")
+        items = [(k, intervals[k]) for k in keys]
+        cols = None
+    else:
+        items = list(intervals.items())
+        cols = tuple(k for k, _ in items)
+    group_axis = None
+    if group_value is not None and cols is not None:
+        group_axis = cols.index(query.group_by.column)
+    return _Compiled(
+        slot=slot, query=query, group=group_value, cols=cols,
+        lo=[e[0] for _, e in items], hi=[e[1] for _, e in items],
+        constrained=[e[2] for _, e in items], op=OP_CODES[query.aggregate],
+        tgt=tgt, selector=query.selector,
+        all_eq=all(eq_only[k] for k, _ in items), group_axis=group_axis)
+
+
+def _reorder(c: _Compiled, new_cols: Tuple[str, ...]) -> _Compiled:
+    """Permute a compiled box to a tracked joint's axis order."""
+    perm = [c.cols.index(col) for col in new_cols]
+    return _Compiled(
+        slot=c.slot, query=c.query, group=c.group, cols=new_cols,
+        lo=[c.lo[j] for j in perm], hi=[c.hi[j] for j in perm],
+        constrained=[c.constrained[j] for j in perm], op=c.op,
+        tgt=perm.index(c.tgt), selector=c.selector, all_eq=c.all_eq,
+        group_axis=None if c.group_axis is None else perm.index(c.group_axis))
+
+
+# --- group plans and synopsis resolution ------------------------------------
+
+@dataclass
+class _GroupPlan:
+    """Execution plan for one (column tuple, selector) group: the resolved
+    synopsis, its path, per-axis bandwidths for the accuracy proxy and the
+    sample->relation scale.  Cached keyed on the synopsis version."""
+    syn: KDESynopsis
+    kind: str                 # "range1d" | "box"
+    h_axes: np.ndarray
+    scale: float
+
+    @property
+    def x_rows(self) -> torch.Tensor:
+        return self.syn.x[:, None] if self.syn.x.dim() == 1 else self.syn.x
+
+
+def _make_plan(syn: KDESynopsis) -> _GroupPlan:
+    h_axes = syn.h_diag().detach().cpu().numpy().astype(np.float64)
+    kind = "range1d" if syn.x.dim() == 1 else "box"
+    return _GroupPlan(syn=syn, kind=kind, h_axes=h_axes,
+                      scale=syn.n_source / syn.x.shape[0])
+
+
+class PlanCache:
+    """Version-keyed memo of `_GroupPlan`s, owned by a QueryEngine: an entry
+    whose version differs from the reservoir's current one misses."""
+
+    def __init__(self):
+        self._entries: Dict[object, Tuple[int, _GroupPlan]] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key, version: int) -> Optional[_GroupPlan]:
+        ent = self._entries.get(key)
+        if ent is not None and ent[0] == version:
+            self.hits += 1
+            return ent[1]
+        self.misses += 1
+        return None
+
+    def put(self, key, version: int, plan: _GroupPlan) -> None:
+        self._entries[key] = (version, plan)
+
+
+class _StoreResolver:
+    """Maps a compiled query to (group key, plan, version) against a
+    TelemetryStore: single columns use the per-column reservoirs, multi-column
+    boxes match a tracked joint (exact tuple first, then by column set,
+    reordering the box to the joint's axis order).  Fits run on `backend`."""
+
+    def __init__(self, store, selector: str, backend: str,
+                 plans: Optional[PlanCache] = None):
+        self.store = store
+        self.selector = selector
+        self.backend = backend
+        self.plans = plans
+
+    def key_for(self, c: _Compiled):
+        """(group key, reordered compiled, reservoir version) — no fitting."""
+        sel = canonical_selector(c.selector or self.selector)
+        if c.cols is None:
+            raise ValueError("every query must name a column when running "
+                             "against a TelemetryStore")
+        if len(c.cols) == 1:
+            col = c.cols[0]
+            res = self.store.columns.get(col)
+            if res is None:
+                raise KeyError(f"unknown column {col!r}; "
+                               f"have {sorted(self.store.columns)}")
+            return (col, sel), c, res.version
+        cols = c.cols
+        joints = self.store.joints
+        if cols not in joints:
+            match = next((k for k in joints if set(k) == set(cols)), None)
+            if match is not None:
+                c = _reorder(c, match)
+                cols = match
+            else:
+                raise KeyError(f"no joint reservoir for columns {cols!r}; "
+                               f"call track_joint({cols!r}) before add_batch "
+                               f"(have {sorted(joints)})")
+        res = joints[cols]
+        return (cols, sel), c, res.version
+
+    def plan_for(self, key, version: int) -> _GroupPlan:
+        """Fit-or-fetch the group's plan for the given reservoir version;
+        plans, like fits, are kept per backend."""
+        if self.plans is not None:
+            plan = self.plans.get((key, self.backend), version)
+            if plan is not None:
+                return plan
+        col, sel = key
+        if isinstance(col, tuple):
+            syn = self.store.joint_synopsis(col, sel, backend=self.backend)
+        else:
+            syn = self.store.synopsis(col, sel, backend=self.backend)
+        plan = _make_plan(syn)
+        if self.plans is not None:
+            self.plans.put((key, self.backend), version, plan)
+        return plan
+
+    def __call__(self, c: _Compiled):
+        key, c2, version = self.key_for(c)
+        return key, c2, self.plan_for(key, version), version
+
+    def try_exact(self, c: _Compiled):
+        """Sketch answer for an all-Eq single-column query when the column's
+        categorical sketch covers its whole stream: (estimate, version,
+        path, ci_lo, ci_hi, n_effective), or None for the KDE path."""
+        if not c.all_eq or c.cols is None or len(c.cols) != 1:
+            return None
+        col = c.cols[0]
+        sketch = self.store.categoricals.get(col)
+        res = self.store.columns.get(col)
+        if sketch is None or res is None or not sketch.exact_for(res.n_seen):
+            return None
+        cnt, sm = sketch.range_terms(c.lo[0], c.hi[0])
+        if c.op == OP_COUNT:
+            est = float(cnt)
+        elif c.op == OP_SUM:
+            est = float(sm)
+        else:
+            est = float(sm / cnt) if cnt > 0 else 0.0
+        return est, res.version, sketch.path, est, est, int(sketch.n_rows)
+
+
+# --- execution --------------------------------------------------------------
+
+def _rel_width(c: _Compiled, h_axes: np.ndarray) -> float:
+    widths = [(hi - lo) / h for lo, hi, k, h
+              in zip(c.lo, c.hi, c.constrained, h_axes) if k]
+    return float(min(widths)) if widths else float("inf")
+
+
+# Batch shapes are quantized as in the reference: small batches round up to
+# the next power of two (floor 8), larger ones to the next multiple of 64;
+# padded rows repeat the last real row and are sliced off after the pass.
+_PAD_STEP = 64
+
+
+def _pad_count(n: int) -> int:
+    if n >= _PAD_STEP:
+        return -(-n // _PAD_STEP) * _PAD_STEP
+    return max(8, 1 << max(n - 1, 0).bit_length())
+
+
+def _pad_rows(arr: np.ndarray, m: int) -> np.ndarray:
+    pad = m - arr.shape[0]
+    if pad <= 0:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+
+
+def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
+               backend: str, ci_level: float = DEFAULT_CI_LEVEL
+               ) -> List[Tuple[float, str, float, float, int]]:
+    """Answer one resolved group in one batched pass; returns one
+    (estimate, path label, ci_lo, ci_hi, n_effective) per entry, in entry
+    order.  The CI comes from a separate moments pass."""
+    syn = plan.syn
+    x = plan.x_rows
+    d_syn = x.shape[1]
+    for c in entries:
+        if len(c.lo) != d_syn:
+            if len(c.lo) == 1:
+                raise ValueError(
+                    "multi-dimensional synopses answer box predicates, "
+                    "not scalar ranges; add one term per axis")
+            raise ValueError(f"synopsis for {key} is {d_syn}-d but its "
+                             f"queries are {len(c.lo)}-d boxes")
+    if plan.kind == "box":
+        fams: Dict[int, int] = {}
+        for c in entries:
+            if c.group is not None and c.group_axis is not None:
+                fams[id(c.query)] = fams.get(id(c.query), 0) + 1
+        if any(k >= 2 for k in fams.values()):
+            raise NotImplementedError(
+                "GROUP BY families over a joint synopsis (path box:grouped) "
+                "are not ported yet (ROADMAP queue 1.8)")
+
+    dev = x.device
+    n_eff = int(x.shape[0])
+    n = len(entries)
+    m = _pad_count(n)
+    ops_np = _pad_rows(np.asarray([c.op for c in entries], np.int32), m)
+    ops_t = torch.as_tensor(ops_np, device=dev)
+    suffix = "" if backend == "torch" else f":{backend}"
+    if plan.kind == "range1d":
+        a = torch.as_tensor(_pad_rows(np.asarray(
+            [c.lo[0] for c in entries], np.float32), m), device=dev)
+        b = torch.as_tensor(_pad_rows(np.asarray(
+            [c.hi[0] for c in entries], np.float32), m), device=dev)
+        path = "range1d" + suffix
+        ans = batch_query_1d(syn.x, syn.h, a, b, ops_t, plan.scale,
+                             backend=backend)
+        mom = moments_1d(syn.x, syn.h, a, b)
+    else:
+        lo = torch.as_tensor(_pad_rows(np.asarray(
+            [c.lo for c in entries], np.float32), m), device=dev)
+        hi = torch.as_tensor(_pad_rows(np.asarray(
+            [c.hi for c in entries], np.float32), m), device=dev)
+        tgt = torch.as_tensor(_pad_rows(np.asarray(
+            [c.tgt for c in entries], np.int32), m), device=dev)
+        path = "box" + suffix
+        h_diag = syn.h_diag()
+        ans = batch_query_box(x, h_diag, lo, hi, tgt, ops_t, plan.scale,
+                              backend=backend)
+        mom = moments_box(x, h_diag, lo, hi, tgt)
+    se = se_from_moments(ops_np, mom, plan.scale, n_eff)
+    q_ci = norm_ppf(0.5 + ci_level / 2.0)
+    ans_np = ans.detach().cpu().numpy().astype(np.float64)[:n]
+    out = []
+    for est, s in zip(ans_np, se[:n]):
+        est = float(est)
+        out.append((est, path, est - q_ci * s, est + q_ci * s, n_eff))
+    return out
+
+
+def _execute(compiled: Sequence[_Compiled], n_out: int,
+             resolver: _StoreResolver, backend: str,
+             ci_level: float = DEFAULT_CI_LEVEL) -> List[AqpResult]:
+    """Answer compiled queries: exact categorical sketches first, then group
+    the rest by resolved synopsis, answer each group in one batched pass and
+    scatter back to submission order."""
+    results: List[Optional[AqpResult]] = [None] * n_out
+    remaining: List[_Compiled] = []
+    for c in compiled:
+        hit = resolver.try_exact(c)
+        if hit is not None:
+            est, version, path, ci_lo, ci_hi, n_eff = hit
+            results[c.slot] = AqpResult(
+                estimate=est, path=path, rel_width=0.0,
+                synopsis_version=version, group=c.group, query=c.query,
+                ci_lo=ci_lo, ci_hi=ci_hi, ci_level=ci_level,
+                n_effective=n_eff)
+        else:
+            remaining.append(c)
+
+    groups: "Dict[object, dict]" = {}
+    for c in remaining:
+        key, c2, plan, version = resolver(c)
+        g = groups.setdefault(key, {"plan": plan, "version": version,
+                                    "entries": []})
+        g["entries"].append(c2)
+
+    for key, g in groups.items():
+        plan: _GroupPlan = g["plan"]
+        entries: List[_Compiled] = g["entries"]
+        answered = _run_group(key, plan, entries, backend, ci_level=ci_level)
+        for c, (est, path, ci_lo, ci_hi, n_eff) in zip(entries, answered):
+            results[c.slot] = AqpResult(
+                estimate=est, path=path,
+                rel_width=_rel_width(c, plan.h_axes),
+                synopsis_version=g["version"], group=c.group, query=c.query,
+                ci_lo=ci_lo, ci_hi=ci_hi, ci_level=ci_level,
+                n_effective=n_eff)
+    return results
+
+
+# --- the facade -------------------------------------------------------------
+
+class QueryEngine:
+    """Single entry point for AQP batches against a `TelemetryStore`.
+
+        engine = QueryEngine(store)                # or store.engine()
+        results = engine.execute([
+            AqpQuery("count", (Range("loss", 1.0, 4.0),)),
+            AqpQuery("avg", (Box(("loss", "latency_ms"), (1, 20), (4, 60)),),
+                     target="latency_ms"),
+            AqpQuery("count", (Eq("model_id", 2),)),
+        ])
+
+    `backend` None picks the kernel path ("cuda") on a CUDA store and the
+    plain path ("torch") on a CPU store.
+    """
+
+    def __init__(self, store, selector: str = "plugin",
+                 backend: Optional[str] = None, max_groups: int = 64,
+                 ci_level: float = DEFAULT_CI_LEVEL):
+        self.store = store
+        self.selector = selector
+        self.backend = resolve_backend(backend, store.device)
+        self.max_groups = max_groups
+        self.ci_level = ci_level
+        self.plans = PlanCache()
+
+    def compile(self, queries: Union[AqpQuery, Sequence[AqpQuery]]
+                ) -> List[_Compiled]:
+        """Normalize specs to execution units (one per GROUP BY category),
+        slotted in submission order."""
+        if isinstance(queries, AqpQuery):
+            queries = [queries]
+        compiled: List[_Compiled] = []
+        for q in queries:
+            if not isinstance(q, AqpQuery):
+                raise TypeError(f"QueryEngine.execute takes AqpQuery specs, "
+                                f"got {type(q).__name__}")
+            for gv in self._group_values(q):
+                compiled.append(_compile(q, len(compiled), group_value=gv))
+        return compiled
+
+    def resolver(self, selector: Optional[str] = None,
+                 backend: Optional[str] = None) -> _StoreResolver:
+        """Store resolver wired to this engine's version-keyed plan cache."""
+        return _StoreResolver(self.store, selector or self.selector,
+                              backend or self.backend, plans=self.plans)
+
+    def run_compiled(self, compiled: Sequence[_Compiled],
+                     selector: Optional[str] = None,
+                     backend: Optional[str] = None) -> List[AqpResult]:
+        """Execute pre-compiled units (slots must be 0..n-1)."""
+        backend = resolve_backend(backend or self.backend, self.store.device)
+        return _execute(compiled, len(compiled),
+                        self.resolver(selector, backend), backend,
+                        ci_level=self.ci_level)
+
+    def execute(self, queries: Union[AqpQuery, Sequence[AqpQuery]],
+                selector: Optional[str] = None,
+                backend: Optional[str] = None, mode: str = "batch"
+                ) -> List[AqpResult]:
+        """Answer a batch of AqpQuery specs; one AqpResult per query (one per
+        group value for GROUP BY queries).  Only mode="batch" is ported."""
+        if mode == "progressive":
+            raise NotImplementedError(
+                "progressive execution over tiered reservoirs is not ported "
+                "yet (ROADMAP queue 1.7)")
+        if mode != "batch":
+            raise ValueError(f"unknown mode {mode!r}; "
+                             f"expected 'batch' or 'progressive'")
+        return self.run_compiled(self.compile(queries), selector=selector,
+                                 backend=backend)
+
+    def _group_values(self, q: AqpQuery) -> List[Optional[float]]:
+        if q.group_by is None:
+            return [None]
+        gb = q.group_by
+        if gb.values is not None:
+            return list(gb.values)
+        res = self.store.columns.get(gb.column)
+        if res is None:
+            raise KeyError(f"unknown group_by column {gb.column!r}; "
+                           f"have {sorted(self.store.columns)}")
+        codes = np.unique(np.round(res.sample().astype(np.float64)))
+        if codes.size == 0:
+            raise ValueError(f"group_by column {gb.column!r} has no data")
+        if codes.size > self.max_groups:
+            raise ValueError(
+                f"group_by {gb.column!r} has {codes.size} distinct codes "
+                f"(max_groups={self.max_groups}); pass "
+                f"GroupBy({gb.column!r}, values=...) to pin the categories")
+        return [float(v) for v in codes]

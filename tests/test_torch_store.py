@@ -1,0 +1,252 @@
+"""The slice end to end: one seeded numpy stream fed to the JAX package's
+`TelemetryStore` and to the port's on the CPU, one mixed batch of Range / Box
+/ Eq specs through `store.query` in both, and the reference's snapshot
+carried into the port with `store_from_state`.  Also the port's device
+policy, its not-yet-ported paths, and its import hygiene.
+
+Tolerances: reservoir buffers and exact (sketch) answers are bit-equal —
+the same numpy code runs on both sides.  KDE estimates and CI bounds agree
+at rtol 1e-4 plus atol 1e-4 x scale (scale = n_source / sample size): the
+AQP kernels' raw-sum tolerance carried through the sample->relation scale,
+with PLUGIN's h agreeing to its float32 pairwise sums.
+"""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import aqp_query as jq
+from repro.data import aqp_store as jstore
+from repro_torch import convert
+from repro_torch.core import aqp_query as tq
+from repro_torch.data import aqp_store as tstore
+from repro_torch.kernels import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+CAPACITY = 256
+JOINT = ("loss", "latency", "grad")
+
+
+def _stream(seed: int, batches: int = 3, rows: int = 700):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(batches):
+        latent = rng.normal(0, 1, rows)
+        out.append({
+            "loss": (2.0 + 0.5 * latent + rng.normal(0, 0.4, rows)).astype(np.float32),
+            "latency": np.exp(3.0 + 0.3 * latent + rng.normal(0, 0.3, rows)).astype(np.float32),
+            "grad": (1.0 + 0.3 * latent + rng.normal(0, 0.5, rows)).astype(np.float32),
+            "code": rng.integers(0, 8, rows).astype(np.float32),
+        })
+    return out
+
+
+def _fill(store, stream):
+    store.track_joint(JOINT)
+    store.track_categorical("code")
+    for batch in stream:
+        store.add_batch(batch)
+    return store
+
+
+def _specs(m):
+    """The same mixed batch built from either package's spec classes."""
+    return [
+        m.AqpQuery("count", (m.Range("loss", 1.5, 2.5),)),
+        m.AqpQuery("sum", (m.Range("loss", 0.0, 2.0),)),
+        m.AqpQuery("avg", (m.Range("latency", 15.0, 30.0),)),
+        m.AqpQuery("count", (m.Range("latency", 60.0, 90.0),)),
+        m.AqpQuery("count", (m.Box(JOINT, (1.0, 10.0, 0.0), (3.0, 30.0, 2.0)),)),
+        m.AqpQuery("sum", (m.Box(("latency", "loss", "grad"), (10, 1, 0), (30, 3, 2)),),
+                   target="latency"),
+        m.AqpQuery("avg", (m.Range("loss", 1.0, 3.0), m.Range("grad", 0.5, 1.5),
+                           m.Range("latency", 0.0, 40.0)), target="grad"),
+        m.AqpQuery("count", (m.Eq("code", 3),)),
+        m.AqpQuery("sum", (m.Eq("code", 5),), target="code"),
+        m.AqpQuery("avg", (m.Eq("code", 2),), target="code"),
+        m.AqpQuery("count", (m.Range("loss", 2.0, 2.0),)),
+    ]
+
+
+@pytest.fixture(scope="module")
+def stores():
+    stream = _stream(0)
+    ref = _fill(jstore.TelemetryStore(capacity=CAPACITY, seed=0), stream)
+    port = _fill(tstore.TelemetryStore(capacity=CAPACITY, seed=0, device="cpu"), stream)
+    return ref, port, ref.query(_specs(jq))
+
+
+def _assert_results_match(got, want, scale, suffix=""):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w.path == "exact":
+            assert g.path == "exact"
+            assert (g.estimate, g.ci_lo, g.ci_hi) == (w.estimate, w.ci_lo, w.ci_hi)
+        else:
+            assert g.path == w.path + suffix
+            for field in ("estimate", "ci_lo", "ci_hi"):
+                np.testing.assert_allclose(getattr(g, field), getattr(w, field),
+                                           rtol=1e-4, atol=1e-4 * scale, err_msg=field)
+        assert g.synopsis_version == w.synopsis_version
+        assert g.n_effective == w.n_effective
+        assert g.rel_width == pytest.approx(w.rel_width, rel=1e-3)
+
+
+def test_reservoirs_are_bit_equal(stores):
+    ref, port, _ = stores
+    assert sorted(port.columns) == sorted(ref.columns)
+    for name, res in ref.columns.items():
+        mine = port.columns[name]
+        np.testing.assert_array_equal(mine.sample(), res.sample())
+        assert (mine.n_seen, mine.n_filled, mine.version) == \
+            (res.n_seen, res.n_filled, res.version)
+        assert mine.rng.bit_generator.state == res.rng.bit_generator.state
+    np.testing.assert_array_equal(port.joints[JOINT].sample(), ref.joints[JOINT].sample())
+    assert port.categoricals["code"].counts == ref.categoricals["code"].counts
+
+
+@pytest.mark.parametrize("backend,suffix", [("torch", ""), ("cuda", ":cuda")])
+def test_mixed_batch_matches_reference(stores, backend, suffix):
+    ref, port, want = stores
+    got = port.query(_specs(tq), backend=backend)
+    scale = (3 * 700) / CAPACITY
+    _assert_results_match(got, want, scale, suffix)
+    assert {r.path for r in got} == {"range1d" + suffix, "box" + suffix, "exact"}
+
+
+def test_cpu_store_defaults_to_the_plain_path(stores):
+    _, port, _ = stores
+    ops.reset_launch_counts()
+    paths = {r.path for r in port.query(_specs(tq))}
+    assert paths == {"range1d", "box", "exact"}
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_repeat_query_is_bit_identical_from_caches(stores):
+    _, port, _ = stores
+    first = port.query(_specs(tq))
+    misses = port.cache.stats()["misses"]
+    again = port.query(_specs(tq))
+    assert [(r.estimate, r.ci_lo, r.ci_hi) for r in first] == \
+        [(r.estimate, r.ci_lo, r.ci_hi) for r in again]
+    assert port.cache.stats()["misses"] == misses
+
+
+def test_each_backend_fits_and_caches_its_own_synopsis():
+    """A fit made on one backend never serves the other, so a store's answers
+    do not depend on which backend fitted a column first."""
+    port = _fill(tstore.TelemetryStore(capacity=CAPACITY, seed=0, device="cpu"),
+                 _stream(0))
+    plain = port.synopsis("loss", backend="torch")
+    misses = port.cache.stats()["misses"]
+    kern = port.synopsis("loss", backend="cuda")
+    assert kern is not plain
+    assert port.cache.stats()["misses"] == misses + 1
+    assert port.synopsis("loss", backend="torch") is plain
+    assert port.synopsis("loss", backend="cuda") is kern
+    assert port.synopsis("loss") is plain          # the CPU's default backend
+
+
+def test_store_from_state_answers_the_same(stores):
+    ref, port, want = stores
+    tree, meta = ref.to_state()
+    carried = convert.store_from_state(tree, meta, device="cpu")
+    for name, res in ref.columns.items():
+        np.testing.assert_array_equal(carried.columns[name].sample(), res.sample())
+    assert carried.joints[JOINT].backfilled == ref.joints[JOINT].backfilled
+    misses = carried.cache.stats()["misses"]
+    got = carried.query(_specs(tq))
+    assert carried.cache.stats()["misses"] == misses      # cached fits carried over
+    _assert_results_match(got, want, (3 * 700) / CAPACITY)
+    # the RNG state came along: both sample the next batch identically
+    extra = _stream(1, batches=1)[0]
+    clone = jstore.TelemetryStore.from_state(tree, meta)
+    clone.add_batch(extra)
+    carried.add_batch(extra)
+    np.testing.assert_array_equal(carried.columns["loss"].sample(),
+                                  clone.columns["loss"].sample())
+    np.testing.assert_array_equal(carried.joints[JOINT].sample(),
+                                  clone.joints[JOINT].sample())
+
+
+def test_synopsis_from_numpy_carries_a_reference_fit(stores):
+    ref, _, _ = stores
+    syn = ref.joint_synopsis(JOINT)
+    mine = convert.synopsis_from_numpy(np.asarray(syn.x), np.asarray(syn.h),
+                                       syn.n_source, syn.selector, device="cpu")
+    lo, hi = (1.0, 10.0, 0.0), (3.0, 30.0, 2.0)
+    np.testing.assert_allclose(float(mine.count_box(lo, hi)),
+                               float(syn.count_box(lo, hi)), rtol=1e-4)
+
+
+def test_store_from_state_refuses_unported_entries():
+    ref = jstore.TelemetryStore(capacity=64, seed=0)
+    ref.track_categorical("code", kind="cm")
+    ref.add_batch({"code": np.arange(10, dtype=np.float32)})
+    with pytest.raises(NotImplementedError, match="1.7"):
+        convert.store_from_state(*ref.to_state(), device="cpu")
+
+
+def test_store_without_device_needs_cuda():
+    if torch.cuda.is_available():
+        assert tstore.TelemetryStore().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tstore.TelemetryStore()
+
+
+@pytest.mark.parametrize("call", ["tiered", "cm", "subscribe", "session", "to_state",
+                                  "progressive", "group_family"])
+def test_unported_paths_raise(stores, call):
+    _, port, _ = stores
+    store = tstore.TelemetryStore(capacity=64, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        if call == "tiered":
+            store.track_tiered("loss")
+        elif call == "cm":
+            store.track_categorical("code", kind="cm")
+        elif call == "subscribe":
+            store.subscribe(print)
+        elif call == "session":
+            store.session()
+        elif call == "to_state":
+            store.to_state()
+        elif call == "progressive":
+            port.query(_specs(tq)[:1], mode="progressive")
+        else:
+            port.query([tq.AqpQuery("count", (tq.Box(("loss", "latency"), (0, 0), (3, 50)),),
+                                    group_by=tq.GroupBy("grad", values=(0.0, 1.0)))])
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_importing_the_port_loads_no_jax_and_builds_nothing():
+    code = ("import sys, pkgutil, importlib, repro_torch\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "from repro_torch.kernels import _build\n"
+            "assert _build._libs == {}, _build._libs\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+            "assert not bad, bad\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
