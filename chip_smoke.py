@@ -14,13 +14,20 @@ non-zero and prints no result line):
      and aqp_boxes kernels; answers held against a float64 closed form of the
      same synopses and against exact counts of the stream, launch counts
      read, and the batch repeated for bit-identical answers from the caches;
-  3. every kernel against its plain PyTorch version on the card, on the
-     very inputs of each of its main-path calls (recorded while the main
-     path ran), at an extra shape and at edge shapes, and against a float64
-     oracle on a subsample; PLUGIN against the paper's sequential oracle;
+  3. path A, the same store and specs with `selector="lscv_h"`: LSCV_h fits
+     (two columns and the 3-column joint, 150 grid points each) on the
+     sv_precompute and lscv_grid kernels, answers on aqp_batch / aqp_boxes,
+     launch counts read for the first query and its bit-identical repeat;
+  4. path B, `store.joint_synopsis(joint, selector="lscv_H")`: Nelder-Mead
+     (150 iterations) with one gh_fused launch per objective evaluation; H
+     SPD and g(H) <= g(H_start);
+  5. every kernel against its plain PyTorch version on the card, on the
+     very inputs of its calls on those paths (recorded while they ran), at
+     an extra shape and at edge shapes, and against a float64 oracle on a
+     subsample; PLUGIN and LSCV_h against the paper's sequential oracles;
      the kernel's own eqs. 49/50 tile mapping exhaustively;
-  4. kernel and plain-version times (CUDA events, median of warm runs) on
-     the inputs of each kernel's first main-path call.
+  6. kernel and plain-version times (CUDA events, median of warm runs) on
+     the inputs of each kernel's first call on its path.
 
 It prints a {"kernels": [...]} JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -53,6 +60,9 @@ N_RANGE, N_BOX, N_EQ = 512, 384, 128
 # tests/test_kernels.py tolerances
 PAIR_RTOL = 3e-4
 AQP_RTOL, CNT_ATOL, SUM_ATOL = 1e-4, 1e-5, 1e-4
+SV_RTOL, SV_ATOL = 1e-3, 1e-3
+GRID_RTOL, GRID_ATOL = 1e-3, 1e-3
+GH_RTOL, GH_ATOL = 5e-4, 1e-4
 
 # H100 SXM published peaks: FP32 outside the
 # tensor cores, HBM3 bandwidth
@@ -66,7 +76,17 @@ TPU_KERNELS = {
                        "src/repro/kernels/aqp_batch.py:78"),
     "aqp_box_sums": ("src/repro_torch/kernels/csrc/aqp_boxes.cu",
                      "src/repro/kernels/aqp_boxes.py:95"),
+    "sv_matrix": ("src/repro_torch/kernels/csrc/sv_precompute.cu",
+                  "src/repro/kernels/sv_precompute.py:88"),
+    "lscv_grid_sums": ("src/repro_torch/kernels/csrc/lscv_grid.cu",
+                       "src/repro/kernels/lscv_grid.py:91"),
+    "gh_fused_sum": ("src/repro_torch/kernels/csrc/gh_fused.cu",
+                     "src/repro/kernels/gh_fused.py:73"),
 }
+# the path whose launches each kernel's "launches" reports
+KERNEL_PATH = {"pairwise_scaled_ksum": "plugin", "aqp_batch_sums": "plugin",
+               "aqp_box_sums": "plugin", "sv_matrix": "A", "lscv_grid_sums": "A",
+               "gh_fused_sum": "B"}
 
 
 class SmokeFailure(RuntimeError):
@@ -122,7 +142,11 @@ def call_shape(name: str, args, kwargs) -> str:
         return f"n={args[0].shape[0]} {kwargs.get('kind', args[2] if len(args) > 2 else 'k4')}"
     if name == "aqp_batch_sums":
         return f"q={args[2].shape[0]} n={args[0].shape[0]}"
-    return f"q={args[2].shape[0]} n={args[0].shape[0]} d={args[0].shape[1]}"
+    if name == "aqp_box_sums":
+        return f"q={args[2].shape[0]} n={args[0].shape[0]} d={args[0].shape[1]}"
+    if name == "lscv_grid_sums":
+        return f"n={args[0].shape[0]} d={args[0].shape[1]} n_h={args[2].shape[0]}"
+    return f"n={args[0].shape[0]} d={args[0].shape[1]}"
 
 
 # --- data and query mix ------------------------------------------------------
@@ -212,8 +236,7 @@ def oracle_pairwise(x, g, kind):
 
 # --- phases ------------------------------------------------------------------
 
-def main_path(args, torch, rt):
-    q, ops = rt["query"], rt["ops"]
+def build_store(args, rt, q):
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     stream = make_stream(rng)
@@ -224,45 +247,53 @@ def main_path(args, torch, rt):
     for s in range(0, STREAM_ROWS, BATCH_ROWS):
         store.add_batch({k: v[s:s + BATCH_ROWS] for k, v in stream.items()})
     specs = make_specs(rng, stream, q)
-    print(f"main path: {STREAM_ROWS} rows streamed in {BATCH_ROWS}-row batches, "
+    print(f"store: {STREAM_ROWS} rows streamed in {BATCH_ROWS}-row batches, "
           f"{len(specs)} specs, set-up {time.perf_counter() - t0:.2f} s")
+    return store, specs, stream
 
+
+def driven(torch, ops, what: str, fn):
+    """Run one path with every launch count set to 0 just before it and read
+    just after, recording each kernel wrapper's calls; returns (result,
+    seconds, counts, calls)."""
     ops.reset_launch_counts()
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    t0 = time.perf_counter()
     with recording(ops) as calls:
-        res = store.query(specs)
+        out = fn()
         torch.cuda.synchronize()
-    first_s = time.perf_counter() - t1
+    sec = time.perf_counter() - t0
     counts = ops.launch_counts()
-    print(f"main path first query (fits included): {first_s * 1e3:.1f} ms; "
-          f"launches {counts}")
+    print(f"{what}: {sec * 1e3:.1f} ms; launches {counts}")
     for name, made in calls.items():
         check(len(made) == counts[name],
-              f"{name}: {len(made)} wrapper calls but {counts[name]} launches")
-        print(f"main-path calls of {name}: "
-              f"{', '.join(call_shape(name, a, k) for a, k in made)}")
+              f"{what}: {name}: {len(made)} wrapper calls but {counts[name]} launches")
+        shapes = [call_shape(name, a, k) for a, k in made]
+        if len(set(shapes)) == 1 and len(shapes) > 3:
+            print(f"{what}: calls of {name}: {len(shapes)} x {shapes[0]}")
+        elif shapes:
+            print(f"{what}: calls of {name}: {', '.join(shapes)}")
+    return out, sec, counts, calls
 
+
+def check_answers(store, specs, stream, res, selector: str, suffix: str) -> np.ndarray:
+    """Every answer finite and inside its CI, each spec on its path; the
+    first 32 specs of each range column and 48 boxes held against a float64
+    closed form of the same synopses; Eq answers equal to exact counts of
+    the stream."""
     check(len(res) == len(specs), "one result per spec")
     est = np.asarray([r.estimate for r in res])
     lo = np.asarray([r.ci_lo for r in res])
     hi = np.asarray([r.ci_hi for r in res])
-    check(bool(np.all(np.isfinite(est))), "non-finite estimate")
-    check(bool(np.all((lo <= est) & (est <= hi))), "an estimate outside its CI")
+    check(bool(np.all(np.isfinite(est))), f"{selector}: non-finite estimate")
+    check(bool(np.all((lo <= est) & (est <= hi))), f"{selector}: an estimate outside its CI")
     paths = [r.path for r in res]
-    check(set(paths[:N_RANGE]) == {"range1d:cuda"}, f"range paths {set(paths[:N_RANGE])}")
-    check(set(paths[N_RANGE:N_RANGE + N_BOX]) == {"box:cuda"}, "box paths")
+    check(set(paths[:N_RANGE]) == {"range1d" + suffix}, f"range paths {set(paths[:N_RANGE])}")
+    check(set(paths[N_RANGE:N_RANGE + N_BOX]) == {"box" + suffix}, "box paths")
     check(set(paths[N_RANGE + N_BOX:]) == {"exact"}, "Eq paths")
-    n_axes = len(RANGE_COLS) + len(JOINT)
-    check(counts["pairwise_scaled_ksum"] >= 2 * n_axes,
-          f"pairwise launched {counts['pairwise_scaled_ksum']} < {2 * n_axes}")
-    check(counts["aqp_batch_sums"] >= len(RANGE_COLS), "aqp_batch launches")
-    check(counts["aqp_box_sums"] >= 1, "aqp_boxes launches")
 
-    # answers vs a float64 closed form of the same synopses (scaled), on the
-    # first 32 specs of each range column and of the boxes
     for col in RANGE_COLS:
-        syn = store.synopsis(col)
+        syn = store.synopsis(col, selector)
         idx = [i for i in range(N_RANGE) if specs[i].predicates[0].column == col][:32]
         a = [specs[i].predicates[0].a for i in idx]
         b = [specs[i].predicates[0].b for i in idx]
@@ -274,12 +305,12 @@ def main_path(args, torch, rt):
             want.append({"count": cnt, "sum": sm}.get(specs[i].aggregate,
                                                       sm / cnt if cnt > 1e-3 else 0.0))
         ok, err = close(est[idx], want, 1e-4, 1e-3)
-        check(ok, f"range1d:cuda answers on {col} vs float64 (max err {err})")
-    syn = store.joint_synopsis(JOINT)
+        check(ok, f"{selector}: range1d{suffix} answers on {col} vs float64 (max err {err})")
+    syn = store.joint_synopsis(JOINT, selector)
     idx = list(range(N_RANGE, N_RANGE + 48))
     boxes = [specs[i].predicates[0] for i in idx]
     tgt = [0 if specs[i].target is None else JOINT.index(specs[i].target) for i in idx]
-    c64, s64 = oracle_boxes(syn.x.cpu().numpy(), syn.h.cpu().numpy(),
+    c64, s64 = oracle_boxes(syn.x.cpu().numpy(), syn.h_diag().cpu().numpy(),
                             [bx.lo for bx in boxes], [bx.hi for bx in boxes], tgt)
     scale = syn.n_source / syn.x.shape[0]
     want = []
@@ -288,8 +319,7 @@ def main_path(args, torch, rt):
         want.append({"count": cnt, "sum": sm}.get(specs[i].aggregate,
                                                   sm / cnt if cnt > 1e-3 else 0.0))
     ok, err = close(est[idx], want, 1e-4, 1e-3)
-    check(ok, f"box:cuda answers vs float64 (max err {err})")
-    # exact path vs the stream itself
+    check(ok, f"{selector}: box{suffix} answers vs float64 (max err {err})")
     codes = stream["model_id"]
     for i in range(N_RANGE + N_BOX, len(specs)):
         v = specs[i].predicates[0].value
@@ -297,22 +327,84 @@ def main_path(args, torch, rt):
         want = {"count": float(cnt), "sum": float(v * cnt)}.get(
             specs[i].aggregate, v if cnt else 0.0)
         check(est[i] == want, f"exact answer {est[i]} != {want}")
+    return est
 
+
+def repeat_query(torch, ops, store, specs, res, selector: str, what: str) -> dict:
+    """The same batch again: plans and fits from the caches, no fit
+    launches, bit-identical answers."""
     misses = store.cache.stats()["misses"]
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    res2 = store.query(specs)
-    torch.cuda.synchronize()
-    repeat_s = time.perf_counter() - t2
-    counts2 = ops.launch_counts()
+    res2, sec, counts, _ = driven(torch, ops, f"{what} repeat query (cached fits)",
+                                  lambda: store.query(specs, selector=selector))
     same = all(r.estimate == r2.estimate and r.ci_lo == r2.ci_lo and r.ci_hi == r2.ci_hi
                and r.path == r2.path for r, r2 in zip(res, res2))
-    check(same, "repeat query not bit-identical")
-    check(store.cache.stats()["misses"] == misses and counts2["pairwise_scaled_ksum"] == 0,
-          "repeat query refitted instead of using the cached fits")
-    print(f"main path repeat query (cached fits): {repeat_s * 1e3:.1f} ms; "
-          f"launches {counts2}; bit-identical answers")
+    check(same, f"{what}: repeat query not bit-identical")
+    fit_kernels = ("pairwise_scaled_ksum", "sv_matrix", "lscv_grid_sums", "gh_fused_sum")
+    check(store.cache.stats()["misses"] == misses
+          and all(counts[k] == 0 for k in fit_kernels),
+          f"{what}: repeat query refitted instead of using the cached fits")
+    print(f"{what} repeat query: bit-identical answers")
+    return counts
+
+
+def main_path(torch, rt, store, specs, stream):
+    """The PLUGIN path (PR 11's main path)."""
+    ops = rt["ops"]
+    res, _, counts, calls = driven(torch, ops, "main path (PLUGIN) first query, fits included",
+                                   lambda: store.query(specs))
+    check_answers(store, specs, stream, res, "plugin", ":cuda")
+    n_axes = len(RANGE_COLS) + len(JOINT)
+    check(counts["pairwise_scaled_ksum"] >= 2 * n_axes,
+          f"pairwise launched {counts['pairwise_scaled_ksum']} < {2 * n_axes}")
+    check(counts["aqp_batch_sums"] >= len(RANGE_COLS), "aqp_batch launches")
+    check(counts["aqp_box_sums"] >= 1, "aqp_boxes launches")
+    repeat_query(torch, ops, store, specs, res, "plugin", "main path")
+    return counts, calls
+
+
+def path_a(torch, rt, store, specs, stream):
+    """Path A: the same store and specs served from LSCV_h fits."""
+    ops = rt["ops"]
+    res, _, counts, calls = driven(
+        torch, ops, "path A (lscv_h) first query, fits included",
+        lambda: store.query(specs, selector="lscv_h"))
+    n_fits = len(RANGE_COLS) + 1
+    want = {"pairwise_scaled_ksum": 0, "aqp_batch_sums": len(RANGE_COLS), "aqp_box_sums": 1,
+            "sv_matrix": n_fits, "lscv_grid_sums": n_fits, "gh_fused_sum": 0}
+    check(counts == want, f"path A launches {counts}, expected {want}")
+    check_answers(store, specs, stream, res, "lscv_h", ":cuda")
+    hs = {c: float(store.synopsis(c, "lscv_h").h) for c in RANGE_COLS}
+    hs["joint"] = float(store.joint_synopsis(JOINT, "lscv_h").h)
+    print(f"path A: LSCV_h h per fit (Sigma-whitened, served as a data-unit bandwidth): {hs}")
+    counts2 = repeat_query(torch, ops, store, specs, res, "lscv_h", "path A")
+    want2 = dict(want, sv_matrix=0, lscv_grid_sums=0)
+    check(counts2 == want2, f"path A repeat launches {counts2}, expected {want2}")
+    return counts, calls
+
+
+def path_b(torch, rt, store):
+    """Path B: the joint's LSCV_H fit, one gh_fused launch per evaluation."""
+    ops, lscv = rt["ops"], rt["lscv"]
+    syn, sec, counts, calls = driven(
+        torch, ops, "path B (lscv_H joint fit)",
+        lambda: store.joint_synopsis(JOINT, selector="lscv_H"))
+    n_eval = counts["gh_fused_sum"]
+    check(n_eval > 0 and sum(counts.values()) == n_eval,
+          f"path B launches {counts}: only gh_fused_sum expected")
+    H = syn.H.double().cpu().numpy()
+    w = np.linalg.eigvalsh(H)
+    check(bool(np.all(w > 0)), f"path B: H not SPD (eigenvalues {w})")
+    g = float(lscv.g_of_H(syn.x, syn.H, device="cuda"))
+    H0 = lscv.h_start(syn.x)
+    g0 = float(lscv.g_of_H(syn.x, H0, device="cuda"))
+    check(g <= g0, f"path B: g(H) {g} > g(H_start) {g0}")
+    direct = lscv.lscv_H(syn.x, device="cuda")
+    check(direct.nfev == n_eval,
+          f"path B: a direct lscv_H made {direct.nfev} evaluations, the store path "
+          f"{n_eval} launches")
+    print(f"path B: it {direct.it}, nfev {direct.nfev}, gh_fused_sum launches {n_eval}, "
+          f"wall {sec:.3f} s ({sec / n_eval * 1e3:.3f} ms per evaluation); "
+          f"g(H) {g!r} <= g(H_start) {g0!r}; H eigenvalues {w}")
     return counts, calls
 
 
@@ -452,6 +544,138 @@ def kernels_vs_plain(torch, rt, calls):
     return out
 
 
+def held_dev(torch, a, b, rtol: float, atol: float, what: str, rows: int = 4096) -> float:
+    """held() for large device tensors, compared on the card in row slabs."""
+    check(tuple(a.shape) == tuple(b.shape), f"{what}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0.0
+    a2, b2 = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    ok, worst = True, 0.0
+    for s in range(0, a2.shape[0], rows):
+        x, y = a2[s:s + rows].double(), b2[s:s + rows].double()
+        e = (x - y).abs()
+        ok = ok and bool(torch.all(e <= atol + rtol * y.abs()))
+        worst = max(worst, float(e.max()))
+    check(ok, f"{what}: max abs error {worst} beyond rtol {rtol} atol {atol}")
+    return worst
+
+
+def oracle_quadform_sum(x, m, c_k, c_kk) -> float:
+    """sum_{i<j} c_kk exp(-s/4) - 2 c_k exp(-s/2) in float64, s = v^T M v."""
+    x = np.asarray(x, np.float64)
+    m = np.asarray(m, np.float64)
+    n = x.shape[0]
+    total = 0.0
+    for s in range(0, n, 512):
+        v = x[s:s + 512, None, :] - x[None]
+        q = np.einsum("ijd,de,ije->ij", v, m, v)
+        i = s + np.arange(q.shape[0])
+        t = c_kk * np.exp(-0.25 * q) - 2.0 * c_k * np.exp(-0.5 * q)
+        total += float(np.where(i[:, None] < np.arange(n)[None], t, 0.0).sum())
+    return total
+
+
+def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b):
+    """The LSCV kernels against their plain versions on the inputs of every
+    call of path A (sv_matrix, lscv_grid_sums) and the first and last calls
+    of path B (gh_fused_sum), at edge shapes, and against float64; path A's
+    aqp_batch / aqp_boxes calls against theirs; LSCV_h at n = 512 on the
+    card against the paper's sequential float64 oracle."""
+    ops, ref, lscv = rt["ops"], rt["ref"], rt["lscv"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    out = {}
+
+    for name in ("aqp_batch_sums", "aqp_box_sums"):
+        for args, kw in calls_a[name]:
+            k = getattr(ops, name)(*args, **kw)
+            p = getattr(ref, name)(*args, **kw)
+            what = f"path A {name} {call_shape(name, args, kw)}"
+            held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, what + " count")
+            held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, what + " sum")
+    print(f"path A: {len(calls_a['aqp_batch_sums'])} aqp_batch and "
+          f"{len(calls_a['aqp_box_sums'])} aqp_boxes calls (LSCV_h bandwidths) match plain")
+
+    errs = []
+    for args, kw in calls_a["sv_matrix"]:
+        k = ops.sv_matrix(*args, **kw)
+        p = ref.sv_matrix(args[0], args[1])
+        errs.append(held_dev(torch, k, p, SV_RTOL, SV_ATOL,
+                             f"sv_matrix {call_shape('sv_matrix', args, kw)}"))
+        del k, p
+    out["sv_matrix"] = max(errs)
+    x, m = calls_a["sv_matrix"][-1][0][:2]
+    sub = x[:1024].contiguous()
+    x64, m64 = sub.double().cpu().numpy(), m.double().cpu().numpy()
+    v = x64[:, None] - x64[None]
+    s64 = np.triu(np.einsum("ijd,de,ije->ij", v, m64, v), 1)
+    held(ops.sv_matrix(sub, m).cpu(), s64, SV_RTOL, SV_ATOL, "sv_matrix vs float64")
+    for n in (1, 2, 4097):
+        for d in (1, 3, 16):
+            xs = torch.as_tensor(rng.normal(0, 1, (n, d)).astype(np.float32), device=dev)
+            m0 = rng.normal(0, 1, (d, d))
+            ms = torch.as_tensor((0.2 * m0 @ m0.T + np.eye(d)).astype(np.float32), device=dev)
+            p = ref.sv_matrix(xs, ms)
+            for alg in ("paper", "mxu"):
+                held_dev(torch, ops.sv_matrix(xs, ms, algorithm=alg), p, SV_RTOL, SV_ATOL,
+                         f"sv_matrix n={n} d={d} {alg}")
+    print(f"sv_matrix: {len(errs)} path-A calls match plain, max |err| {max(errs):.3g}; "
+          f"n=1024 d={x.shape[1]} within tolerance of float64; edge shapes n=1/2/4097 x "
+          f"d=1/3/16 x paper/mxu match plain")
+
+    errs = []
+    for args, kw in calls_a["lscv_grid_sums"]:
+        k = ops.lscv_grid_sums(*args, **kw).cpu()
+        p = ref.lscv_grid_sums(*args, **kw).cpu()
+        errs.append(held(k, p, GRID_RTOL, GRID_ATOL,
+                         f"lscv_grid_sums {call_shape('lscv_grid_sums', args, kw)}"))
+    out["lscv_grid_sums"] = max(errs)
+    for n in (1, 2, 4097):
+        xs = torch.as_tensor(rng.normal(0, 1, (n, 2)).astype(np.float32), device=dev)
+        ms = torch.eye(2, device=dev)
+        hg = torch.linspace(0.05, 2.0, 150, device=dev)
+        held(ops.lscv_grid_sums(xs, ms, hg, 0.3, 0.2).cpu(),
+             ref.lscv_grid_sums(xs, ms, hg, 0.3, 0.2).cpu(), GRID_RTOL, GRID_ATOL,
+             f"lscv_grid_sums n={n}")
+    xs = rng.normal(0.0, 1.0, (512, 3)).astype(np.float32)
+    res = lscv.lscv_h(xs, backend="cuda", device="cuda")
+    worst = 0.0
+    for i in (0, 50, 100, 149):
+        oracle = lscv.g_of_h_sequential(xs, float(res.h_grid[i]))
+        rel = abs(float(res.g_values[i]) - oracle) / abs(oracle)
+        check(rel < 2e-3, f"LSCV_h n=512 g[{i}] {float(res.g_values[i])} vs float64 {oracle}")
+        worst = max(worst, rel)
+    print(f"lscv_grid_sums: {len(errs)} path-A calls match plain, max |err| {max(errs):.3g}; "
+          f"edge shapes n=1/2/4097 match; LSCV_h n=512 d=3 on the kernels within {worst:.2g} "
+          f"relative of the sequential float64 oracle at 4 grid points")
+
+    made = calls_b["gh_fused_sum"]
+    errs = []
+    for tag, (args, kw) in (("first", made[0]), ("last", made[-1])):
+        errs.append(held(float(ops.gh_fused_sum(*args, **kw)),
+                         float(ref.gh_fused_sum(*args, **kw)), GH_RTOL, GH_ATOL,
+                         f"gh_fused_sum {tag} path-B call"))
+    out["gh_fused_sum"] = max(errs)
+    x, h_inv, c_k, c_kk = made[-1][0]
+    sub = x[:4096].contiguous()
+    held(float(ops.gh_fused_sum(sub, h_inv, c_k, c_kk)),
+         oracle_quadform_sum(sub.cpu().numpy(), h_inv.cpu().numpy(), float(c_k), float(c_kk)),
+         GH_RTOL, GH_ATOL, "gh_fused_sum vs float64")
+    for n in (1, 2, 4097):
+        for d in (1, 3, 8):
+            xs = torch.as_tensor(rng.normal(0, 1, (n, d)).astype(np.float32), device=dev)
+            m0 = rng.normal(0, 1, (d, d))
+            ms = torch.as_tensor((0.1 * m0 @ m0.T + np.eye(d)).astype(np.float32), device=dev)
+            held(float(ops.gh_fused_sum(xs, ms, 0.31, 0.17)),
+                 float(ref.gh_fused_sum(xs, ms, 0.31, 0.17)), GH_RTOL, GH_ATOL,
+                 f"gh_fused_sum n={n} d={d}")
+    print(f"gh_fused_sum: first and last of {len(made)} path-B calls match plain, max |err| "
+          f"{max(errs):.3g}; n=4096 within tolerance of float64; edge shapes n=1/2/4097 x "
+          f"d=1/3/8 match plain")
+    torch.cuda.synchronize()
+    return out
+
+
 def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     """Median of `reps` warm runs, each between two CUDA events."""
     for _ in range(warm):
@@ -477,7 +701,11 @@ def bound_ms(name: str, args, kwargs) -> tuple:
     """Least time on an H100 for the work of one call: the larger of bytes
     (each input read once, each output written once) over HBM bandwidth and
     operations over the FP32 peak.  Operations count each exp / erfc as one
-    (a lower bound: on the card each is several instructions or an SFU op)."""
+    and each FMA as one (a lower bound: on the card an exp is several
+    instructions or an SFU op, and the peak counts an FMA as two).  For
+    lscv_grid_sums the work is the grid phase alone: the strict upper
+    triangle of S read once, 4 operations per (pair, h) (scale, exp2,
+    two FMAs)."""
     if name == "pairwise_scaled_ksum":
         x = args[0]
         n = x.shape[0]
@@ -488,42 +716,82 @@ def bound_ms(name: str, args, kwargs) -> tuple:
         n, q = x.shape[0], a.shape[0]
         nbytes = 4 * n + 4 + 8 * q + 8 * q
         ops = 24 * n * q                     # 2 erfc, 2 exp, ~20 FP32 per pair
-    else:
+    elif name == "aqp_box_sums":
         x, _h, lo, _hi, _t = args
         (n, d), q = x.shape, lo.shape[0]
         nbytes = 4 * n * d + 4 * d + 8 * q * d + 4 * q + 8 * q
         ops = (13 * d + 13) * n * q          # per axis 2 erfc + 11; target 2 exp + 11
+    elif name == "sv_matrix":
+        n, d = args[0].shape
+        nbytes = 4 * n * d + 4 * d * d + 4 * n * n
+        ops = (2 * d + d * (d + 1) // 2) * n * (n - 1) // 2   # subs, quadratic-form FMAs
+    elif name == "lscv_grid_sums":
+        n, n_h = args[0].shape[0], args[2].shape[0]
+        nbytes = 4 * n * (n - 1) // 2 + 8 * n_h + 8
+        ops = 4 * n_h * n * (n - 1) // 2
+    else:                                    # gh_fused_sum
+        n, d = args[0].shape
+        nbytes = 4 * n * d + 4 * d * d + 8 + 4
+        ops = (2 * d + d * (d + 1) // 2 + 3) * n * (n - 1) // 2  # + exp2, two FMAs
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def timings(torch, rt, calls):
-    """Kernel and plain version on the inputs of each kernel's first
-    main-path call, in the order plain, kernel, kernel, plain."""
+def timings(torch, rt, first, main_calls, calls_a):
+    """Kernel and plain version on the inputs of each kernel's first call
+    on its path (`first`: name -> (args, kwargs)), in the order plain,
+    kernel, kernel, plain.  lscv_grid_sums is timed as its grid phase alone,
+    over the S that sv_matrix makes from those inputs.  A plain version
+    whose first call takes over a second is timed over 2 runs, one over a
+    tenth of a second over 5, the rest over 15; each line says which."""
     ops, ref = rt["ops"], rt["ref"]
     out = {}
     for name in TPU_KERNELS:
-        args, kw = calls[name][0]
-        kern = getattr(ops, name)
-        plain = getattr(ref, name)
-        p1 = time_ms(torch, lambda: plain(*args, **kw))
-        k1 = time_ms(torch, lambda: kern(*args, **kw))
-        k2 = time_ms(torch, lambda: kern(*args, **kw))
-        p2 = time_ms(torch, lambda: plain(*args, **kw))
+        args, kw = first[name]
+        note = ""
+        if name == "lscv_grid_sums":
+            x, m, hg, c_k, c_kk = args
+            s_mat = ops.sv_matrix(x, m)
+
+            def kern():
+                return ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk)
+
+            def plain():
+                return ref.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk)
+            note = ", grid phase alone over its S"
+        else:
+            def kern():
+                return getattr(ops, name)(*args, **kw)
+
+            def plain():
+                return getattr(ref, name)(*args, **({} if name == "sv_matrix" else kw))
+        probe = time_ms(torch, plain, reps=1, warm=0)
+        reps, warm = (2, 0) if probe > 1000 else ((5, 1) if probe > 100 else (15, 3))
+        p1 = time_ms(torch, plain, reps=reps, warm=warm)
+        k1 = time_ms(torch, kern)
+        k2 = time_ms(torch, kern)
+        p2 = time_ms(torch, plain, reps=reps, warm=warm)
+        s_mat = None
         b, by = bound_ms(name, args, kw)
         out[name] = (min(k1, k2), min(p1, p2), b, by)
-        print(f"time {name} ({call_shape(name, args, kw)}, the main path's first call): "
-              f"kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
-              f"bound {b:.4f} ms ({by}); no single PyTorch call computes it "
-              f"(library_ms null)")
-    x, h = calls["aqp_batch_sums"][0][0][:2]
-    a, b = all_range_bounds(torch, calls)
+        print(f"time {name} ({call_shape(name, args, kw)}, the first call on path "
+              f"{KERNEL_PATH[name]}{note}): kernel {k1:.4f} / {k2:.4f} ms (median of 15), "
+              f"plain {p1:.4f} / {p2:.4f} ms (median of {reps}), bound {b:.4f} ms ({by}); "
+              f"no single PyTorch call computes it (library_ms null)")
+    x, h = main_calls["aqp_batch_sums"][0][0][:2]
+    a, b = all_range_bounds(torch, main_calls)
     k1 = time_ms(torch, lambda: ops.aqp_batch_sums(x, h, a, b))
     k2 = time_ms(torch, lambda: ops.aqp_batch_sums(x, h, a, b))
     print(f"time aqp_batch_sums extra shape ({call_shape('aqp_batch_sums', (x, h, a, b), {})}, "
           f"all range groups in one launch): kernel {k1:.4f} / {k2:.4f} ms, "
           f"bound {bound_ms('aqp_batch_sums', (x, h, a, b), {})[0]:.4f} ms")
+    x, m = calls_a["sv_matrix"][-1][0][:2]
+    k1 = time_ms(torch, lambda: ops.sv_matrix(x, m))
+    k2 = time_ms(torch, lambda: ops.sv_matrix(x, m))
+    print(f"time sv_matrix extra shape ({call_shape('sv_matrix', (x, m), {})}, the joint's "
+          f"call on path A): kernel {k1:.4f} / {k2:.4f} ms, "
+          f"bound {bound_ms('sv_matrix', (x, m), {})[0]:.4f} ms")
     return out
 
 
@@ -537,27 +805,38 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import aqp_query, plugin
+    from repro_torch.core import aqp_query, lscv, plugin
     from repro_torch.data import aqp_store
     from repro_torch.kernels import _build, ops, pairwise_reduce, ref
-    rt = {"query": aqp_query, "plugin": plugin, "store": aqp_store, "ops": ops,
-          "ref": ref, "pairwise_reduce": pairwise_reduce}
+    rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
+          "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce}
+    t_start = time.perf_counter()
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s ({', '.join(_build.SOURCES.values())})")
 
-    counts, calls = main_path(args, torch, rt)
-    errs = kernels_vs_plain(torch, rt, calls)
-    times = timings(torch, rt, calls)
+    store, specs, stream = build_store(args, rt, aqp_query)
+    counts = {}
+    counts["plugin"], calls_main = main_path(torch, rt, store, specs, stream)
+    counts["A"], calls_a = path_a(torch, rt, store, specs, stream)
+    counts["B"], calls_b = path_b(torch, rt, store)
+    print(f"phases through path B: {time.perf_counter() - t_start:.1f} s")
+    errs = kernels_vs_plain(torch, rt, calls_main)
+    errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b))
+    print(f"phases through the plain-version checks: {time.perf_counter() - t_start:.1f} s")
+    paths = {"plugin": calls_main, "A": calls_a, "B": calls_b}
+    first = {name: paths[KERNEL_PATH[name]][name][0] for name in TPU_KERNELS}
+    times = timings(torch, rt, first, calls_main, calls_a)
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         k_ms, p_ms, b_ms, by = times[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": counts[KERNEL_PATH[name]][name],
                         "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -18,14 +18,20 @@ STATE_FORMAT = 1     # the reference's `repro.data.aqp_store.STATE_FORMAT`
 
 
 def synopsis_from_numpy(x, h, n_source: int, selector: str,
-                        device: DeviceLike = None) -> KDESynopsis:
+                        device: DeviceLike = None, H=None) -> KDESynopsis:
     """The port's synopsis from a reference synopsis's fields as numpy
-    arrays: sample `x`, bandwidth `h` (scalar or per axis)."""
+    arrays: sample `x` and either bandwidth `h` (scalar or per axis) or
+    full bandwidth matrix `H` (LSCV_H)."""
     dev = resolve_device(device)
-    return KDESynopsis(
-        x=torch.tensor(np.asarray(x, np.float32), dtype=DTYPE, device=dev),
-        h=torch.tensor(np.asarray(h, np.float32), dtype=DTYPE, device=dev),
-        n_source=int(n_source), selector=selector)
+    if (h is None) == (H is None):
+        raise ValueError("a synopsis carries exactly one of h and H")
+
+    def tensor(a):
+        return None if a is None else torch.tensor(
+            np.asarray(a, np.float32), dtype=DTYPE, device=dev)
+
+    return KDESynopsis(x=tensor(x), h=tensor(h), H=tensor(H),
+                       n_source=int(n_source), selector=selector)
 
 
 def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
@@ -35,13 +41,13 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
     Carries reservoir buffers with `n_seen`, `n_filled`, version and RNG
     state (so later `add_batch` calls sample as the reference would), joints
     with their backfill flags, exact categorical sketches, and cached
-    synopses with a bandwidth vector (plugin, silverman).  The reference
+    synopses with a bandwidth (plugin, silverman, lscv_h) or a full
+    bandwidth matrix (lscv_H).  The reference
     fits on its plain path, so its cached synopses serve the port's plain
     backend ("torch"); a "cuda" query refits on the kernel.  `meta["metrics"]`
     and `meta["plans"]` are skipped: the port has no metrics registry yet,
     and plans rebuild from the synopses on first use.  Tiered reservoirs,
-    count-min sketches and full-H or RFF cache entries raise
-    NotImplementedError.
+    count-min sketches and RFF cache entries raise NotImplementedError.
     """
     if int(meta.get("format", -1)) != STATE_FORMAT:
         raise ValueError(f"unsupported store-state format "
@@ -88,13 +94,11 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
             raise NotImplementedError(
                 f"cache entry {col!r} is a {ent['synopsis'].get('backend')!r} "
                 f"synopsis, not ported yet (ROADMAP queue 1.10)")
-        if f"cache/{i}/H" in arrays:
-            raise NotImplementedError(
-                f"cache entry {col!r} has a full bandwidth matrix, not ported "
-                f"yet (ROADMAP queue 1.10)")
-        syn = synopsis_from_numpy(arrays[f"cache/{i}/x"], arrays[f"cache/{i}/h"],
+        syn = synopsis_from_numpy(arrays[f"cache/{i}/x"],
+                                  arrays.get(f"cache/{i}/h"),
                                   ent["n_source"], str(ent["syn_selector"]),
-                                  device=store.device)
+                                  device=store.device,
+                                  H=arrays.get(f"cache/{i}/H"))
         store.cache.put(col, str(ent["selector"]), int(ent["version"]), syn,
                         backend="torch")
     return store

@@ -11,8 +11,10 @@ with the Gaussian closed forms
   Integral_a^b x K_h(x - Xi) dx  = Xi [Phi(.)]_a^b - h [phi((x-Xi)/h)]_a^b
 
 and, for axis-aligned boxes under a diagonal bandwidth, their per-axis
-product (eq. 11).  Selectors "plugin" and "silverman" are ported; the LSCV
-selectors wait for their slice (ROADMAP queue 1.9).
+product (eq. 11).  Selectors "plugin", "silverman", "lscv_h" (one scalar
+h, broadcast to every axis) and "lscv_H" (a full bandwidth matrix) are
+ported; queries against a full-H synopsis need the QMC path of the full-H
+slice (ROADMAP queue 1.10) and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.kernels import ref as kref
 
 from . import gaussian as G
 from .kde import silverman_h
+from .lscv import lscv_H, lscv_h
 from .plugin import plugin_bandwidth
 
 # Slab of queries evaluated at once by the plain (q, n[, d]) passes.
@@ -85,12 +88,15 @@ def sum_box_diag(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
 class KDESynopsis:
     """A fitted density synopsis for one numeric column (or column set).
 
-    `x` is the retained sample on the device; `h` a 0-d bandwidth for 1-D
-    synopses or a (d,) diagonal bandwidth (one PLUGIN / silverman h per
-    axis, the product-kernel form of eq. 11).
+    `x` is the retained sample on the device.  `h` is a 0-d bandwidth for
+    1-D synopses, or a (d,) diagonal bandwidth (one PLUGIN / silverman h per
+    axis, the product-kernel form of eq. 11), or LSCV_h's 0-d h for any d;
+    `H` is LSCV_H's full (d, d) bandwidth matrix.  Exactly one of `h` / `H`
+    is set.
     """
     x: torch.Tensor
-    h: torch.Tensor
+    h: Optional[torch.Tensor] = None
+    H: Optional[torch.Tensor] = None
     n_source: int = 0
     selector: str = "plugin"
 
@@ -98,9 +104,11 @@ class KDESynopsis:
     def fit(cls, data, selector: str = "plugin", max_sample: int = 4096,
             seed: int = 0, backend: Optional[str] = None,
             device: DeviceLike = None) -> "KDESynopsis":
-        """Fit on `device` (default: the CUDA device).  Above `max_sample`
-        rows a uniform subsample is drawn with a seeded torch.Generator — it
-        cannot reproduce the reference's jax.random rows."""
+        """Fit on `device` (default: the CUDA device) with `backend` (None:
+        the device's default; the reference fits LSCV_H on its plain path
+        whatever it is given).  Above `max_sample` rows a uniform subsample
+        is drawn with a seeded torch.Generator — it cannot reproduce the
+        reference's jax.random rows."""
         dev = resolve_device(device)
         backend = resolve_backend(backend, dev)
         data = torch.as_tensor(data, dtype=DTYPE, device=dev)
@@ -111,14 +119,17 @@ class KDESynopsis:
             sample = data[idx.to(dev)]
         else:
             sample = data
+        if selector == "lscv_h":
+            res = lscv_h(sample, backend=backend, device=dev)
+            return cls(x=sample, h=res.h, n_source=n_source, selector=selector)
+        if selector == "lscv_H":
+            res = lscv_H(sample, backend=backend, device=dev)
+            return cls(x=sample, H=res.H, n_source=n_source, selector=selector)
         if selector == "plugin":
             def fit_axis(col):
                 return plugin_bandwidth(col, backend=backend, device=dev).h
         elif selector == "silverman":
             fit_axis = silverman_h
-        elif selector in ("lscv_h", "lscv_H"):
-            raise NotImplementedError(
-                f"selector {selector!r} is not ported yet (ROADMAP queue 1.9)")
         else:
             raise ValueError(f"unknown selector {selector!r}")
         if sample.dim() == 1:
@@ -135,12 +146,20 @@ class KDESynopsis:
         """Scale factor from retained sample to the full relation."""
         return self.n_source / self.x.shape[0]
 
+    def _require_h(self) -> None:
+        if self.H is not None:
+            raise NotImplementedError(
+                "queries against a full-H (LSCV_H) synopsis take the QMC path, "
+                "not ported yet (ROADMAP queue 1.10)")
+
     def count(self, a: float, b: float) -> torch.Tensor:
+        self._require_h()
         if self.x.dim() == 1:
             return self._scale() * count_1d(self.x, self.h, a, b)
         raise ValueError("use count_box for multi-d synopses")
 
     def sum(self, a: float, b: float) -> torch.Tensor:
+        self._require_h()
         if self.x.dim() == 1:
             return self._scale() * sum_1d(self.x, self.h, a, b)
         raise ValueError("1-D only")
@@ -153,6 +172,7 @@ class KDESynopsis:
 
     def h_diag(self) -> torch.Tensor:
         """Per-axis bandwidth vector (a scalar h broadcast to every axis)."""
+        self._require_h()
         d = self._as_rows().shape[1]
         return torch.broadcast_to(self.h.to(DTYPE), (d,)).contiguous()
 

@@ -20,10 +20,14 @@ Counterpart: `repro/core/aqp_query.py`.
   `AqpResult`   — estimate, path, analytic confidence interval, synopsis
                   version.
 
+Synopses of every ported selector plan onto these paths: PLUGIN and
+silverman fits with their per-axis h, LSCV_h fits with one h broadcast to
+every axis.  An LSCV_H fit carries a full H and plans onto the `qmc` path.
+
 Not ported yet, and raising NotImplementedError when asked for: the GROUP BY
 family path `box:grouped` (ROADMAP queue 1.8), the full-H paths `qmc` and
-`qmc:rff` (queue 1.10, they need the LSCV_H selector of queue 1.9) and
-progressive execution over tiered reservoirs (queue 1.7).
+`qmc:rff` (queue 1.10; an LSCV_H synopsis plans onto them) and progressive
+execution over tiered reservoirs (queue 1.7).
 """
 from __future__ import annotations
 
@@ -333,7 +337,7 @@ class _GroupPlan:
     synopsis, its path, per-axis bandwidths for the accuracy proxy and the
     sample->relation scale.  Cached keyed on the synopsis version."""
     syn: KDESynopsis
-    kind: str                 # "range1d" | "box"
+    kind: str                 # "range1d" | "box" | "qmc"
     h_axes: np.ndarray
     scale: float
 
@@ -343,8 +347,12 @@ class _GroupPlan:
 
 
 def _make_plan(syn: KDESynopsis) -> _GroupPlan:
-    h_axes = syn.h_diag().detach().cpu().numpy().astype(np.float64)
-    kind = "range1d" if syn.x.dim() == 1 else "box"
+    if syn.H is not None:
+        kind = "qmc"
+        h_axes = np.sqrt(np.diag(syn.H.detach().cpu().numpy().astype(np.float64)))
+    else:
+        kind = "range1d" if syn.x.dim() == 1 else "box"
+        h_axes = syn.h_diag().detach().cpu().numpy().astype(np.float64)
     return _GroupPlan(syn=syn, kind=kind, h_axes=h_axes,
                       scale=syn.n_source / syn.x.shape[0])
 
@@ -485,6 +493,10 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
     """Answer one resolved group in one batched pass; returns one
     (estimate, path label, ci_lo, ci_hi, n_effective) per entry, in entry
     order.  The CI comes from a separate moments pass."""
+    if plan.kind == "qmc":
+        raise NotImplementedError(
+            f"group {key} has a full-H (LSCV_H) synopsis, answered on the qmc "
+            f"path, not ported yet (ROADMAP queue 1.10)")
     syn = plan.syn
     x = plan.x_rows
     d_syn = x.shape[1]

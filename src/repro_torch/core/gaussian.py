@@ -1,5 +1,6 @@
-"""Gaussian kernel and the derivative kernels PLUGIN uses (paper §4,
-eqs. 14-19).  Counterpart: `repro/core/gaussian.py`."""
+"""Gaussian kernel, the derivative kernels PLUGIN uses (paper §4, eqs.
+14-19) and the normalisation constants of the LSCV kernels (eqs. 26-36).
+Counterpart: `repro/core/gaussian.py`."""
 from __future__ import annotations
 
 import math
@@ -49,3 +50,26 @@ def dens_diff(za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
     """phi(zb) - phi(za)."""
     return INV_SQRT_2PI * (torch.exp(-0.5 * zb * zb)
                            - torch.exp(-0.5 * za * za))
+
+
+def lscv_h_consts(d: int, det_sigma):
+    """Normalisation constants of the Sigma-shaped kernels (eqs. 26, 27).
+
+    Returns (c_K, c_KK, r_K) with
+      K(u)      = c_K  * exp(-1/2 u^T Sigma^-1 u)
+      (K*K)(u)  = c_KK * exp(-1/4 u^T Sigma^-1 u)
+      R(K)      = (K*K)(0) = c_KK
+    """
+    det_root = det_sigma ** -0.5
+    c_k = (2.0 * math.pi) ** (-d / 2.0) * det_root
+    c_kk = (4.0 * math.pi) ** (-d / 2.0) * det_root
+    return c_k, c_kk, c_kk
+
+
+def lscv_H_consts(d: int, det_H):
+    """Normalisation constants of the H-shaped kernels (eqs. 34-36)."""
+    det_root = det_H ** -0.5
+    c_k = (2.0 * math.pi) ** (-d / 2.0) * det_root
+    c_kk = (4.0 * math.pi) ** (-d / 2.0) * det_root
+    r_k = 2.0 ** (-d) * math.pi ** (-d / 2.0) * det_root  # eq. 36 == c_kk
+    return c_k, c_kk, r_k

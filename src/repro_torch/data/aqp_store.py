@@ -9,12 +9,15 @@ same code as the reference, so both packages keep bit-identical samples of
 one stream.  Synopsis tensors live on the store's device.  One deliberate
 difference: `_fit_cached` fits with the engine's backend (the reference
 always fits on its plain path), so on the card PLUGIN's Psi6 and Psi4 run
-through the pairwise kernel on the served path.
+through the pairwise kernel, LSCV_h through the sv_precompute and lscv_grid
+kernels and LSCV_H's objective through the gh_fused kernel.
 
 Not ported yet, raising NotImplementedError when asked for: tiered
-reservoirs (ROADMAP queue 1.7), count-min sketches (queue 1.7), version
-subscriptions and admission sessions (queue 1.11) and checkpoints (queue
-1.12; `repro_torch.convert.store_from_state` reads a reference snapshot).
+reservoirs (ROADMAP queue 1.7), count-min sketches (queue 1.7), queries
+against an LSCV_H synopsis (its full-H qmc path, queue 1.10; the fit itself
+is ported), version subscriptions and admission sessions (queue 1.11) and
+checkpoints (queue 1.12; `repro_torch.convert.store_from_state` reads a
+reference snapshot).
 """
 from __future__ import annotations
 
@@ -178,8 +181,9 @@ class CategoricalSketch:
 
 
 def _entry_nbytes(syn: KDESynopsis) -> int:
-    """Device bytes of a cached synopsis: its sample and bandwidth."""
-    return int(syn.x.nbytes) + int(syn.h.nbytes)
+    """Device bytes of a cached synopsis: its sample and its bandwidth
+    (`h` or `H`)."""
+    return sum(int(t.nbytes) for t in (syn.x, syn.h, syn.H) if t is not None)
 
 
 class SynopsisCache:
@@ -353,8 +357,8 @@ class TelemetryStore:
 
     def joint_synopsis(self, columns: Sequence[str], selector: str = "plugin",
                        backend: Optional[str] = None) -> KDESynopsis:
-        """Joint synopsis over a tracked column tuple with one bandwidth per
-        axis (plugin / silverman)."""
+        """Joint synopsis over a tracked column tuple: per-axis diagonal
+        bandwidths (plugin / silverman), scalar LSCV_h, or full-H LSCV_H."""
         key = tuple(columns)
         res = self.joints.get(key)
         if res is None:

@@ -28,6 +28,9 @@ SOURCES = {
     "pairwise_reduce": "pairwise_reduce.cu",
     "aqp_batch": "aqp_batch.cu",
     "aqp_boxes": "aqp_boxes.cu",
+    "sv_precompute": "sv_precompute.cu",
+    "lscv_grid": "lscv_grid.cu",
+    "gh_fused": "gh_fused.cu",
 }
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

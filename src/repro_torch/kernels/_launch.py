@@ -42,6 +42,16 @@ def check_tile(value: int, name: str) -> int:
     return value
 
 
+def device_scalars(values, device: torch.device) -> torch.Tensor:
+    """A contiguous (len(values),) float32 tensor on `device` from Python
+    numbers or one-element tensors (tensors already there are not synced
+    to the host), for a kernel that reads its constants from device
+    memory."""
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                        device=device).reshape(())
+                        for v in values])
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

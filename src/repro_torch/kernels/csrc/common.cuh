@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace repro_torch {
 // Internal linkage: every kernel library carries its own copy.
@@ -47,6 +48,41 @@ __global__ void sum_chunk_partials(const float* __restrict__ partials,
   for (int k = 0; k < n_chunks; ++k) acc += partials[(size_t)k * 2 * q + c];
   if (c < q) cnt[c] = acc;
   else sum[c - q] = acc;
+}
+
+// eqs. (49)/(50) in double precision with the +-1 correction of
+// repro/kernels/triangle.py: column l holds bx in [l(l+1)/2, (l+1)(l+2)/2).
+// Turns a 1-D block index over the upper-triangle tiles into the tile's row
+// q and column l (the paper's Fig. 3 schema, Appendix A).
+__device__ __forceinline__ bool tri_col_ok(long long l, long long bx) {
+  return l >= 0 && l * (l + 1) / 2 <= bx && bx < (l + 1) * (l + 2) / 2;
+}
+
+__device__ __forceinline__ void bx_to_ql(long long bx, int* q, int* l) {
+  const long long l0 =
+      (long long)ceil((sqrt(8.0 * (double)bx + 9.0) - 3.0) * 0.5);
+  const long long lc =
+      tri_col_ok(l0 - 1, bx) ? l0 - 1 : (tri_col_ok(l0, bx) ? l0 : l0 + 1);
+  *l = (int)lc;
+  *q = (int)(bx - lc * (lc + 1) / 2);
+}
+
+// Block b sums row b of a (gridDim.x, m) partials array into out[b]:
+// strided float64 sums over 256 threads, then a fixed tree, so results are
+// the same bits run to run (no float atomics).  Launch with 256 threads.
+__global__ void sum_tile_partials(const float* __restrict__ partials,
+                                  long long m, float* __restrict__ out) {
+  __shared__ double s[256];
+  const float* row = partials + (size_t)blockIdx.x * (size_t)m;
+  double acc = 0.0;
+  for (long long idx = threadIdx.x; idx < m; idx += blockDim.x) acc += row[idx];
+  s[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = (float)s[0];
 }
 
 }  // namespace

@@ -22,21 +22,6 @@
 
 namespace repro_torch {
 
-// eqs. (49)/(50) in double precision with the +-1 correction of
-// repro/kernels/triangle.py: column l holds bx in [l(l+1)/2, (l+1)(l+2)/2).
-__device__ __forceinline__ bool tri_col_ok(long long l, long long bx) {
-  return l >= 0 && l * (l + 1) / 2 <= bx && bx < (l + 1) * (l + 2) / 2;
-}
-
-__device__ __forceinline__ void bx_to_ql(long long bx, int* q, int* l) {
-  const long long l0 =
-      (long long)ceil((sqrt(8.0 * (double)bx + 9.0) - 3.0) * 0.5);
-  const long long lc =
-      tri_col_ok(l0 - 1, bx) ? l0 - 1 : (tri_col_ok(l0, bx) ? l0 : l0 + 1);
-  *l = (int)lc;
-  *q = (int)(bx - lc * (lc + 1) / 2);
-}
-
 template <int KIND>
 __device__ __forceinline__ float kfun(float t) {
   const float t2 = t * t;
@@ -81,21 +66,6 @@ __global__ void pairwise_tiles(const float* __restrict__ x, int n,
   }
 }
 
-// One block of 256 threads: strided float64 sums, then a fixed tree.
-__global__ void sum_tile_partials(const float* __restrict__ partials, int m,
-                                  float* __restrict__ out) {
-  __shared__ double s[256];
-  double acc = 0.0;
-  for (int idx = threadIdx.x; idx < m; idx += blockDim.x) acc += partials[idx];
-  s[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = (float)s[0];
-}
-
 __global__ void triangle_map(long long n_tri, int* __restrict__ q,
                              int* __restrict__ l) {
   const long long bx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -126,7 +96,7 @@ extern "C" int pairwise_scaled_ksum_launch(const float* x, int n, const float* g
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_tile_partials<<<1, 256, 0, stream>>>(partials, (int)n_tri, out);
+  sum_tile_partials<<<1, 256, 0, stream>>>(partials, n_tri, out);
   return (int)cudaGetLastError();
 }
 

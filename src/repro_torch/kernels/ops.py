@@ -5,8 +5,9 @@ A wrapper launches the hand-written CUDA kernel when its input lies on a
 CUDA device; the launcher checks every argument and raises on anything the
 kernel does not take, and nothing falls back.  Only for a tensor on the CPU
 does a wrapper take the kernel's plain PyTorch version (`ref.py`).  Tiles
-are the launcher modules' constants.  Each launcher counts its launches
-(`launch_counts`).
+are the launcher modules' constants; the LSCV wrappers keep the reference's
+`tile` / `h_tile` keywords, None meaning those constants.  Each launcher
+counts its launches (`launch_counts`).
 """
 from __future__ import annotations
 
@@ -14,10 +15,14 @@ from typing import Dict
 
 from . import aqp_batch as _ab
 from . import aqp_boxes as _abx
+from . import gh_fused as _gh
+from . import lscv_grid as _lg
 from . import pairwise_reduce as _pr
 from . import ref
+from . import sv_precompute as _sv
 
-_COUNTERS = (_pr.launches, _ab.launches, _abx.launches)
+_COUNTERS = (_pr.launches, _ab.launches, _abx.launches, _sv.launches,
+             _lg.launches, _gh.launches)
 
 
 def pairwise_scaled_ksum(x, g, kind="k4"):
@@ -37,6 +42,37 @@ def aqp_box_sums(x, h_diag, lo, hi, tgt):
         return ref.aqp_box_sums(x, h_diag, lo, hi, tgt)
     return _abx.aqp_box_sums(x, h_diag, lo, hi, tgt, tile=_abx.TILE,
                              q_tile=_abx.Q_TILE)
+
+
+def sv_matrix(x, m, tile=None, algorithm="mxu"):
+    if x.device.type == "cpu":
+        if algorithm not in _sv.ALGORITHMS:
+            raise ValueError(f"unknown algorithm {algorithm!r}")
+        return ref.sv_matrix(x, m)
+    return _sv.sv_matrix(x, m, tile=tile or _sv.TILE, algorithm=algorithm)
+
+
+def gh_fused_sum(x, h_inv, c_k, c_kk, tile=None):
+    if x.device.type == "cpu":
+        return ref.gh_fused_sum(x, h_inv, c_k, c_kk)
+    return _gh.gh_fused_sum(x, h_inv, c_k, c_kk, tile=tile or _gh.TILE)
+
+
+def lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=None):
+    if s.device.type == "cpu":
+        return ref.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk)
+    return _lg.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk,
+                                     h_tile=h_tile or _lg.H_TILE)
+
+
+def lscv_grid_sums(x, sigma_inv, h_grid, c_k, c_kk, tile=None, h_tile=None):
+    """The sv_precompute kernel, then the grid kernel over its S (as the
+    reference's `lscv_grid_sums` runs its phase 1 first); S (4 GiB at
+    n = 32 768) is freed on return."""
+    if x.device.type == "cpu":
+        return ref.lscv_grid_sums(x, sigma_inv, h_grid, c_k, c_kk)
+    return lscv_grid_sums_from_s(sv_matrix(x, sigma_inv, tile=tile), h_grid,
+                                 c_k, c_kk, h_tile=h_tile)
 
 
 def launch_counts() -> Dict[str, int]:

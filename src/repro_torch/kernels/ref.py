@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels.
-Counterpart: `repro/kernels/ref.py:17-27,68-86,154-166`.
+Counterpart: `repro/kernels/ref.py:17-56,68-86,154-166`.
 
 Each function computes what its CUDA kernel computes, untiled, on any
 device: the CPU tests use them, the `ops.py` wrappers take them for tensors
@@ -7,7 +7,11 @@ on the CPU, and `chip_smoke.py` holds each kernel against them on the card.
 Where the reference forms a Phi difference as 0.5*(erf(zb/sqrt2) -
 erf(za/sqrt2)), which cancels in the far tails, these take both terms from
 the tail the pair sits in (`gaussian.phi_diff`), as the kernels do.  Work is cut into
-row or query slabs so the card's memory holds the main path's shapes.
+row or query slabs so the card's memory holds the main path's shapes: the
+reference builds the (n, n, d) differences of the quadratic forms at once,
+which at n = 32 768, d = 3 would be 12 GiB; these build (rows, n, d) slabs
+of at most QUAD_SLAB_ELEMS floats, and the triangle sums visit only the
+columns right of each slab's first row.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ _FUNS = {"k4": G.k4, "k6": G.k6, "gauss": G.phi}
 
 ROW_SLAB = 2048      # pairwise rows per slab: (2048, n) floats at a time
 QUERY_SLAB = 64      # queries per slab for the (q, n[, d]) AQP terms
+QUAD_SLAB_ELEMS = 1 << 24   # floats of one (rows, cols, d) difference slab
 
 
 def pairwise_scaled_ksum(x: torch.Tensor, g: torch.Tensor, kind: str
@@ -81,3 +86,82 @@ def aqp_box_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
         z = torch.zeros((0,), dtype=x.dtype, device=x.device)
         return z, z.clone()
     return torch.cat(cnt), torch.cat(sm)
+
+
+# --- LSCV: quadratic forms S_ij = (x_i - x_j)^T M (x_i - x_j) ---------------
+
+def _quad_slabs(x: torch.Tensor, m: torch.Tensor):
+    """Yield (start, s) for row slabs of the strict upper triangle: s is the
+    (rows, n - start) block of S over rows start.. and columns start..,
+    +inf where j <= i, so exp(-c * s) is 0 there."""
+    n, d = x.shape
+    rows_per = max(1, QUAD_SLAB_ELEMS // max(1, n * d))
+    for start in range(0, n, rows_per):
+        rows = x[start:start + rows_per]
+        cols = x[start:]
+        v = rows[:, None, :] - cols[None, :, :]              # (r, n - start, d)
+        s = torch.sum((v @ m) * v, dim=-1)
+        i = torch.arange(rows.shape[0], device=x.device)
+        j = torch.arange(cols.shape[0], device=x.device)
+        yield start, torch.where(i[:, None] < j[None, :], s, torch.inf)
+
+
+def sv_matrix(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """S_ij = (x_i-x_j)^T M (x_i-x_j) on the strict upper triangle, else 0.
+    x: (n, d), m: (d, d) -> (n, n)."""
+    n = x.shape[0]
+    out = torch.zeros((n, n), dtype=x.dtype, device=x.device)
+    for start, s in _quad_slabs(x, m):
+        out[start:start + s.shape[0], start:] = torch.where(
+            torch.isinf(s), 0.0, s)
+    return out
+
+
+def _t_h(s: torch.Tensor, c_k, c_kk) -> torch.Tensor:
+    """T_H(s) = c_kk exp(-s/4) - 2 c_k exp(-s/2)  (eqs. 33-35, 40-42)."""
+    return c_kk * torch.exp(-0.25 * s) - 2.0 * c_k * torch.exp(-0.5 * s)
+
+
+def gh_fused_sum(x: torch.Tensor, h_inv: torch.Tensor, c_k, c_kk
+                 ) -> torch.Tensor:
+    """sum_{i<j} T_H(x_i - x_j)  (LSCV_H eq. 32 inner sum, fused §6.3).
+    x: (n, d), h_inv: (d, d) -> 0-d."""
+    acc = torch.zeros((), dtype=x.dtype, device=x.device)
+    for _, s in _quad_slabs(x, h_inv):
+        acc = acc + torch.sum(_t_h(s, c_k, c_kk))
+    return acc
+
+
+def _grid_fold(acc: torch.Tensor, s: torch.Tensor, inv_h2: torch.Tensor,
+               c_k, c_kk) -> torch.Tensor:
+    """acc[h] += sum T~(s / h^2) over a slab masked with +inf (eq. 43)."""
+    return acc + torch.stack([torch.sum(_t_h(s * inv_h2[t], c_k, c_kk))
+                              for t in range(inv_h2.shape[0])])
+
+
+def lscv_grid_sums(x: torch.Tensor, sigma_inv: torch.Tensor,
+                   h_grid: torch.Tensor, c_k, c_kk) -> torch.Tensor:
+    """Per-h inner sums of eq. (43): for each h on the grid,
+    sum_{i<j} T~(x_i - x_j).  x: (n, d) -> (n_h,)."""
+    inv_h2 = 1.0 / (h_grid * h_grid)
+    acc = torch.zeros(h_grid.shape, dtype=x.dtype, device=x.device)
+    for _, s in _quad_slabs(x, sigma_inv):
+        acc = _grid_fold(acc, s, inv_h2, c_k, c_kk)
+    return acc
+
+
+def lscv_grid_sums_from_s(s_mat: torch.Tensor, h_grid: torch.Tensor, c_k,
+                          c_kk) -> torch.Tensor:
+    """The grid phase alone (§6.2 phase 2): `lscv_grid_sums` over a
+    precomputed (n, n) S, reading its strict upper triangle only."""
+    n = s_mat.shape[0]
+    inv_h2 = 1.0 / (h_grid * h_grid)
+    acc = torch.zeros(h_grid.shape, dtype=s_mat.dtype, device=s_mat.device)
+    rows_per = max(1, QUAD_SLAB_ELEMS // max(1, n))
+    j = torch.arange(n, device=s_mat.device)
+    for start in range(0, n, rows_per):
+        blk = s_mat[start:start + rows_per, start:]
+        i = start + torch.arange(blk.shape[0], device=s_mat.device)
+        s = torch.where(i[:, None] < j[None, start:], blk, torch.inf)
+        acc = _grid_fold(acc, s, inv_h2, c_k, c_kk)
+    return acc

@@ -1,13 +1,16 @@
 """The port's core math against the JAX reference, on the CPU: Gaussian
-kernels, reductions, PLUGIN, silverman, the closed-form AQP passes, the CI
-moments and quantiles, and KDE synopses.  Inputs are seeded numpy arrays
-handed to both packages.
+kernels and the LSCV constants, reductions (pairwise and quadratic-form),
+PLUGIN, silverman, the closed-form AQP passes, the CI moments and
+quantiles, and KDE synopses.  Inputs are seeded numpy arrays handed to both
+packages.  The LSCV selectors themselves are in `tests/test_torch_lscv.py`.
 
 Tolerances: rtol 1e-6 where both sides evaluate the same float32 expression
 elementwise; rtol 3e-4 for PLUGIN's fields (its pairwise sums are the
 `tests/test_kernels.py` pairwise case, float32 sums in another order);
 rtol 1e-4 (atol 1e-5 on counts, 1e-4 on sums) for the AQP sums, as in
-`tests/test_kernels.py`; 1e-3 relative between a PLUGIN h and the paper's
+`tests/test_kernels.py`; rtol 1e-3 / atol 1e-3 for the stored S matrix and
+5e-4 / 1e-4 for the fused quadratic-form sum, `tests/test_kernels.py`'s
+sv_matrix and gh_fused tolerances; 1e-3 relative between a PLUGIN h and the paper's
 sequential float32 loops, as in `tests/test_plugin.py`.
 """
 import jax.numpy as jnp
@@ -48,7 +51,32 @@ def test_gaussian_kernels_match_reference(rng, fn):
                                rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("fn", ["lscv_h_consts", "lscv_H_consts"])
+@pytest.mark.parametrize("d", [1, 3])
+def test_lscv_constants_match_reference(fn, d):
+    got = getattr(gaussian, fn)(d, torch.tensor(0.37))
+    want = getattr(jG, fn)(d, jnp.float32(0.37))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-6)
+
+
 # --- reductions ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,chunk", [(1, 2, 128), (130, 3, 64), (257, 1, 128)])
+def test_quadform_reductions_match_reference(rng, n, d, chunk):
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    m0 = rng.normal(0, 1, (d, d))
+    m = (0.1 * m0 @ m0.T + np.eye(d)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(reductions.pairwise_sv_matrix(_t(x), _t(m), chunk)),
+        np.asarray(jred.pairwise_sv_matrix(jnp.asarray(x), jnp.asarray(m), chunk)),
+        rtol=1e-3, atol=1e-3)
+    got = reductions.pairwise_quadform_reduce(lambda s: torch.exp(-0.5 * s), _t(x),
+                                              _t(m), chunk)
+    want = jred.pairwise_quadform_reduce(lambda s: jnp.exp(-0.5 * s), jnp.asarray(x),
+                                         jnp.asarray(m), chunk)
+    np.testing.assert_allclose(float(got), float(want), rtol=5e-4, atol=1e-4)
+
 
 @pytest.mark.parametrize("n,chunk", [(1, 256), (300, 64), (700, 256)])
 def test_pairwise_reduce_matches_reference(rng, n, chunk):
@@ -268,9 +296,20 @@ def test_synopsis_fit_and_queries_match_reference(rng, selector, d):
 
 
 @pytest.mark.parametrize("selector", ["lscv_h", "lscv_H"])
-def test_lscv_selectors_wait_for_their_slice(selector):
-    with pytest.raises(NotImplementedError, match="1.9"):
-        aqp.KDESynopsis.fit(np.zeros(10, np.float32), selector=selector, device="cpu")
+def test_lscv_selectors_wait_for_their_slice(rng, selector):
+    """Both LSCV selectors fit (their slice, ROADMAP queue 1.9, is ported);
+    what still waits is the full-H slice (queue 1.10) that answers queries
+    against an LSCV_H synopsis."""
+    data = rng.normal(0.0, 1.0, (60, 2)).astype(np.float32)
+    syn = aqp.KDESynopsis.fit(data, selector=selector, device="cpu")
+    lo, hi = [-1.0, -1.0], [1.0, 1.0]
+    if selector == "lscv_h":
+        assert syn.H is None and syn.h.shape == ()
+        assert 0.0 < float(syn.count_box(lo, hi)) < 60.0
+    else:
+        assert syn.h is None and syn.H.shape == (2, 2)
+        with pytest.raises(NotImplementedError, match="1.10"):
+            syn.count_box(lo, hi)
 
 
 @pytest.mark.parametrize("sel,canon", [("Plugin", "plugin"), ("LSCV_H", "lscv_H"),

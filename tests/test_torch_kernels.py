@@ -7,9 +7,11 @@ with a CUDA device — each CUDA kernel against its plain version.
 Tolerances are `tests/test_kernels.py`'s: rtol 3e-4 (atol max(1e-5, 1e-6 n))
 for the pairwise sums, whose K^(6) terms cancel; rtol 1e-4 with atol 1e-5 on
 counts and 1e-4 on sums for the AQP kernels (float32 sums over n points in
-another order).  The port's plain versions take the Phi difference from the
-tail a pair sits in instead of as an erf difference; the tolerances hold
-both ways.
+another order); rtol 1e-3 / atol 1e-3 for sv_matrix (the reference's "mxu"
+expansion cancels for close pairs) and for lscv_grid_sums; rtol 5e-4 / atol
+1e-4 for gh_fused_sum.  The port's plain versions take the Phi difference
+from the tail a pair sits in instead of as an erf difference; the
+tolerances hold both ways.
 """
 import ast
 from pathlib import Path
@@ -22,8 +24,11 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import triangle as jtri
+from repro_torch.kernels import gh_fused as tgh
+from repro_torch.kernels import lscv_grid as tlg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pairwise_reduce as tpr
+from repro_torch.kernels import sv_precompute as tsv
 from repro_torch.kernels.triangle import bx_to_ql, n_tri_tiles, ql_to_bx
 
 KERNELS_DIR = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
@@ -143,6 +148,71 @@ def test_aqp_boxes_plain_empty_queries(rng):
     assert cnt.shape == (0,) and sm.shape == (0,)
 
 
+# --- LSCV: sv_matrix, gh_fused_sum, lscv_grid_sums -------------------------------------
+
+SV_TOL = dict(rtol=1e-3, atol=1e-3)
+GH_TOL = dict(rtol=5e-4, atol=1e-4)
+GRID_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _spd(rng, d, scale):
+    m0 = rng.normal(0, 1, (d, d)).astype(np.float32)
+    return (scale * (m0 @ m0.T) + np.eye(d, dtype=np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (2, 3), (9, 1), (64, 2), (130, 5), (257, 3),
+                                 (300, 16)])
+@pytest.mark.parametrize("alg", ["paper", "mxu"])
+def test_sv_matrix_plain_matches_reference(rng, n, d, alg):
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    m = _spd(rng, d, 0.2)
+    got = ops.sv_matrix(_t(x), _t(m), algorithm=alg).numpy()
+    np.testing.assert_allclose(got, np.asarray(jref.sv_matrix(jnp.asarray(x), jnp.asarray(m))),
+                               **SV_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.sv_matrix(
+        jnp.asarray(x), jnp.asarray(m), tile=64, algorithm=alg)), **SV_TOL)
+    assert np.all(np.tril(got) == 0.0)
+
+
+def test_sv_matrix_plain_takes_a_nonsymmetric_m(rng):
+    x = rng.normal(0, 1, (70, 3)).astype(np.float32)
+    m = rng.normal(0, 1, (3, 3)).astype(np.float32)
+    np.testing.assert_allclose(ref.sv_matrix(_t(x), _t(m)).numpy(),
+                               np.asarray(jref.sv_matrix(jnp.asarray(x), jnp.asarray(m))),
+                               **SV_TOL)
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (2, 3), (40, 2), (222, 4), (257, 3), (513, 8)])
+def test_gh_fused_plain_matches_reference(rng, n, d):
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    m = _spd(rng, d, 0.1)
+    got = float(ops.gh_fused_sum(_t(x), _t(m), 0.31, 0.17))
+    np.testing.assert_allclose(got, float(jref.gh_fused_sum(jnp.asarray(x), jnp.asarray(m),
+                                                            0.31, 0.17)), **GH_TOL)
+    if n >= 2:
+        np.testing.assert_allclose(got, float(jops.gh_fused_sum(
+            jnp.asarray(x), jnp.asarray(m), 0.31, 0.17, tile=64)), **GH_TOL)
+
+
+@pytest.mark.parametrize("n,d,n_h", [(1, 1, 3), (2, 2, 4), (100, 2, 5), (257, 3, 13),
+                                     (130, 1, 150)])
+def test_lscv_grid_plain_matches_reference(rng, n, d, n_h):
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    m = _spd(rng, d, 0.1)
+    hg = np.linspace(0.3, 2.0, n_h).astype(np.float32)
+    got = ops.lscv_grid_sums(_t(x), _t(m), _t(hg), 0.3, 0.2).numpy()
+    want = np.asarray(jref.lscv_grid_sums(jnp.asarray(x), jnp.asarray(m), jnp.asarray(hg),
+                                          0.3, 0.2))
+    np.testing.assert_allclose(got, want, **GRID_TOL)
+    np.testing.assert_allclose(got, np.asarray(jops.lscv_grid_sums(
+        jnp.asarray(x), jnp.asarray(m), jnp.asarray(hg), 0.3, 0.2, tile=64, h_tile=4)),
+        **GRID_TOL)
+    # the grid phase alone, over a precomputed S
+    s = ops.sv_matrix(_t(x), _t(m))
+    np.testing.assert_allclose(ops.lscv_grid_sums_from_s(s, _t(hg), 0.3, 0.2).numpy(),
+                               want, **GRID_TOL)
+
+
 # --- Appendix-A tile mapping ----------------------------------------------------------
 
 def test_triangle_mapping_exhaustive_to_512_tiles():
@@ -174,7 +244,8 @@ def test_every_kernel_module_has_source_wrapper_plain_version_and_counter():
     ref_defs = {n.name for n in ast.parse((KERNELS_DIR / "ref.py").read_text()).body
                 if isinstance(n, ast.FunctionDef)}
     mods = _launcher_modules()
-    assert {m.stem for m in mods} == {"pairwise_reduce", "aqp_batch", "aqp_boxes"}
+    assert {m.stem for m in mods} == {"pairwise_reduce", "aqp_batch", "aqp_boxes",
+                                      "sv_precompute", "lscv_grid", "gh_fused"}
     for mod in mods:
         text = mod.read_text()
         assert (KERNELS_DIR / "csrc" / f"{mod.stem}.cu").exists(), mod.name
@@ -202,8 +273,13 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing(rng):
     x, h, a, b = _batch_inputs(rng, 50, 4)
     ops.aqp_batch_sums(_t(x), _t(h), _t(a), _t(b))
     ops.pairwise_scaled_ksum(_t(x), _t(0.4), "k6")
+    xd, m = _t(x.reshape(25, 2)), torch.eye(2)
+    ops.sv_matrix(xd, m)
+    ops.gh_fused_sum(xd, m, 0.3, 0.2)
+    ops.lscv_grid_sums(xd, m, _t([0.5, 1.0]), 0.3, 0.2)
     assert ops.launch_counts() == {"pairwise_scaled_ksum": 0, "aqp_batch_sums": 0,
-                                   "aqp_box_sums": 0}
+                                   "aqp_box_sums": 0, "sv_matrix": 0,
+                                   "lscv_grid_sums": 0, "gh_fused_sum": 0}
 
 
 @pytest.mark.parametrize("bad", ["cpu", "float64", "2d"])
@@ -213,6 +289,29 @@ def test_launchers_refuse_what_the_kernel_does_not_take(bad):
         x = x.reshape(2, 4)
     with pytest.raises((ValueError, TypeError)):
         tpr.pairwise_scaled_ksum(x, torch.tensor([0.5]), "k4", tile=256)
+
+
+@pytest.mark.parametrize("call", ["sv_cpu", "sv_d17", "sv_algorithm", "gh_d9",
+                                  "gh_float64", "grid_not_square", "grid_cpu"])
+def test_lscv_launchers_refuse_what_the_kernel_does_not_take(call):
+    with pytest.raises((ValueError, TypeError)):
+        if call == "sv_cpu":
+            tsv.sv_matrix(torch.zeros(4, 2), torch.eye(2), tile=256)
+        elif call == "sv_d17":
+            tsv.sv_matrix(torch.zeros(4, 17), torch.eye(17), tile=256)
+        elif call == "sv_algorithm":
+            ops.sv_matrix(torch.zeros(4, 2), torch.eye(2), algorithm="tf32")
+        elif call == "gh_d9":
+            tgh.gh_fused_sum(torch.zeros(4, 9), torch.eye(9), 0.3, 0.2, tile=256)
+        elif call == "gh_float64":
+            tgh.gh_fused_sum(torch.zeros(4, 2, dtype=torch.float64), torch.eye(2),
+                             0.3, 0.2, tile=256)
+        elif call == "grid_not_square":
+            tlg.lscv_grid_sums_from_s(torch.zeros(4, 5), torch.ones(3), 0.3, 0.2,
+                                      h_tile=256)
+        else:
+            tlg.lscv_grid_sums_from_s(torch.zeros(4, 4), torch.ones(3), 0.3, 0.2,
+                                      h_tile=256)
 
 
 # --- on the card -----------------------------------------------------------------------
@@ -238,7 +337,34 @@ def test_cuda_kernels_match_plain_versions(cuda_device, rng):
                           [t.cpu() for t in ref.aqp_box_sums(*args)])
     counts = ops.launch_counts()
     assert counts == {"pairwise_scaled_ksum": 6, "aqp_batch_sums": 3,
-                      "aqp_box_sums": 3}
+                      "aqp_box_sums": 3, "sv_matrix": 0, "lscv_grid_sums": 0,
+                      "gh_fused_sum": 0}
     q_t, l_t = tpr.triangle_map(n_tri_tiles(512), dev)
     q_c, l_c = bx_to_ql(torch.arange(n_tri_tiles(512)))
     assert torch.equal(q_t.cpu().long(), q_c) and torch.equal(l_t.cpu().long(), l_c)
+
+
+def test_cuda_lscv_kernels_match_plain_versions(cuda_device, rng):
+    dev = cuda_device
+    ops.reset_launch_counts()
+    for n, d in ((1, 1), (2, 3), (300, 16), (4097, 3)):
+        x = _t(rng.normal(0, 1, (n, d)).astype(np.float32)).to(dev)
+        m = _t(_spd(rng, d, 0.2)).to(dev)
+        for alg in ("paper", "mxu"):
+            np.testing.assert_allclose(ops.sv_matrix(x, m, tile=64, algorithm=alg).cpu(),
+                                       ref.sv_matrix(x, m).cpu(), **SV_TOL)
+    for n, d in ((2, 1), (513, 8), (4097, 3)):
+        x = _t(rng.normal(0, 1, (n, d)).astype(np.float32)).to(dev)
+        m = _t(_spd(rng, d, 0.1)).to(dev)
+        np.testing.assert_allclose(float(ops.gh_fused_sum(x, m, 0.31, 0.17, tile=64)),
+                                   float(ref.gh_fused_sum(x, m, 0.31, 0.17)), **GH_TOL)
+    for n, d, n_h in ((1, 1, 3), (257, 3, 13), (4097, 2, 150)):
+        x = _t(rng.normal(0, 1, (n, d)).astype(np.float32)).to(dev)
+        m = _t(_spd(rng, d, 0.1)).to(dev)
+        hg = torch.linspace(0.3, 2.0, n_h, device=dev)
+        np.testing.assert_allclose(ops.lscv_grid_sums(x, m, hg, 0.3, 0.2).cpu(),
+                                   ref.lscv_grid_sums(x, m, hg, 0.3, 0.2).cpu(), **GRID_TOL)
+    counts = ops.launch_counts()
+    # sv_matrix: 4 shapes x 2 algorithms, and once inside each lscv_grid_sums
+    assert (counts["sv_matrix"], counts["gh_fused_sum"], counts["lscv_grid_sums"]) == \
+        (8 + 3, 3, 3)

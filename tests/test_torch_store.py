@@ -1,6 +1,7 @@
-"""The slice end to end: one seeded numpy stream fed to the JAX package's
+"""The slices end to end: one seeded numpy stream fed to the JAX package's
 `TelemetryStore` and to the port's on the CPU, one mixed batch of Range / Box
-/ Eq specs through `store.query` in both, and the reference's snapshot
+/ Eq specs through `store.query` in both (PLUGIN fits, and LSCV_h fits with
+`selector="lscv_h"`), LSCV_H joint fits, and the reference's snapshot
 carried into the port with `store_from_state`.  Also the port's device
 policy, its not-yet-ported paths, and its import hygiene.
 
@@ -8,7 +9,11 @@ Tolerances: reservoir buffers and exact (sketch) answers are bit-equal —
 the same numpy code runs on both sides.  KDE estimates and CI bounds agree
 at rtol 1e-4 plus atol 1e-4 x scale (scale = n_source / sample size): the
 AQP kernels' raw-sum tolerance carried through the sample->relation scale,
-with PLUGIN's h agreeing to its float32 pairwise sums.
+with PLUGIN's h agreeing to its float32 pairwise sums and LSCV_h's h equal
+to the reference's (the same grid point; `tests/test_torch_lscv.py` holds
+the g values).  LSCV_H joint fits agree by their float64 objective to 1e-2
+relative: in d = 3 the two float32 Nelder-Mead runs part after a few steps
+and neither has converged at the default 150 iterations.
 """
 import ast
 import subprocess
@@ -250,3 +255,67 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# --- the LSCV slice ------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend,suffix", [("torch", ""), ("cuda", ":cuda")])
+def test_lscv_h_batch_matches_reference(stores, backend, suffix):
+    """selector="lscv_h": the fits go through LSCV_h (on "cuda", its kernel
+    wrappers, which take the plain versions on the CPU) and the queries
+    through the range1d / box paths with the scalar h."""
+    ref, port, _ = stores
+    want = ref.query(_specs(jq), selector="lscv_h")
+    got = port.query(_specs(tq), selector="lscv_h", backend=backend)
+    for col in ("loss", "latency"):
+        assert float(port.synopsis(col, "lscv_h", backend=backend).h) == \
+            pytest.approx(float(ref.synopsis(col, "lscv_h").h), rel=1e-6)
+    assert float(port.joint_synopsis(JOINT, "lscv_h", backend=backend).h) == \
+        pytest.approx(float(ref.joint_synopsis(JOINT, "lscv_h").h), rel=1e-6)
+    _assert_results_match(got, want, (3 * 700) / CAPACITY, suffix)
+    for g, w in zip(got, want):                   # within the reference's CI widths
+        assert w.ci_lo - 1e-3 <= g.estimate <= w.ci_hi + 1e-3
+    again = port.query(_specs(tq), selector="lscv_h", backend=backend)
+    assert [r.estimate for r in again] == [r.estimate for r in got]
+
+
+def test_lscv_h_batch_from_a_carried_snapshot(stores):
+    ref, _, _ = stores
+    want = ref.query(_specs(jq), selector="lscv_h")
+    carried = convert.store_from_state(*ref.to_state(), device="cpu")
+    misses = carried.cache.stats()["misses"]
+    got = carried.query(_specs(tq), selector="lscv_h")
+    assert carried.cache.stats()["misses"] == misses   # the LSCV_h fits came along
+    _assert_results_match(got, want, (3 * 700) / CAPACITY)
+
+
+def test_lscv_H_joint_fit_matches_reference_by_objective(stores):
+    from test_torch_lscv import _g64_of_H
+
+    ref, port, _ = stores
+    want = ref.joint_synopsis(JOINT, selector="lscv_H")
+    got = port.joint_synopsis(JOINT, selector="lscv_H")
+    x = np.asarray(want.x)
+    np.testing.assert_array_equal(got.x.numpy(), x)
+    assert got.h is None and got.H.shape == (3, 3)
+    assert np.all(np.linalg.eigvalsh(got.H.numpy().astype(np.float64)) > 0)
+    g_got, g_want = _g64_of_H(x, got.H.numpy()), _g64_of_H(x, np.asarray(want.H))
+    assert g_got == pytest.approx(g_want, rel=1e-2)
+    from repro_torch.core.lscv import h_start
+    assert g_got <= _g64_of_H(x, h_start(got.x).numpy())
+    assert port.cache.stats()["bytes"] >= got.x.nbytes + got.H.nbytes
+
+
+def test_store_from_state_carries_an_lscv_H_fit_whose_queries_wait_for_1_10():
+    ref = _fill(jstore.TelemetryStore(capacity=64, seed=3), _stream(3, batches=1, rows=100))
+    want = ref.joint_synopsis(JOINT, selector="lscv_H")
+    carried = convert.store_from_state(*ref.to_state(), device="cpu")
+    syn = carried.joint_synopsis(JOINT, selector="lscv_H")
+    assert syn.h is None and syn.selector == "lscv_H"
+    np.testing.assert_array_equal(syn.H.numpy(), np.asarray(want.H))
+    np.testing.assert_array_equal(syn.x.numpy(), np.asarray(want.x))
+    box = tq.AqpQuery("count", (tq.Box(JOINT, (1.0, 10.0, 0.0), (3.0, 30.0, 2.0)),))
+    with pytest.raises(NotImplementedError, match="1.10"):
+        carried.query([box], selector="lscv_H")
+    with pytest.raises(ValueError, match="exactly one"):
+        convert.synopsis_from_numpy(np.zeros((4, 2)), None, 4, "lscv_H", device="cpu")
