@@ -21,13 +21,29 @@ non-zero and prints no result line):
   4. path B, `store.joint_synopsis(joint, selector="lscv_H")`: Nelder-Mead
      (150 iterations) with one gh_fused launch per objective evaluation; H
      SPD and g(H) <= g(H_start);
-  5. every kernel against its plain PyTorch version on the card, on the
+  5. path C, GROUP BY: 104 GROUP BY specs over the 64-code model_id column
+     through a joint that holds it, one aqp_grouped launch per family; each
+     family held against its boxes fanned out through a float64 oracle and
+     against the stream's exact per-code counts within the CIs; a
+     bit-identical repeat with no fit launches;
+  6. path D, full-H serving: the 1 024-spec mix with `selector="lscv_H"`
+     (the joint's fit cached from path B, the two 1-D columns fitted on
+     gh_fused), every group on the RFF density synopsis ("auto" at 32 768
+     rows: rff_eval launches), then the same specs with
+     `kde_backend="exact"` (qmc_reduce launches); the exact answers held
+     against a float64 oracle of eq. 6 on the same Halton nodes, the RFF
+     answers against the exact ones within their CIs; bit-identical repeats;
+  7. path E, `kde_eval` at 4 096 points on a 1-D sample and on the joint,
+     and the trapezoid forms of eqs. 9-10 on 64 ranges against the closed
+     forms (kde_eval launches);
+  8. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample; PLUGIN and LSCV_h against the paper's sequential oracles;
      the kernel's own eqs. 49/50 tile mapping exhaustively;
-  6. kernel and plain-version times (CUDA events, median of warm runs) on
-     the inputs of each kernel's first call on its path.
+  9. kernel and plain-version times (CUDA events, median of warm runs) on
+     the inputs of each kernel's first call on its path (the largest call
+     for rff_density, whose first call is the probe gate's).
 
 It prints a {"kernels": [...]} JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -56,6 +72,9 @@ NUMERIC = ("loss", "latency_ms", "grad_norm", "tokens")
 JOINT = ("loss", "latency_ms", "grad_norm")
 RANGE_COLS = ("loss", "latency_ms")
 N_RANGE, N_BOX, N_EQ = 512, 384, 128
+GJOINT = ("loss", "latency_ms", "model_id")     # path C's joint, with the group column
+N_GROUP, N_GROUP_SELF = 96, 8                   # GROUP BY specs; AVG of model_id itself
+N_E_POINTS, N_E_RANGES = 4096, 64               # path E
 
 # tests/test_kernels.py tolerances
 PAIR_RTOL = 3e-4
@@ -63,6 +82,13 @@ AQP_RTOL, CNT_ATOL, SUM_ATOL = 1e-4, 1e-5, 1e-4
 SV_RTOL, SV_ATOL = 1e-3, 1e-3
 GRID_RTOL, GRID_ATOL = 1e-3, 1e-3
 GH_RTOL, GH_ATOL = 5e-4, 1e-4
+QMC_RTOL, QMC_ATOL = 1e-5, 1e-6    # atol relative to the call's largest |sum| (see below)
+RFF_RTOL, RFF_ATOL = 2e-5, 2e-5
+KDE_RTOL, KDE_ATOL = 5e-4, 1e-7
+
+# the device of paths C-E and their checks ("cpu" only to rehearse them at a
+# small size with the plain versions)
+DEV = "cuda"
 
 # H100 SXM published peaks: FP32 outside the
 # tensor cores, HBM3 bandwidth
@@ -82,11 +108,20 @@ TPU_KERNELS = {
                        "src/repro/kernels/lscv_grid.py:91"),
     "gh_fused_sum": ("src/repro_torch/kernels/csrc/gh_fused.cu",
                      "src/repro/kernels/gh_fused.py:73"),
+    "aqp_grouped_sums": ("src/repro_torch/kernels/csrc/aqp_grouped.cu",
+                         "src/repro/kernels/aqp_grouped.py:115"),
+    "qmc_box_reduce": ("src/repro_torch/kernels/csrc/qmc_reduce.cu",
+                       "src/repro/kernels/qmc_reduce.py:112"),
+    "rff_density": ("src/repro_torch/kernels/csrc/rff_eval.cu",
+                    "src/repro/kernels/rff_eval.py:64"),
+    "kde_eval": ("src/repro_torch/kernels/csrc/kde_eval.cu",
+                 "src/repro/kernels/kde_eval.py:72"),
 }
 # the path whose launches each kernel's "launches" reports
 KERNEL_PATH = {"pairwise_scaled_ksum": "plugin", "aqp_batch_sums": "plugin",
                "aqp_box_sums": "plugin", "sv_matrix": "A", "lscv_grid_sums": "A",
-               "gh_fused_sum": "B"}
+               "gh_fused_sum": "B", "aqp_grouped_sums": "C", "qmc_box_reduce": "D exact",
+               "rff_density": "D", "kde_eval": "E"}
 
 
 class SmokeFailure(RuntimeError):
@@ -146,6 +181,16 @@ def call_shape(name: str, args, kwargs) -> str:
         return f"q={args[2].shape[0]} n={args[0].shape[0]} d={args[0].shape[1]}"
     if name == "lscv_grid_sums":
         return f"n={args[0].shape[0]} d={args[0].shape[1]} n_h={args[2].shape[0]}"
+    if name == "aqp_grouped_sums":
+        return (f"G={args[4].shape[0]} n={args[0].shape[0]} d={args[0].shape[1]} "
+                f"g_axis={args[6]} tgt={args[7]}")
+    if name == "qmc_box_reduce":
+        return (f"q={args[4].shape[0]} m={args[0].shape[0]} n={args[1].shape[0]} "
+                f"d={args[1].shape[1]}")
+    if name == "rff_density":
+        return f"m={args[0].shape[0]} D={args[1].shape[0]} d={args[0].shape[1]}"
+    if name == "kde_eval":
+        return f"m={args[0].shape[0]} n={args[1].shape[0]} d={args[1].shape[-1]}"
     return f"n={args[0].shape[0]} d={args[0].shape[1]}"
 
 
@@ -192,6 +237,25 @@ def make_specs(rng, stream, q):
         agg = aggs[i % 3]
         specs.append(q.AqpQuery(agg, (q.Eq("model_id", float(i % N_CODES)),),
                                 target=None if agg == "count" else "model_id"))
+    return specs
+
+
+def make_group_specs(rng, stream, q):
+    """Path C: 96 GROUP BY specs over model_id, COUNT / SUM / AVG in turn
+    (SUM and AVG of loss) under a Range on loss and one on latency_ms, then
+    8 AVG of model_id itself (the group axis as the target)."""
+    aggs = ("count", "sum", "avg")
+    probe = {c: stream[c][:200_000] for c in RANGE_COLS}
+    specs = []
+    for i in range(N_GROUP + N_GROUP_SELF):
+        preds = tuple(q.Range(c, *interval(rng, probe[c], lo_q=(0.0, 0.4), width_q=(0.4, 0.9)))
+                      for c in RANGE_COLS)
+        if i < N_GROUP:
+            agg = aggs[i % 3]
+            target = None if agg == "count" else "loss"
+        else:
+            agg, target = "avg", "model_id"
+        specs.append(q.AqpQuery(agg, preds, target=target, group_by="model_id"))
     return specs
 
 
@@ -243,13 +307,16 @@ def build_store(args, rt, q):
     store = rt["store"].TelemetryStore(capacity=CAPACITY, seed=args.seed)
     check(store.device.type == "cuda", f"store landed on {store.device}")
     store.track_joint(JOINT)
+    store.track_joint(GJOINT)
     store.track_categorical("model_id")
     for s in range(0, STREAM_ROWS, BATCH_ROWS):
         store.add_batch({k: v[s:s + BATCH_ROWS] for k, v in stream.items()})
     specs = make_specs(rng, stream, q)
+    gspecs = make_group_specs(rng, stream, q)
     print(f"store: {STREAM_ROWS} rows streamed in {BATCH_ROWS}-row batches, "
-          f"{len(specs)} specs, set-up {time.perf_counter() - t0:.2f} s")
-    return store, specs, stream
+          f"{len(specs)} specs and {len(gspecs)} GROUP BY specs, "
+          f"set-up {time.perf_counter() - t0:.2f} s")
+    return store, specs, gspecs, stream
 
 
 def driven(torch, ops, what: str, fn):
@@ -369,8 +436,9 @@ def path_a(torch, rt, store, specs, stream):
         torch, ops, "path A (lscv_h) first query, fits included",
         lambda: store.query(specs, selector="lscv_h"))
     n_fits = len(RANGE_COLS) + 1
-    want = {"pairwise_scaled_ksum": 0, "aqp_batch_sums": len(RANGE_COLS), "aqp_box_sums": 1,
-            "sv_matrix": n_fits, "lscv_grid_sums": n_fits, "gh_fused_sum": 0}
+    want = {k: 0 for k in counts}
+    want.update(aqp_batch_sums=len(RANGE_COLS), aqp_box_sums=1, sv_matrix=n_fits,
+                lscv_grid_sums=n_fits)
     check(counts == want, f"path A launches {counts}, expected {want}")
     check_answers(store, specs, stream, res, "lscv_h", ":cuda")
     hs = {c: float(store.synopsis(c, "lscv_h").h) for c in RANGE_COLS}
@@ -408,6 +476,318 @@ def path_b(torch, rt, store):
     return counts, calls
 
 
+# --- paths C, D, E (GROUP BY, full-H serving, kde_eval) -------------------------
+
+def select_op(agg: str, cnt, sm):
+    return {"count": cnt, "sum": sm}.get(agg, sm / cnt if cnt > 1e-3 else 0.0)
+
+
+def oracle_boxes_dev(torch, x, h, lo, hi, tgt):
+    """oracle_boxes in float64 on the card (x (n,d), h (d,), lo/hi (q,d)
+    float64 tensors, tgt (q,) ints): unscaled (count, sum) per box."""
+    from torch.special import ndtr
+    za = (lo[:, None, :] - x[None]) / h
+    zb = (hi[:, None, :] - x[None]) / h
+    d_Phi = ndtr(zb) - ndtr(za)
+    d_phi = (torch.exp(-0.5 * zb * zb) - torch.exp(-0.5 * za * za)) / math.sqrt(2 * math.pi)
+    moment = x[None] * d_Phi - h * d_phi
+    t = torch.as_tensor(np.asarray(tgt), device=x.device)
+    sel = torch.arange(x.shape[1], device=x.device)[None, None, :] == t[:, None, None]
+    return (torch.prod(d_Phi, 2).sum(1).cpu().numpy(),
+            torch.prod(torch.where(sel, moment, d_Phi), 2).sum(1).cpu().numpy())
+
+
+def path_c(torch, rt, store, gspecs, stream):
+    """Path C: GROUP BY families over the joint that holds model_id."""
+    ops = rt["ops"]
+    res, _, counts, calls = driven(torch, ops, "path C (GROUP BY) first query, fits included",
+                                   lambda: store.query(gspecs))
+    n_fam = len(gspecs)
+    check(len(res) == n_fam * N_CODES, f"path C: {len(res)} results, expected "
+          f"{n_fam} x {N_CODES} categories")
+    want = {k: 0 for k in counts}
+    want.update(pairwise_scaled_ksum=2 * len(GJOINT), aqp_grouped_sums=n_fam)
+    check(counts == want, f"path C launches {counts}, expected {want}")
+    check({r.path for r in res} == {"box:grouped:cuda"}, f"path C paths {({r.path for r in res})}")
+    est = np.asarray([r.estimate for r in res])
+    lo = np.asarray([r.ci_lo for r in res])
+    hi = np.asarray([r.ci_hi for r in res])
+    check(bool(np.all(np.isfinite(est)) and np.all((lo <= est) & (est <= hi))),
+          "path C: non-finite estimate or an estimate outside its CI")
+
+    syn = store.joint_synopsis(GJOINT)
+    x64, h64 = syn.x.double(), syn.h_diag().double()
+    scale = syn.n_source / syn.x.shape[0]
+    worst = 0.0
+    for fi in range(n_fam):
+        q, rows = gspecs[fi], res[fi * N_CODES:(fi + 1) * N_CODES]
+        (ra, rb) = q.predicates
+        lo_b = [[ra.a, rb.a, r.group - 0.5] for r in rows]
+        hi_b = [[ra.b, rb.b, r.group + 0.5] for r in rows]
+        tgt = [0 if q.target in (None, "loss") else 2] * len(rows)
+        c64, s64 = oracle_boxes_dev(torch, x64, h64,
+                                    torch.tensor(lo_b, dtype=torch.float64, device=DEV),
+                                    torch.tensor(hi_b, dtype=torch.float64, device=DEV), tgt)
+        want64 = [select_op(q.aggregate, scale * c, scale * s) for c, s in zip(c64, s64)]
+        ok, err = close([r.estimate for r in rows], want64, 1e-4, 1e-3)
+        check(ok, f"path C: family {fi} ({q.aggregate}) vs its fanned-out boxes in float64 "
+                  f"(max err {err})")
+        worst = max(worst, err)
+
+    # exact GROUP BY counts of the stream, for the COUNT families
+    h_g = float(syn.h_diag()[2])
+    codes = stream["model_id"].astype(np.int64)
+    inner_in, inner_n, edge_ratio = 0, 0, []
+    for fi in range(0, N_GROUP, 3):
+        ra, rb = gspecs[fi].predicates
+        mask = ((stream["loss"] >= np.float32(ra.a)) & (stream["loss"] <= np.float32(ra.b))
+                & (stream["latency_ms"] >= np.float32(rb.a))
+                & (stream["latency_ms"] <= np.float32(rb.b)))
+        exact = np.bincount(codes[mask], minlength=N_CODES)
+        for r in res[fi * N_CODES:(fi + 1) * N_CODES]:
+            g = int(r.group)
+            if min(g, N_CODES - 1 - g) >= 3.0 * h_g:
+                inner_n += 1
+                inner_in += int(r.ci_lo <= exact[g] <= r.ci_hi)
+            elif g in (0, N_CODES - 1):
+                edge_ratio.append(r.estimate / max(exact[g], 1))
+    cover = inner_in / max(inner_n, 1)
+    check(inner_n > 0 and cover >= 0.75,
+          f"path C: exact per-code counts inside the 95% CIs for {cover:.3f} of {inner_n} "
+          f"interior (family, code) pairs")
+    print(f"path C: {n_fam} families x {N_CODES} codes on box:grouped:cuda; every family "
+          f"matches its fanned-out boxes in float64 (max |err| {worst:.3g}); exact stream "
+          f"counts inside the CI for {cover:.3f} of {inner_n} interior (COUNT family, code) "
+          f"pairs (codes >= 3 h = {3 * h_g:.3g} from the ends); at codes 0 and 63 the "
+          f"estimate / exact ratio is {np.mean(edge_ratio):.3f} on average (the KDE's mass "
+          f"leaks past the ends of the code range)")
+
+    misses = store.cache.stats()["misses"]
+    res2, _, counts2, _ = driven(torch, ops, "path C repeat query (cached fits)",
+                                 lambda: store.query(gspecs))
+    check(all((r.estimate, r.ci_lo, r.ci_hi, r.path) == (r2.estimate, r2.ci_lo, r2.ci_hi, r2.path)
+              for r, r2 in zip(res, res2)), "path C: repeat query not bit-identical")
+    want2 = dict(want, pairwise_scaled_ksum=0)
+    check(counts2 == want2 and store.cache.stats()["misses"] == misses,
+          f"path C repeat launches {counts2}, expected {want2}, and no refit")
+    print("path C repeat query: bit-identical answers, no fit launches")
+    return counts, calls
+
+
+def group_slices(specs):
+    """{group: spec indices} of the 1 024-spec mix's KDE groups."""
+    out = {col: [i for i in range(N_RANGE) if specs[i].predicates[0].column == col]
+           for col in RANGE_COLS}
+    out[JOINT] = list(range(N_RANGE, N_RANGE + N_BOX))
+    return out
+
+
+def group_boxes(specs, idx):
+    """(lo, hi, tgt, aggs) of a group's specs, in the engine's axis order."""
+    lo, hi, tgt, aggs = [], [], [], []
+    for i in idx:
+        p = specs[i].predicates[0]
+        if hasattr(p, "a"):
+            lo.append([p.a])
+            hi.append([p.b])
+            tgt.append(0)
+        else:
+            lo.append(list(p.lo))
+            hi.append(list(p.hi))
+            tgt.append(0 if specs[i].target is None else JOINT.index(specs[i].target))
+        aggs.append(specs[i].aggregate)
+    return np.asarray(lo, np.float64), np.asarray(hi, np.float64), np.asarray(tgt), aggs
+
+
+def oracle_qmc(torch, rt, syn, lo, hi, tgt, aggs, k: int, n_qmc: int = 4096):
+    """eq. 6 integrated over the first k boxes of a full-H group in float64
+    on the card, with the engine's plan (the same clipped boxes and the same
+    float32 Halton nodes): scaled COUNT / SUM / AVG per box."""
+    md = rt["aqp_multid"]
+    x = syn.x if syn.x.dim() == 2 else syn.x[:, None]
+    n, d = x.shape
+    plan = md._qmc_plan(x.double().cpu().numpy(), syn.H.double().cpu().numpy(), lo, hi, n_qmc)
+    glo, ghi, clo, chi, n_nodes = plan
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=DEV)
+
+    glo_t, ghi_t = f32(glo), f32(ghi)
+    unit = torch.as_tensor(md._halton_unit(n_nodes, d), device=DEV)
+    nodes = (glo_t[None] + unit * (ghi_t - glo_t)[None]).double()
+    H64 = syn.H.double()
+    h_inv = torch.linalg.inv(H64)
+    log_norm = -0.5 * d * math.log(2 * math.pi) - 0.5 * torch.linalg.slogdet(H64)[1]
+    x64 = x.double()
+    f = torch.empty(n_nodes, dtype=torch.float64, device=DEV)
+    for s in range(0, n_nodes, 256):
+        diff = nodes[s:s + 256, None, :] - x64[None]
+        quad = torch.sum((diff @ h_inv) * diff, dim=-1)
+        f[s:s + 256] = torch.exp(log_norm - 0.5 * quad).mean(1)
+    vol = torch.prod(ghi_t - glo_t).double()
+    lo_t, hi_t = f32(clo[:k]).double(), f32(chi[:k]).double()
+    w = torch.all((nodes[None] >= lo_t[:, None]) & (nodes[None] <= hi_t[:, None]), 2) * f[None]
+    tv = nodes.T[torch.as_tensor(np.asarray(tgt[:k]), device=DEV)]
+    scale = syn.n_source / n
+    cnt = (scale * n * vol * w.mean(1)).cpu().numpy()
+    sm = (scale * n * vol * (w * tv).mean(1)).cpu().numpy()
+    return [select_op(a, c, s) for a, c, s in zip(aggs[:k], cnt, sm)], n_nodes
+
+
+def path_d(torch, rt, store, specs):
+    """Path D: the 1 024-spec mix served from LSCV_H fits on the full-H
+    path, the RFF density backend ("auto") and then the exact one."""
+    ops, RFF = rt["ops"], rt["synopses"].RFFSynopsis
+    fit_s = []
+    orig_fit = RFF.fit.__func__
+
+    def timed_fit(cls, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_fit(cls, *a, **kw)
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+        return out
+
+    RFF.fit = classmethod(timed_fit)
+    try:
+        res, sec, counts, calls = driven(
+            torch, ops, "path D (lscv_H, kde_backend auto) first query, 1-D LSCV_H fits "
+            "and RFF fits included", lambda: store.query(specs, selector="lscv_H"))
+    finally:
+        RFF.fit = classmethod(orig_fit)
+    others = {k: v for k, v in counts.items()
+              if k not in ("gh_fused_sum", "rff_density", "qmc_box_reduce")}
+    check(counts["gh_fused_sum"] > 0 and counts["rff_density"] >= 3
+          and not any(others.values()),
+          f"path D launches {counts}: 1-D LSCV_H fits on gh_fused_sum, the RFF probe gates "
+          f"on rff_density, nothing else")
+    slices = group_slices(specs)
+    est = np.asarray([r.estimate for r in res])
+    check(bool(np.all(np.isfinite(est)))
+          and all(r.ci_lo <= r.estimate <= r.ci_hi for r in res), "path D: CI or finiteness")
+    check({res[i].path for i in range(N_RANGE + N_BOX, len(specs))} == {"exact"}, "Eq paths")
+    rff_groups = []
+    for j, (col, idx) in enumerate(slices.items()):
+        syn = (store.joint_synopsis(col, "lscv_H") if isinstance(col, tuple)
+               else store.synopsis(col, "lscv_H"))
+        ver = (store.joints[col] if isinstance(col, tuple) else store.columns[col]).version
+        ckey = col + ("#rff2048",) if isinstance(col, tuple) else f"{col}#rff2048"
+        rff = store.cache.get(ckey, "lscv_H", ver, backend="cuda")
+        paths = {res[i].path for i in idx}
+        check(rff is not None and paths == ({"qmc:cuda"} if rff.degraded else {"qmc:rff"}),
+              f"path D: group {col} paths {paths} with RFF {rff and rff.error_metadata()}")
+        if not rff.degraded:
+            rff_groups.append(col)
+        print(f"path D group {col}: H diag {syn.H.diagonal().tolist()}; RFF fit "
+              f"{fit_s[j] * 1e3:.1f} ms, probe_rel_err {rff.probe_rel_err:.4f}, "
+              f"degraded {rff.degraded}; path {paths.pop()}")
+    per_group = []
+    for args, _ in calls["rff_density"]:           # each fit's probe call opens a group
+        if args[0].shape[0] == rt["query"].RFF_GATE_PROBES:
+            per_group.append(0)
+        per_group[-1] += 1
+    print(f"path D: rff_density launches {counts['rff_density']}, per group {per_group} (a "
+          f"probe per fit, then an estimate and 8 feature blocks per RFF group), "
+          f"qmc_box_reduce {counts['qmc_box_reduce']} (degraded groups); {sec:.3f} s")
+
+    eng = store.shared_engine("lscv_H")
+    res_x, sec_x, counts_x, calls_x = driven(
+        torch, ops, "path D exact (kde_backend='exact', fits cached)",
+        lambda: eng.execute(specs, kde_backend="exact"))
+    want = {k: 0 for k in counts_x}
+    want["qmc_box_reduce"] = 3 * (1 + 8)       # an estimate and 8 CI chunks per group
+    check(counts_x == want, f"path D exact launches {counts_x}, expected {want}")
+    nodes = [a[0].shape[0] for a, _ in calls_x["qmc_box_reduce"] if a[1].shape[0] == CAPACITY]
+    print(f"path D exact: Halton nodes per group (_qmc_plan): {nodes}")
+    worst, in_ci, n_rff = 0.0, 0, 0
+    for col, idx in slices.items():
+        syn = (store.joint_synopsis(col, "lscv_H") if isinstance(col, tuple)
+               else store.synopsis(col, "lscv_H"))
+        lo, hi, tgt, aggs = group_boxes(specs, idx)
+        check({res_x[i].path for i in idx} == {"qmc:cuda"}, f"path D exact: {col} paths")
+        want64, _ = oracle_qmc(torch, rt, syn, lo, hi, tgt, aggs, 24)
+        ok, err = close([res_x[i].estimate for i in idx[:24]], want64, 1e-4, 1e-3)
+        check(ok, f"path D exact: {col} vs the float64 eq. 6 oracle (max err {err})")
+        worst = max(worst, err)
+        if col in rff_groups:
+            top = max(abs(res_x[i].estimate) for i in idx)
+            for i, w64 in zip(idx, want64):
+                r = res[i]
+                half = max((r.ci_hi - r.ci_lo) / 2.0, 0.02 * top)
+                check(abs(r.estimate - w64) <= 4.0 * half,
+                      f"path D: {col} spec {i}: RFF {r.estimate} vs float64 {w64}")
+            for i in idx:
+                r, x_ = res[i], res_x[i]
+                half = max((r.ci_hi - r.ci_lo) / 2.0, (x_.ci_hi - x_.ci_lo) / 2.0, 0.02 * top)
+                check(abs(r.estimate - x_.estimate) <= 4.0 * half,
+                      f"path D: {col} spec {i}: RFF {r.estimate} vs exact {x_.estimate} "
+                      f"beyond 4 half-widths {half}")
+                in_ci += int(r.ci_lo <= x_.estimate <= r.ci_hi
+                             or x_.ci_lo <= r.estimate <= x_.ci_hi)
+                n_rff += 1
+    print(f"path D exact: 24 specs per group match the float64 eq. 6 oracle on the same "
+          f"nodes (max |err| {worst:.3g}), the RFF answers of those within 4 CI "
+          f"half-widths of it; RFF and exact answers inside each other's CIs for {in_ci} "
+          f"of {n_rff} specs, all within 4 CI half-widths")
+
+    for what, run, first in (("path D", lambda: store.query(specs, selector="lscv_H"), res),
+                             ("path D exact",
+                              lambda: eng.execute(specs, kde_backend="exact"), res_x)):
+        again, _, c2, _ = driven(torch, ops, f"{what} repeat query", run)
+        check(all((r.estimate, r.ci_lo, r.ci_hi, r.path) == (r2.estimate, r2.ci_lo, r2.ci_hi,
+                                                               r2.path)
+                  for r, r2 in zip(first, again)), f"{what}: repeat query not bit-identical")
+        check(c2["gh_fused_sum"] == 0, f"{what}: repeat query refitted")
+    print("path D repeat queries (RFF and exact): bit-identical answers, no fit launches")
+    return counts, calls, counts_x, calls_x
+
+
+def path_e(torch, rt, store, specs):
+    """Path E: kde_eval on a 1-D sample and on the joint, and the
+    trapezoid forms of eqs. 9-10 against the closed forms."""
+    ops, kde, aqp = rt["ops"], rt["kde"], rt["aqp"]
+    syn = store.synopsis("loss")                     # PLUGIN, cached by the main path
+    jsyn = store.joint_synopsis(JOINT, "lscv_h")     # scalar h, cached by path A
+    x1, h1 = syn.x, syn.h
+    hv = float(h1)
+    grid1 = torch.linspace(float(x1.min()) - 6 * hv, float(x1.max()) + 6 * hv, N_E_POINTS,
+                           device=DEV)
+    per_axis = round(N_E_POINTS ** (1 / 3))
+    qs = torch.quantile(jsyn.x[:8192], torch.linspace(0.02, 0.98, per_axis, device=DEV), dim=0)
+    gridj = torch.stack(torch.meshgrid(qs[:, 0], qs[:, 1], qs[:, 2], indexing="ij"),
+                        -1).reshape(-1, 3).contiguous()
+    ranges = [(specs[i].predicates[0].a, specs[i].predicates[0].b) for i in range(N_RANGE)
+              if specs[i].predicates[0].column == "loss"][:N_E_RANGES]
+
+    def run():
+        f1 = kde.kde_eval(grid1, x1, h1, device=DEV)
+        fj = kde.kde_eval(gridj, jsyn.x, jsyn.h, device=DEV)
+        num = [(aqp.count_1d_numeric(x1, h1, a, b), aqp.sum_1d_numeric(x1, h1, a, b))
+               for a, b in ranges]
+        return f1, fj, num
+
+    (f1, fj, num), sec, counts, calls = driven(torch, ops, "path E (kde_eval)", run)
+    want = {k: 0 for k in counts}
+    want["kde_eval"] = 2 + 2 * len(ranges)
+    check(counts == want, f"path E launches {counts}, expected {want}")
+    check(bool(torch.all(torch.isfinite(f1)) & torch.all(f1 >= 0) & torch.all(torch.isfinite(fj))
+               & torch.all(fj >= 0)) and fj.shape == (N_E_POINTS,),
+          "path E: densities finite, non-negative, of the expected shape")
+    mass = float(torch.trapezoid(f1.double(), grid1.double()))
+    check(abs(mass - 1.0) < 1e-3, f"path E: the 1-D density integrates to {mass}")
+    got = np.asarray([[float(c), float(s)] for c, s in num])
+    closed = np.asarray([[float(aqp.count_1d(x1, h1, a, b)), float(aqp.sum_1d(x1, h1, a, b))]
+                         for a, b in ranges])
+    ok, err = close(got, closed, 1e-3, 1e-2)
+    check(ok, f"path E: trapezoid eqs. 9-10 vs the closed forms (max err {err})")
+    print(f"path E: kde_eval at {N_E_POINTS} points (n={x1.shape[0]}, d=1, h={hv:.4g}; "
+          f"joint d=3, h={float(jsyn.h):.4g}); the 1-D density integrates to {mass:.6f}; "
+          f"{len(ranges)} count_1d_numeric / sum_1d_numeric match the closed forms "
+          f"(max |err| {err:.3g}); {sec * 1e3:.1f} ms")
+    return counts, calls
+
+
 def all_range_bounds(torch, calls):
     """The bounds of all main-path range groups, concatenated: the extra
     aqp_batch shape (q = 512 here) of one launch per batch."""
@@ -428,7 +808,7 @@ def kernels_vs_plain(torch, rt, calls):
     its main-path calls, at an extra shape and at edge shapes, and against
     float64 on a subsample."""
     ops, ref, plugin = rt["ops"], rt["ref"], rt["plugin"]
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     rng = np.random.default_rng(7)
     out = {}
 
@@ -582,7 +962,7 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b):
     aqp_batch / aqp_boxes calls against theirs; LSCV_h at n = 512 on the
     card against the paper's sequential float64 oracle."""
     ops, ref, lscv = rt["ops"], rt["ref"], rt["lscv"]
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     rng = np.random.default_rng(11)
     out = {}
 
@@ -638,7 +1018,7 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b):
              ref.lscv_grid_sums(xs, ms, hg, 0.3, 0.2).cpu(), GRID_RTOL, GRID_ATOL,
              f"lscv_grid_sums n={n}")
     xs = rng.normal(0.0, 1.0, (512, 3)).astype(np.float32)
-    res = lscv.lscv_h(xs, backend="cuda", device="cuda")
+    res = lscv.lscv_h(xs, backend="cuda", device=DEV)
     worst = 0.0
     for i in (0, 50, 100, 149):
         oracle = lscv.g_of_h_sequential(xs, float(res.h_grid[i]))
@@ -676,6 +1056,159 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b):
     return out
 
 
+def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
+    """The GROUP BY and full-H kernels against their plain versions on the
+    inputs of their calls on paths C, D and E, at edge shapes, and against
+    float64 on a subsample.  qmc_box_reduce is held at the reference's rtol
+    1e-5 with an atol of 1e-6 of the call's largest |sum|: each sum adds up
+    to 1.07e9 positive kernel values in float32, in another order than the
+    plain version, and a SUM over a box whose target axis changes sign can
+    cancel far below the terms it adds."""
+    ops, ref = rt["ops"], rt["ref"]
+    dev = torch.device(DEV)
+    rng = np.random.default_rng(13)
+    out = {}
+
+    def t32(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def grouped_pair(args, what):
+        k, p = ops.aqp_grouped_sums(*args), ref.aqp_grouped_sums(*args)
+        return max(held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, what + " count"),
+                   held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, what + " sum"))
+
+    made = calls_c["aqp_grouped_sums"]
+    out["aqp_grouped_sums"] = max(grouped_pair(a, f"aqp_grouped {call_shape('aqp_grouped_sums', a, k)}")
+                                  for a, k in made)
+    args = made[0][0]
+    k1, k2 = ops.aqp_grouped_sums(*args), ops.aqp_grouped_sums(*args)
+    check(torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1]),
+          "aqp_grouped: two launches on the same inputs differ")
+    x, h, lo, hi, glo, ghi, g_axis, tgt = args
+    sub = x[:4096].contiguous()
+    blo = lo.double().repeat(glo.shape[0], 1)
+    bhi = hi.double().repeat(glo.shape[0], 1)
+    blo[:, g_axis], bhi[:, g_axis] = glo.double(), ghi.double()
+    for t in (tgt, g_axis):
+        k = ops.aqp_grouped_sums(sub, h, lo, hi, glo, ghi, g_axis, t)
+        c64, s64 = oracle_boxes_dev(torch, sub.double(), h.double(), blo, bhi,
+                                    [t] * glo.shape[0])
+        held(k[0].cpu(), c64, AQP_RTOL, CNT_ATOL, f"aqp_grouped tgt={t} count vs float64")
+        held(k[1].cpu(), s64, AQP_RTOL, SUM_ATOL, f"aqp_grouped tgt={t} sum vs float64")
+    for n, d, G, ga, tg in ((1, 1, 1, 0, 0), (4097, 3, 1, 1, 0), (4097, 2, 130, 0, 1),
+                            (4097, 3, 64, 2, 2), (0, 2, 4, 1, 0), (50, 3, 0, 1, 1)):
+        xs = t32(rng.normal(0, 1.5, (n, d)).astype(np.float32))
+        hs = t32(rng.uniform(0.2, 0.8, d).astype(np.float32))
+        ls = t32(rng.uniform(-2, 0, d).astype(np.float32))
+        codes = np.arange(G, dtype=np.float32) * 0.05 - 1.5
+        k = ops.aqp_grouped_sums(xs, hs, ls, ls + 2.0, t32(codes), t32(codes + 0.05), ga, tg)
+        check(k[0].shape == (G,), f"aqp_grouped n={n} G={G} shape")
+        grouped_pair((xs, hs, ls, ls + 2.0, t32(codes), t32(codes + 0.05), ga, tg),
+                     f"aqp_grouped n={n} d={d} G={G}")
+    print(f"aqp_grouped: {len(made)} path-C calls ({call_shape('aqp_grouped_sums', args, {})}) "
+          f"match plain, max |err| {out['aqp_grouped_sums']:.3g}; two launches give the same "
+          f"bits; n=4096 within tolerance of float64 on both target branches; edge shapes "
+          f"n=0/1/4097, G=0/1/130, d=1/2/3 match plain")
+
+    def qmc_pair(args, what):
+        k, p = ops.qmc_box_reduce(*args), ref.qmc_box_reduce(*args)
+        errs = []
+        for kk, pp, ch in ((k[0], p[0], "count"), (k[1], p[1], "sum")):
+            atol = QMC_ATOL * max(float(pp.abs().max()) if pp.numel() else 0.0, 1.0)
+            errs.append(held(kk.cpu(), pp.cpu(), QMC_RTOL, atol, f"{what} {ch}"))
+        return max(errs)
+
+    made = calls_dx["qmc_box_reduce"]
+    full = [c for c in made if c[0][1].shape[0] == CAPACITY]
+    chunks = [c for c in made if c[0][1].shape[0] != CAPACITY]
+    out["qmc_box_reduce"] = max(qmc_pair(a, f"qmc_box_reduce {call_shape('qmc_box_reduce', a, k)}")
+                                for a, k in made + calls_d["qmc_box_reduce"])
+    nodes, x, h_inv, log_norm, lo, hi, tgt = full[-1][0]
+    ns, xs, ls, hs, ts = (nodes[:4096].contiguous(), x[:2048].contiguous(), lo[:32].contiguous(),
+                          hi[:32].contiguous(), tgt[:32].contiguous())
+    k = ops.qmc_box_reduce(ns, xs, h_inv, log_norm, ls, hs, ts)
+    n64, x64, hi64 = ns.double(), xs.double(), h_inv.double()
+    f64 = torch.empty(ns.shape[0], dtype=torch.float64, device=dev)
+    for s in range(0, ns.shape[0], 512):
+        diff = n64[s:s + 512, None, :] - x64[None]
+        f64[s:s + 512] = torch.exp(float(log_norm) - 0.5 * torch.sum((diff @ hi64) * diff, -1)).sum(1)
+    w = torch.all((n64[None] >= ls.double()[:, None]) & (n64[None] <= hs.double()[:, None]), 2) * f64[None]
+    c64 = w.sum(1)
+    s64 = (w * n64.T[ts.long()]).sum(1)
+    held(k[0].cpu(), c64.cpu(), QMC_RTOL, QMC_ATOL * float(c64.abs().max()), "qmc_box_reduce count vs float64")
+    held(k[1].cpu(), s64.cpu(), QMC_RTOL, QMC_ATOL * float(s64.abs().max().clamp_min(1.0)),
+         "qmc_box_reduce sum vs float64")
+    for n, d, q, m in ((1, 1, 1, 1), (4097, 3, 70, 1000), (300, 8, 5, 33), (0, 2, 3, 4),
+                       (10, 2, 0, 4), (10, 2, 3, 0)):
+        xs = t32(rng.normal(0, 1, (n, d)).astype(np.float32))
+        ns = t32(rng.uniform(-2, 2, (m, d)).astype(np.float32))
+        a0 = rng.normal(0, 0.3, (d, d))
+        Hm = a0 @ a0.T + 0.5 * np.eye(d)
+        ls = t32(rng.uniform(-2, 0, (q, d)).astype(np.float32))
+        args = (ns, xs, t32(np.linalg.inv(Hm).astype(np.float32)),
+                float(-0.5 * d * np.log(2 * np.pi) - 0.5 * np.linalg.slogdet(Hm)[1]),
+                ls, ls + 1.5, t32(rng.integers(0, d, q), torch.int32))
+        check(ops.qmc_box_reduce(*args)[0].shape == (q,), f"qmc_box_reduce q={q} shape")
+        qmc_pair(args, f"qmc_box_reduce n={n} d={d} q={q} m={m}")
+    print(f"qmc_box_reduce: all {len(made) + len(calls_d['qmc_box_reduce'])} calls of paths D "
+          f"exact and D ({len(full)} estimates, {call_shape('qmc_box_reduce', full[0][0], {})} "
+          f"first, and {len(chunks)} CI chunks on exact) match plain, max |err| "
+          f"{out['qmc_box_reduce']:.3g}; m=4096 n=2048 q=32 within tolerance of float64; edge "
+          f"shapes n/m/q = 0 and 1, d=1/3/8 match plain")
+
+    def rff_pair(args, what):
+        return held(ops.rff_density(*args).cpu(), ref.rff_density(*args).cpu(),
+                    RFF_RTOL, RFF_ATOL, what)
+
+    made = calls_d["rff_density"]
+    out["rff_density"] = max(rff_pair(a, f"rff_density {call_shape('rff_density', a, k)}")
+                             for a, k in made)
+    big = max(made, key=lambda c: c[0][0].shape[0] * c[0][1].shape[0])[0]
+    p, w_, b_, z_ = big
+    ps = p[:512].contiguous()
+    k = ops.rff_density(ps, w_, b_, z_)
+    want = torch.cos(ps.double() @ w_.double().T + b_.double()[None]) @ z_.double()
+    held(k.cpu(), want.cpu(), RFF_RTOL, RFF_ATOL, "rff_density vs float64")
+    for m, D, d in ((1, 16, 1), (4097, 515, 8), (0, 16, 2), (5, 0, 2)):
+        args = (t32(rng.normal(0, 1, (m, d)).astype(np.float32)),
+                t32(rng.normal(0, 3, (D, d)).astype(np.float32)),
+                t32(rng.uniform(0, 2 * np.pi, D).astype(np.float32)),
+                t32((rng.normal(0, 1, D) * 2.0 / max(D, 1)).astype(np.float32)))
+        check(ops.rff_density(*args).shape == (m,), f"rff_density m={m} shape")
+        rff_pair(args, f"rff_density m={m} D={D} d={d}")
+    print(f"rff_density: {len(made)} path-D calls match plain, max |err| "
+          f"{out['rff_density']:.3g}; m=512 D={w_.shape[0]} within tolerance of float64 "
+          f"(the projection reaches {float((p @ w_.T + b_).abs().max()):.0f} rad); edge "
+          f"shapes m/D = 0 and 1, d=1/8 match plain")
+
+    def kde_pair(args, what):
+        return held(ops.kde_eval(*args).cpu(), ref.kde_eval(*args).cpu(), KDE_RTOL, KDE_ATOL, what)
+
+    made = calls_e["kde_eval"]
+    out["kde_eval"] = max(kde_pair(a, f"kde_eval {call_shape('kde_eval', a, k)}")
+                          for a, k in made)
+    for pts, x, h in (made[0][0], made[1][0]):
+        ps = pts[:256].contiguous()
+        k = ops.kde_eval(ps, x, h)
+        d = x.shape[1]
+        h64 = float(h)
+        diff = (ps.double()[:, None, :] - x.double()[None]) / h64
+        want = ((2 * math.pi) ** (-d / 2) * h64 ** (-d)
+                * torch.exp(-0.5 * torch.sum(diff * diff, -1)).mean(1))
+        held(k.cpu(), want.cpu(), KDE_RTOL, KDE_ATOL, f"kde_eval d={d} vs float64")
+    for m, n, d in ((1, 1, 1), (4097, 3000, 16), (0, 10, 2)):
+        args = (t32(rng.normal(0, 1, (m, d)).astype(np.float32)),
+                t32(rng.normal(0, 1, (n, d)).astype(np.float32)), 0.6)
+        check(ops.kde_eval(*args).shape == (m,), f"kde_eval m={m} shape")
+        kde_pair(args, f"kde_eval m={m} n={n} d={d}")
+    print(f"kde_eval: all {len(made)} path-E calls (two grids, {len(made) - 2} trapezoid "
+          f"grids) match plain, max |err| {out['kde_eval']:.3g}; 256 points against "
+          f"the full sample within tolerance of float64 (d=1, 3); edge shapes m=0/1, n=1, "
+          f"d=16 match plain")
+    torch.cuda.synchronize()
+    return out
+
+
 def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     """Median of `reps` warm runs, each between two CUDA events."""
     for _ in range(warm):
@@ -705,7 +1238,14 @@ def bound_ms(name: str, args, kwargs) -> tuple:
     instructions or an SFU op, and the peak counts an FMA as two).  For
     lscv_grid_sums the work is the grid phase alone: the strict upper
     triangle of S read once, 4 operations per (pair, h) (scale, exp2,
-    two FMAs)."""
+    two FMAs).  aqp_grouped_sums: 13 per (row, axis) for the shared
+    product, 15 per (row, category) (2 erfc, the window's differences, the
+    FMAs), 13 more per (row, category) when the target is the group axis;
+    qmc_box_reduce: d^2 + 2d + 3 per (node, row) (subtractions, the
+    quadratic form's FMAs, scale, exp, add) and 2d + 3 per (box, node);
+    rff_density: d + 3 per (point, feature) (projection FMAs, phase, cos,
+    FMA); kde_eval: 2d + 3 per (point, row) (subtractions and FMAs of the
+    distance, scale, exp2, add)."""
     if name == "pairwise_scaled_ksum":
         x = args[0]
         n = x.shape[0]
@@ -729,10 +1269,26 @@ def bound_ms(name: str, args, kwargs) -> tuple:
         n, n_h = args[0].shape[0], args[2].shape[0]
         nbytes = 4 * n * (n - 1) // 2 + 8 * n_h + 8
         ops = 4 * n_h * n * (n - 1) // 2
-    else:                                    # gh_fused_sum
+    elif name == "gh_fused_sum":
         n, d = args[0].shape
         nbytes = 4 * n * d + 4 * d * d + 8 + 4
         ops = (2 * d + d * (d + 1) // 2 + 3) * n * (n - 1) // 2  # + exp2, two FMAs
+    elif name == "aqp_grouped_sums":
+        (n, d), G = args[0].shape, args[4].shape[0]
+        nbytes = 4 * n * d + 12 * d + 8 * G + 8 * G
+        ops = 13 * n * d + (28 if args[7] == args[6] else 15) * n * G
+    elif name == "qmc_box_reduce":
+        (m, d), n, q = args[0].shape, args[1].shape[0], args[4].shape[0]
+        nbytes = 4 * (m * d + n * d + d * d + 1 + 2 * q * d + q) + 8 * q
+        ops = (d * d + 2 * d + 3) * m * n + (2 * d + 3) * q * m
+    elif name == "rff_density":
+        (m, d), nf = args[0].shape, args[1].shape[0]
+        nbytes = 4 * (m * d + nf * d + 2 * nf) + 4 * m
+        ops = (d + 3) * m * nf
+    else:                                    # kde_eval
+        (m, d), n = args[0].shape, args[1].shape[0]
+        nbytes = 4 * (m * d + n * d + 1) + 4 * m
+        ops = (2 * d + 3) * m * n
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -775,7 +1331,8 @@ def timings(torch, rt, first, main_calls, calls_a):
         s_mat = None
         b, by = bound_ms(name, args, kw)
         out[name] = (min(k1, k2), min(p1, p2), b, by)
-        print(f"time {name} ({call_shape(name, args, kw)}, the first call on path "
+        which = "largest" if name == "rff_density" else "first"
+        print(f"time {name} ({call_shape(name, args, kw)}, the {which} call on path "
               f"{KERNEL_PATH[name]}{note}): kernel {k1:.4f} / {k2:.4f} ms (median of 15), "
               f"plain {p1:.4f} / {p2:.4f} ms (median of {reps}), bound {b:.4f} ms ({by}); "
               f"no single PyTorch call computes it (library_ms null)")
@@ -805,11 +1362,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import aqp_query, lscv, plugin
+    from repro_torch import synopses
+    from repro_torch.core import aqp, aqp_multid, aqp_query, kde, lscv, plugin
     from repro_torch.data import aqp_store
     from repro_torch.kernels import _build, ops, pairwise_reduce, ref
     rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
-          "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce}
+          "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
+          "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses}
     t_start = time.perf_counter()
 
     card = card_line()
@@ -817,17 +1376,25 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s ({', '.join(_build.SOURCES.values())})")
 
-    store, specs, stream = build_store(args, rt, aqp_query)
+    store, specs, gspecs, stream = build_store(args, rt, aqp_query)
     counts = {}
     counts["plugin"], calls_main = main_path(torch, rt, store, specs, stream)
     counts["A"], calls_a = path_a(torch, rt, store, specs, stream)
     counts["B"], calls_b = path_b(torch, rt, store)
     print(f"phases through path B: {time.perf_counter() - t_start:.1f} s")
+    counts["C"], calls_c = path_c(torch, rt, store, gspecs, stream)
+    counts["D"], calls_d, counts["D exact"], calls_dx = path_d(torch, rt, store, specs)
+    counts["E"], calls_e = path_e(torch, rt, store, specs)
+    print(f"phases through path E: {time.perf_counter() - t_start:.1f} s")
     errs = kernels_vs_plain(torch, rt, calls_main)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b))
+    errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))
     print(f"phases through the plain-version checks: {time.perf_counter() - t_start:.1f} s")
-    paths = {"plugin": calls_main, "A": calls_a, "B": calls_b}
+    paths = {"plugin": calls_main, "A": calls_a, "B": calls_b, "C": calls_c, "D": calls_d,
+             "D exact": calls_dx, "E": calls_e}
     first = {name: paths[KERNEL_PATH[name]][name][0] for name in TPU_KERNELS}
+    first["rff_density"] = max(calls_d["rff_density"],
+                               key=lambda c: c[0][0].shape[0] * c[0][1].shape[0])
     times = timings(torch, rt, first, calls_main, calls_a)
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -1,7 +1,8 @@
-"""State carried across from the JAX package: its fitted synopses and its
-store snapshots, rebuilt as the port's objects from numpy arrays (the
-system's counterpart of carrying weights across).  Counterpart: the
-reference's `TelemetryStore.to_state()` / `from_state()`."""
+"""State carried across from the JAX package: its fitted synopses, its RFF
+density synopses and its store snapshots, rebuilt as the port's objects from
+numpy arrays (the system's counterpart of carrying weights across).
+Counterpart: the reference's `TelemetryStore.to_state()` / `from_state()`
+and `RFFSynopsis.to_state()`."""
 from __future__ import annotations
 
 from typing import Dict
@@ -13,6 +14,7 @@ from repro_torch.core.aqp import KDESynopsis
 from repro_torch.data.aqp_store import (CategoricalSketch, MultiReservoir,
                                         Reservoir, TelemetryStore)
 from repro_torch.device import DTYPE, DeviceLike, resolve_device
+from repro_torch.synopses import RFFSynopsis, get_backend
 
 STATE_FORMAT = 1     # the reference's `repro.data.aqp_store.STATE_FORMAT`
 
@@ -34,20 +36,33 @@ def synopsis_from_numpy(x, h, n_source: int, selector: str,
                        n_source=int(n_source), selector=selector)
 
 
+def rff_from_numpy(w, b, z, norm: float, n_fitted: int, seed: int,
+                   degraded: bool = False, probe_rel_err: float = float("nan"),
+                   device: DeviceLike = None) -> RFFSynopsis:
+    """The port's RFF synopsis from a reference fit's state as numpy arrays
+    (`repro.synopses.rff.RFFSynopsis.to_state()`): the very (W, b, z) the
+    reference drew, so both packages evaluate the same synopsis."""
+    return RFFSynopsis.from_state(
+        {"w": w, "b": b, "z": z},
+        {"norm": norm, "n_fitted": n_fitted, "seed": seed, "degraded": degraded,
+         "probe_rel_err": probe_rel_err}, device=device)
+
+
 def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
                      device: DeviceLike = None) -> TelemetryStore:
     """The port's store from `repro.data.aqp_store.TelemetryStore.to_state()`.
 
     Carries reservoir buffers with `n_seen`, `n_filled`, version and RNG
     state (so later `add_batch` calls sample as the reference would), joints
-    with their backfill flags, exact categorical sketches, and cached
-    synopses with a bandwidth (plugin, silverman, lscv_h) or a full
-    bandwidth matrix (lscv_H).  The reference
-    fits on its plain path, so its cached synopses serve the port's plain
-    backend ("torch"); a "cuda" query refits on the kernel.  `meta["metrics"]`
-    and `meta["plans"]` are skipped: the port has no metrics registry yet,
-    and plans rebuild from the synopses on first use.  Tiered reservoirs,
-    count-min sketches and RFF cache entries raise NotImplementedError.
+    with their backfill flags, exact categorical sketches, cached synopses
+    with a bandwidth (plugin, silverman, lscv_h) or a full bandwidth matrix
+    (lscv_H), and cached density synopses (RFF: w, b, z, norm, seed,
+    degraded, probe_rel_err).  The reference fits on its plain path, so its
+    cached entries serve the port's plain backend ("torch"); a "cuda" query
+    refits on the kernels.  `meta["metrics"]` and `meta["plans"]` are
+    skipped: the port has no metrics registry yet, and plans rebuild from the
+    synopses on first use.  Tiered reservoirs and count-min sketches raise
+    NotImplementedError.
     """
     if int(meta.get("format", -1)) != STATE_FORMAT:
         raise ValueError(f"unsupported store-state format "
@@ -90,15 +105,20 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
             store.categoricals[name] = sketch
     for i, ent in enumerate(meta["cache"]):
         col = tuple(ent["column"]) if ent["is_tuple"] else ent["column"]
-        if ent.get("synopsis") is not None:
-            raise NotImplementedError(
-                f"cache entry {col!r} is a {ent['synopsis'].get('backend')!r} "
-                f"synopsis, not ported yet (ROADMAP queue 1.10)")
-        syn = synopsis_from_numpy(arrays[f"cache/{i}/x"],
-                                  arrays.get(f"cache/{i}/h"),
-                                  ent["n_source"], str(ent["syn_selector"]),
-                                  device=store.device,
-                                  H=arrays.get(f"cache/{i}/H"))
+        syn_meta = ent.get("synopsis")
+        if syn_meta is not None:
+            prefix = f"cache/{i}/"
+            syn = get_backend(str(syn_meta["backend"])).from_state(
+                {k[len(prefix):]: v for k, v in arrays.items()
+                 if k.startswith(prefix)}, syn_meta, device=store.device)
+            syn.n_source = int(ent["n_source"])
+            syn.selector = str(ent["syn_selector"])
+        else:
+            syn = synopsis_from_numpy(arrays[f"cache/{i}/x"],
+                                      arrays.get(f"cache/{i}/h"),
+                                      ent["n_source"], str(ent["syn_selector"]),
+                                      device=store.device,
+                                      H=arrays.get(f"cache/{i}/H"))
         store.cache.put(col, str(ent["selector"]), int(ent["version"]), syn,
                         backend="torch")
     return store

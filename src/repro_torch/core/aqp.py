@@ -13,21 +13,23 @@ with the Gaussian closed forms
 and, for axis-aligned boxes under a diagonal bandwidth, their per-axis
 product (eq. 11).  Selectors "plugin", "silverman", "lscv_h" (one scalar
 h, broadcast to every axis) and "lscv_H" (a full bandwidth matrix) are
-ported; queries against a full-H synopsis need the QMC path of the full-H
-slice (ROADMAP queue 1.10) and raise NotImplementedError.
+ported.  A full-H synopsis answers boxes by deterministic quasi-MC on
+Halton nodes (`box_qmc_terms`); `count_1d_numeric` / `sum_1d_numeric` are
+the trapezoid cross-checks of eqs. 9-10 through `kde_eval`.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import DTYPE, DeviceLike, resolve_backend, resolve_device
 from repro_torch.kernels import ref as kref
 
 from . import gaussian as G
-from .kde import silverman_h
+from .kde import kde_eval, kde_eval_H, silverman_h
 from .lscv import lscv_H, lscv_h
 from .plugin import plugin_bandwidth
 
@@ -82,6 +84,67 @@ def sum_box_diag(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     axis = torch.arange(x.shape[1], device=x.device)
     factors = torch.where(axis[None, :] == target, moment, d_Phi)
     return torch.sum(torch.prod(factors, dim=1))
+
+
+def count_1d_numeric(x: torch.Tensor, h, a: float, b: float,
+                     n_grid: int = 513) -> torch.Tensor:
+    """eq. (9) by trapezoid quadrature — the generic path the paper
+    describes, kept as a cross-check of the closed form; the density runs
+    through `kde_eval` (its kernel on a CUDA tensor)."""
+    grid = torch.linspace(float(a), float(b), n_grid, dtype=DTYPE, device=x.device)
+    f = kde_eval(grid, x, h, device=x.device)
+    return x.shape[0] * torch.trapezoid(f, grid)
+
+
+def sum_1d_numeric(x: torch.Tensor, h, a: float, b: float,
+                   n_grid: int = 513) -> torch.Tensor:
+    """eq. (10) by trapezoid quadrature (see `count_1d_numeric`)."""
+    grid = torch.linspace(float(a), float(b), n_grid, dtype=DTYPE, device=x.device)
+    f = kde_eval(grid, x, h, device=x.device)
+    return x.shape[0] * torch.trapezoid(grid * f, grid)
+
+
+def _halton(n: int, d: int) -> np.ndarray:
+    """Deterministic quasi-MC nodes in the unit cube (for full-H boxes):
+    float64 radical inverses in the first d primes, rounded to float32 — the
+    reference's nodes, bit for bit."""
+    primes = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37][:d]
+    out = np.zeros((n, d))
+    for k, p in enumerate(primes):
+        rem = np.arange(1, n + 1).astype(np.float64)
+        base = np.zeros(n)
+        denom = p
+        while rem.max() > 0:
+            base += (rem % p) / denom
+            rem = rem // p
+            denom *= p
+        out[:, k] = base
+    return out.astype(np.float32)
+
+
+def box_qmc_terms(x: torch.Tensor, H: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor, target: int = 0, n_qmc: int = 4096):
+    """Full-matrix-H box integrals by deterministic quasi-MC, returning
+    (count, sum_target) from one density evaluation on x's device:
+    count = n vol mean(f), sum = n vol mean(node_t f)."""
+    n, d = x.shape
+    unit = torch.as_tensor(_halton(n_qmc, d), device=x.device)
+    nodes = lo[None, :] + unit * (hi - lo)[None, :]
+    f = kde_eval_H(nodes, x, H, device=x.device)
+    vol = torch.prod(hi - lo)
+    return n * vol * torch.mean(f), n * vol * torch.mean(nodes[:, target] * f)
+
+
+def count_box_H(x: torch.Tensor, H: torch.Tensor, lo: torch.Tensor,
+                hi: torch.Tensor, n_qmc: int = 4096) -> torch.Tensor:
+    """Full-matrix-H COUNT over a box via quasi-Monte-Carlo on the box."""
+    return box_qmc_terms(x, H, lo, hi, n_qmc=n_qmc)[0]
+
+
+def sum_box_H(x: torch.Tensor, H: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor, target: int = 0, n_qmc: int = 4096) -> torch.Tensor:
+    """Full-matrix-H SUM of axis `target` over a box (quasi-MC)."""
+    return box_qmc_terms(x, H, lo, hi, target=target, n_qmc=n_qmc)[1]
 
 
 @dataclass
@@ -147,10 +210,11 @@ class KDESynopsis:
         return self.n_source / self.x.shape[0]
 
     def _require_h(self) -> None:
+        # the reference's 1-D closed forms and h_diag fail on a full-H
+        # synopsis too (its h is None): only the box queries take H
         if self.H is not None:
-            raise NotImplementedError(
-                "queries against a full-H (LSCV_H) synopsis take the QMC path, "
-                "not ported yet (ROADMAP queue 1.10)")
+            raise ValueError("a full-H (LSCV_H) synopsis has no scalar or "
+                             "diagonal h; query it with count_box / sum_box")
 
     def count(self, a: float, b: float) -> torch.Tensor:
         self._require_h()
@@ -187,14 +251,20 @@ class KDESynopsis:
         return torch.as_tensor(v, dtype=DTYPE, device=self.x.device)
 
     def count_box(self, lo, hi) -> torch.Tensor:
-        return self._scale() * count_box_diag(
-            self._as_rows(), self.h_diag(), self._box(lo), self._box(hi))
+        """COUNT over an axis-aligned box: eq. 11's product form under a
+        scalar or diagonal h, quasi-MC under a full H."""
+        x, lo, hi = self._as_rows(), self._box(lo), self._box(hi)
+        if self.H is not None:
+            return self._scale() * count_box_H(x, self.H, lo, hi)
+        return self._scale() * count_box_diag(x, self.h_diag(), lo, hi)
 
     def sum_box(self, lo, hi, target: Optional[int] = None) -> torch.Tensor:
         """SUM of axis `target` (default axis 0) over an axis-aligned box."""
-        return self._scale() * sum_box_diag(
-            self._as_rows(), self.h_diag(), self._box(lo), self._box(hi),
-            self._target_index(target))
+        x, lo, hi = self._as_rows(), self._box(lo), self._box(hi)
+        t = self._target_index(target)
+        if self.H is not None:
+            return self._scale() * sum_box_H(x, self.H, lo, hi, target=t)
+        return self._scale() * sum_box_diag(x, self.h_diag(), lo, hi, t)
 
 
 # --- batched closed forms -----------------------------------------------------

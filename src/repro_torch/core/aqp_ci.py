@@ -1,6 +1,5 @@
 """Confidence intervals of the closed-form AQP paths.
-Counterpart: `norm_ppf`, `t_ppf`, `moments_1d`, `moments_box` and
-`se_from_moments` in `repro/core/aqp_ci.py:70-194`.
+Counterpart: `repro/core/aqp_ci.py`.
 
 range1d / box: the estimate is scale * sum_i t_i over the m retained sample
 points, t_i the per-point closed-form term; the sample is an iid draw from
@@ -9,6 +8,13 @@ gives a normal-theory CI.  AVG = SUM/COUNT uses the delta method.  The
 moment passes are plain tensor code on the device, separate from the
 estimate passes (as in the reference: neither is a kernel there).
 
+qmc: no closed form under a full bandwidth matrix; the CI comes from
+subsample (batch-means) variance over K equal chunks of the retained
+sample, each answered on the node set planned for the full sample, with a
+Student-t quantile (K - 1 dof).  On the "cuda" backend each chunk's pass is
+the qmc_reduce kernel on that chunk (the estimate's function on a
+subsample), so the path runs no plain version of a kernel on the card.
+
 Quantiles are closed-form approximations (Acklam's inverse normal CDF,
 a Cornish-Fisher expansion for Student-t), accurate to ~1e-4 in the
 central range.
@@ -16,14 +22,20 @@ central range.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from . import gaussian as G
 from .aqp import AVG_MIN_COUNT, OP_COUNT, OP_SUM, Q_CHUNK
+from .aqp_multid import (_estimates64, _host64, _qmc_kernel_terms, _qmc_plan,
+                         _qmc_shared_terms, _QmcInputs)
 
 DEFAULT_CI_LEVEL = 0.95
+
+# Subsample count for the quasi-MC batch-means CI.
+QMC_SUBSAMPLES = 8
 
 
 # --- quantiles --------------------------------------------------------------
@@ -162,3 +174,37 @@ def se_from_moments(ops: np.ndarray, moments, scale: float,
                       / np.maximum(count, AVG_MIN_COUNT), np.inf)
     return np.select([ops == OP_COUNT, ops == OP_SUM],
                      [se_count, se_sum], se_avg)
+
+
+# --- subsample (batch-means) CI for the quasi-MC path -----------------------
+
+def qmc_subsample_se(x: torch.Tensor, H: torch.Tensor, lo: np.ndarray,
+                     hi: np.ndarray, tgt: np.ndarray, ops: np.ndarray,
+                     n_source: int, n_qmc: int, k_sub: int = QMC_SUBSAMPLES,
+                     backend: str = "torch") -> Tuple[np.ndarray, int]:
+    """(per-query SE, t dof) for a full-H group, by batch-means over K equal
+    chunks of the retained sample (reservoir order is random, so chunks are
+    independent uniform subsamples).  All chunks reduce over the node set
+    planned for the full sample, so the quasi-MC integration error is
+    common-mode and the spread isolates sampling variance.  backend="cuda"
+    answers each chunk in the qmc_reduce kernel, "torch" on the plain
+    density pass."""
+    q = np.asarray(lo).shape[0]
+    m = x.shape[0]
+    k = min(k_sub, m // 2)
+    if k < 2:
+        return np.full((q,), np.inf), 1
+    plan = _qmc_plan(_host64(x), _host64(H), lo, hi, n_qmc)
+    if plan is None:                  # zero-measure boxes: estimate is 0
+        return np.zeros((q,), np.float64), k - 1
+    inp = _QmcInputs(plan, tgt, x.shape[1], x.device)
+    terms = _qmc_kernel_terms if backend == "cuda" else _qmc_shared_terms
+    ops = np.asarray(ops)
+    chunk = m // k
+    scale_k = n_source / chunk
+    ests = []
+    for j in range(k):
+        cnt_raw, sum_raw = terms(x[j * chunk:(j + 1) * chunk].contiguous(), H, inp)
+        ests.append(_estimates64(ops, scale_k, cnt_raw, sum_raw))
+    e = np.stack(ests)
+    return e.std(axis=0, ddof=1) / math.sqrt(k), k - 1

@@ -9,28 +9,41 @@ Counterpart: `repro/core/aqp_query.py`.
                   `TelemetryStore`, groups it by (column tuple, selector) and
                   answers each group in one batched pass:
 
-      path      synopsis                 pass
-      -------   ----------------------   -----------------------------------
-      exact     categorical sketch       per-code counts, zero-width CI
-      range1d   1-D sample, scalar h     closed forms (`batch_query_1d`;
-                                         the aqp_batch kernel on ":cuda")
-      box       rows, diagonal h         eq. 11 (`batch_query_box`; the
-                                         aqp_boxes kernel on ":cuda")
+      path         synopsis               pass
+      -----------  ---------------------  ---------------------------------
+      exact        categorical sketch     per-code counts, zero-width CI
+      range1d      1-D sample, scalar h   closed forms (`batch_query_1d`;
+                                          the aqp_batch kernel on ":cuda")
+      box          rows, diagonal h       eq. 11 (`batch_query_box`; the
+                                          aqp_boxes kernel on ":cuda")
+      box:grouped  rows, diagonal h       one GROUP BY family in a factored
+                                          pass (`batch_query_box_grouped`;
+                                          the aqp_grouped kernel on ":cuda")
+      qmc          rows, full H           quasi-MC on shared Halton nodes,
+                                          one exact density pass per group
+                                          (`batch_query_qmc`; the qmc_reduce
+                                          kernel on ":cuda")
+      qmc:rff      rows, full H           the same nodes, densities from a
+                                          fitted RFF synopsis (the rff_eval
+                                          kernel on the card)
 
-  `AqpResult`   — estimate, path, analytic confidence interval, synopsis
-                  version.
+  `AqpResult`   — estimate, path, confidence interval, synopsis version.
 
-Synopses of every ported selector plan onto these paths: PLUGIN and
-silverman fits with their per-axis h, LSCV_h fits with one h broadcast to
-every axis.  An LSCV_H fit carries a full H and plans onto the `qmc` path.
+Synopses of every selector plan onto these paths: PLUGIN and silverman fits
+with their per-axis h, LSCV_h fits with one h broadcast to every axis, and
+LSCV_H fits (a full H, 1-D columns included) onto `qmc`.  A full-H group's
+density backend is `kde_backend`: "exact", "rff", or "auto", which takes
+RFF from KDE_CROSSOVER sample rows up.  The reference reads the crossover
+and the RFF feature count from environment knobs; here they are the module
+constants KDE_CROSSOVER and DEFAULT_RFF_FEATURES, with QueryEngine keywords
+`kde_crossover` and `rff_features`.
 
-Not ported yet, and raising NotImplementedError when asked for: the GROUP BY
-family path `box:grouped` (ROADMAP queue 1.8), the full-H paths `qmc` and
-`qmc:rff` (queue 1.10; an LSCV_H synopsis plans onto them) and progressive
-execution over tiered reservoirs (queue 1.7).
+Not ported yet, and raising NotImplementedError when asked for: progressive
+execution over tiered reservoirs (ROADMAP queue 1.7).
 """
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -42,13 +55,45 @@ from repro_torch.device import resolve_backend
 from .aqp import (OP_CODES, OP_COUNT, OP_SUM, KDESynopsis, batch_query_1d,
                   canonical_selector)
 from .aqp_ci import (DEFAULT_CI_LEVEL, moments_1d, moments_box, norm_ppf,
-                     se_from_moments)
-from .aqp_multid import batch_query_box
+                     qmc_subsample_se, se_from_moments, t_ppf)
+from .aqp_multid import (batch_query_box, batch_query_box_grouped,
+                         batch_query_qmc, batch_query_qmc_rff, qmc_rff_se)
+from .kde import kde_eval_H
 
 ColumnKey = Union[None, str, Tuple[str, ...]]
 
 EQ_HALFWIDTH = 0.5   # dictionary codes are unit-spaced: `== v` is v +- 1/2
 WIDE = 1e30          # "unconstrained axis": Phi saturates to {0,1}, phi to 0
+
+# --- density backends of the full-H path --------------------------------------
+#
+# "exact" evaluates eq. 6 against the whole sample (O(n) per node); "rff" a
+# fitted random-Fourier-feature synopsis (O(D) per node after an O(n D) fit
+# per reservoir version); "auto" takes RFF from KDE_CROSSOVER sample rows up.
+KDE_BACKENDS = ("auto", "exact", "rff")
+KDE_CROSSOVER = 16384
+DEFAULT_RFF_FEATURES = 2048
+# one-shot accuracy gate at fit time: mean relative density error on probe
+# points from the fitted sample; above the tolerance the fit is cached as
+# degraded and its group answers on the exact pass
+RFF_GATE_PROBES = 32
+RFF_GATE_TOL = 0.15
+
+
+def _resolve_kde_backend(requested: Optional[str], default: str, n: int,
+                         crossover: int = KDE_CROSSOVER) -> str:
+    name = requested or default or "auto"
+    if name == "auto":
+        return "rff" if n >= crossover else "exact"
+    return name
+
+
+def _rff_cache_key(col, n_features: int):
+    """SynopsisCache column key of a fitted RFF synopsis: suffixed, so it
+    sits beside the group's exact synopsis entry."""
+    if isinstance(col, tuple):
+        return col + (f"#rff{n_features}",)
+    return f"{col}#rff{n_features}"
 
 
 # --- predicate terms --------------------------------------------------------
@@ -127,13 +172,16 @@ class AqpQuery:
     conjunction of `predicates`, optionally per `group_by` category.
 
     `selector` overrides the engine's bandwidth selector for this query only
-    (the engine groups by (columns, selector)).
+    (the engine groups by (columns, selector)).  `kde_backend` overrides the
+    engine's density backend for this query only ("auto" | "exact" |
+    "rff"); only the full-H (qmc) path reads it.
     """
     aggregate: str                               # "count" | "sum" | "avg"
     predicates: Tuple[Predicate, ...] = ()
     target: Optional[Union[str, int]] = None     # SUM/AVG column (or axis)
     group_by: Optional[Union[str, "GroupBy"]] = None
     selector: Optional[str] = None               # per-query selector override
+    kde_backend: Optional[str] = None            # per-query density backend
 
     def __post_init__(self):
         agg = str(self.aggregate).lower()
@@ -141,6 +189,12 @@ class AqpQuery:
             raise ValueError(f"unknown aggregate {self.aggregate!r}; "
                              f"expected one of {sorted(OP_CODES)}")
         object.__setattr__(self, "aggregate", agg)
+        if self.kde_backend is not None:
+            kb = str(self.kde_backend).lower()
+            if kb not in KDE_BACKENDS:
+                raise ValueError(f"unknown kde_backend {self.kde_backend!r}; "
+                                 f"expected one of {KDE_BACKENDS}")
+            object.__setattr__(self, "kde_backend", kb)
         preds = self.predicates
         if isinstance(preds, (Range, Box, Eq)):
             preds = (preds,)
@@ -168,12 +222,16 @@ class AqpResult:
     """One answered aggregate.
 
     estimate         — the approximate answer
-    path             — "range1d" | "box" | "exact", with a ":cuda" suffix
-                       when the hand-written kernels ran the KDE pass
+    path             — "range1d" | "box" | "box:grouped" | "qmc" | "exact",
+                       with a ":cuda" suffix when the hand-written kernels
+                       ran the KDE pass, or "qmc:rff" when the full-H
+                       densities came from the RFF synopsis
     ci_lo / ci_hi    — confidence interval at `ci_level`: analytic
-                       product-kernel variance on range1d/box, zero width on
-                       exact.  Infinite endpoints mean no finite bound (AVG
-                       over an effectively empty selection).
+                       product-kernel variance on range1d / box /
+                       box:grouped, subsample batch-means on qmc, feature-
+                       block batch-means on qmc:rff, zero width on exact.
+                       Infinite endpoints mean no finite bound (AVG over an
+                       effectively empty selection).
     ci_level         — nominal coverage of [ci_lo, ci_hi] (default 0.95)
     n_effective      — rows behind the answer: the retained sample size on
                        the KDE paths, the sketch's row count on exact
@@ -220,6 +278,7 @@ class _Compiled:
     selector: Optional[str]
     all_eq: bool = False                 # every interval is a code window
     group_axis: Optional[int] = None     # axis of the group_by column
+    kde_backend: Optional[str] = None    # per-query density backend
 
 
 def _compile(query: AqpQuery, slot: int,
@@ -315,7 +374,8 @@ def _compile(query: AqpQuery, slot: int,
         lo=[e[0] for _, e in items], hi=[e[1] for _, e in items],
         constrained=[e[2] for _, e in items], op=OP_CODES[query.aggregate],
         tgt=tgt, selector=query.selector,
-        all_eq=all(eq_only[k] for k, _ in items), group_axis=group_axis)
+        all_eq=all(eq_only[k] for k, _ in items), group_axis=group_axis,
+        kde_backend=query.kde_backend)
 
 
 def _reorder(c: _Compiled, new_cols: Tuple[str, ...]) -> _Compiled:
@@ -326,7 +386,8 @@ def _reorder(c: _Compiled, new_cols: Tuple[str, ...]) -> _Compiled:
         lo=[c.lo[j] for j in perm], hi=[c.hi[j] for j in perm],
         constrained=[c.constrained[j] for j in perm], op=c.op,
         tgt=perm.index(c.tgt), selector=c.selector, all_eq=c.all_eq,
-        group_axis=None if c.group_axis is None else perm.index(c.group_axis))
+        group_axis=None if c.group_axis is None else perm.index(c.group_axis),
+        kde_backend=c.kde_backend)
 
 
 # --- group plans and synopsis resolution ------------------------------------
@@ -382,14 +443,17 @@ class _StoreResolver:
     """Maps a compiled query to (group key, plan, version) against a
     TelemetryStore: single columns use the per-column reservoirs, multi-column
     boxes match a tracked joint (exact tuple first, then by column set,
-    reordering the box to the joint's axis order).  Fits run on `backend`."""
+    reordering the box to the joint's axis order).  Fits run on `backend`;
+    RFF density synopses have `rff_features` features."""
 
     def __init__(self, store, selector: str, backend: str,
-                 plans: Optional[PlanCache] = None):
+                 plans: Optional[PlanCache] = None,
+                 rff_features: int = DEFAULT_RFF_FEATURES):
         self.store = store
         self.selector = selector
         self.backend = backend
         self.plans = plans
+        self.rff_features = rff_features
 
     def key_for(self, c: _Compiled):
         """(group key, reordered compiled, reservoir version) — no fitting."""
@@ -438,6 +502,44 @@ class _StoreResolver:
     def __call__(self, c: _Compiled):
         key, c2, version = self.key_for(c)
         return key, c2, self.plan_for(key, version), version
+
+    def density_for(self, key, version: int, plan: _GroupPlan):
+        """Fit-or-fetch the RFF density synopsis of a resolved full-H group;
+        the fitted `RFFSynopsis`, or None for the exact pass.
+
+        Fits live in the store's SynopsisCache beside the group's exact
+        synopsis, keyed (column#rffD, selector, backend) and invalidated by
+        version like every entry.  A fit that fails the one-shot probe gate
+        (mean relative density error on the first RFF_GATE_PROBES sample
+        rows, against eq. 6) is cached degraded, so it is not refitted, and
+        this returns None for it ever after."""
+        from repro_torch.synopses import RFFSynopsis
+
+        col, sel = key
+        syn = plan.syn
+        if syn.H is None:
+            return None
+        ckey = _rff_cache_key(col, self.rff_features)
+        cache = self.store.cache
+        hit = cache.get(ckey, sel, version, backend=self.backend)
+        if hit is not None:
+            return None if hit.degraded else hit
+        x = plan.x_rows
+        # the seed is a function of the (column, selector) identity, so a
+        # refit after a version bump draws the same frequencies
+        seed = zlib.crc32(repr((ckey, sel)).encode()) & 0x7FFFFFFF
+        rff = RFFSynopsis.fit(x, syn.H, n_features=self.rff_features, seed=seed)
+        probes = x[:RFF_GATE_PROBES]
+        f_exact = np.asarray(kde_eval_H(probes, x, syn.H, device=x.device).cpu(),
+                             np.float64)
+        f_rff = np.asarray(rff.eval_batch(probes).cpu(), np.float64)
+        denom = max(float(np.mean(f_exact)), 1e-300)
+        rff.probe_rel_err = float(np.mean(np.abs(f_rff - f_exact)) / denom)
+        rff.degraded = rff.probe_rel_err > RFF_GATE_TOL
+        rff.n_source = syn.n_source
+        rff.selector = sel
+        cache.put(ckey, sel, version, rff, backend=self.backend)
+        return None if rff.degraded else rff
 
     def try_exact(self, c: _Compiled):
         """Sketch answer for an all-Eq single-column query when the column's
@@ -488,15 +590,21 @@ def _pad_rows(arr: np.ndarray, m: int) -> np.ndarray:
 
 
 def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
-               backend: str, ci_level: float = DEFAULT_CI_LEVEL
+               backend: str, n_qmc: int = 4096,
+               ci_level: float = DEFAULT_CI_LEVEL, kde_backend: str = "auto",
+               rff=None, kde_crossover: int = KDE_CROSSOVER
                ) -> List[Tuple[float, str, float, float, int]]:
-    """Answer one resolved group in one batched pass; returns one
+    """Answer one resolved group in batched passes; returns one
     (estimate, path label, ci_lo, ci_hi, n_effective) per entry, in entry
-    order.  The CI comes from a separate moments pass."""
-    if plan.kind == "qmc":
-        raise NotImplementedError(
-            f"group {key} has a full-H (LSCV_H) synopsis, answered on the qmc "
-            f"path, not ported yet (ROADMAP queue 1.10)")
+    order.  The CI comes from a separate pass (moments, or batch-means on
+    the full-H paths).
+
+    GROUP BY families — entries expanded from one query that differ only on
+    the group column's code window — are peeled off onto the factored
+    grouped pass when the group runs the diagonal-bandwidth box path.
+    Full-H entries whose density backend resolves to "rff" take the RFF
+    pass when a fitted, non-degraded synopsis is given (`rff`); every other
+    full-H entry takes the exact pass."""
     syn = plan.syn
     x = plan.x_rows
     d_syn = x.shape[1]
@@ -508,60 +616,125 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
                     "not scalar ranges; add one term per axis")
             raise ValueError(f"synopsis for {key} is {d_syn}-d but its "
                              f"queries are {len(c.lo)}-d boxes")
+
+    families: List[List[_Compiled]] = []
+    rest: List[_Compiled] = []
     if plan.kind == "box":
-        fams: Dict[int, int] = {}
+        by_query: Dict[int, List[_Compiled]] = {}
         for c in entries:
             if c.group is not None and c.group_axis is not None:
-                fams[id(c.query)] = fams.get(id(c.query), 0) + 1
-        if any(k >= 2 for k in fams.values()):
-            raise NotImplementedError(
-                "GROUP BY families over a joint synopsis (path box:grouped) "
-                "are not ported yet (ROADMAP queue 1.8)")
+                by_query.setdefault(id(c.query), []).append(c)
+            else:
+                rest.append(c)
+        for fam in by_query.values():
+            if len(fam) >= 2:
+                families.append(fam)
+            else:
+                rest.extend(fam)
+    else:
+        rest = list(entries)
 
     dev = x.device
     n_eff = int(x.shape[0])
-    n = len(entries)
-    m = _pad_count(n)
-    ops_np = _pad_rows(np.asarray([c.op for c in entries], np.int32), m)
-    ops_t = torch.as_tensor(ops_np, device=dev)
+    p = 0.5 + ci_level / 2.0
     suffix = "" if backend == "torch" else f":{backend}"
-    if plan.kind == "range1d":
-        a = torch.as_tensor(_pad_rows(np.asarray(
-            [c.lo[0] for c in entries], np.float32), m), device=dev)
-        b = torch.as_tensor(_pad_rows(np.asarray(
-            [c.hi[0] for c in entries], np.float32), m), device=dev)
-        path = "range1d" + suffix
-        ans = batch_query_1d(syn.x, syn.h, a, b, ops_t, plan.scale,
-                             backend=backend)
-        mom = moments_1d(syn.x, syn.h, a, b)
-    else:
-        lo = torch.as_tensor(_pad_rows(np.asarray(
-            [c.lo for c in entries], np.float32), m), device=dev)
-        hi = torch.as_tensor(_pad_rows(np.asarray(
-            [c.hi for c in entries], np.float32), m), device=dev)
-        tgt = torch.as_tensor(_pad_rows(np.asarray(
-            [c.tgt for c in entries], np.int32), m), device=dev)
-        path = "box" + suffix
+
+    rff_entries: List[_Compiled] = []
+    if plan.kind == "qmc" and rff is not None:
+        exact: List[_Compiled] = []
+        for c in rest:
+            if _resolve_kde_backend(c.kde_backend, kde_backend, n_eff,
+                                    kde_crossover) == "rff":
+                rff_entries.append(c)
+            else:
+                exact.append(c)
+        rest = exact
+
+    out: Dict[int, Tuple[float, str, float, float, int]] = {}
+
+    def emit(group, ans, se, q_ci, path):
+        ans_np = ans.detach().cpu().numpy().astype(np.float64)
+        for c, est, s in zip(group, ans_np, np.asarray(se, np.float64)):
+            est = float(est)
+            out[id(c)] = (est, path, est - q_ci * s, est + q_ci * s, n_eff)
+
+    def padded(group, m):
+        """(ops, lo, hi, tgt) host arrays of a group padded to m rows."""
+        return (_pad_rows(np.asarray([c.op for c in group], np.int32), m),
+                _pad_rows(np.asarray([c.lo for c in group], np.float64), m),
+                _pad_rows(np.asarray([c.hi for c in group], np.float64), m),
+                _pad_rows(np.asarray([c.tgt for c in group], np.int32), m))
+
+    def on_dev(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+    if rest:
+        n = len(rest)
+        ops_np, lo, hi, tgt = padded(rest, _pad_count(n))
+        if plan.kind == "qmc":
+            path = "qmc" + suffix
+            ans = batch_query_qmc(x, syn.H, lo, hi, tgt, ops_np, plan.scale,
+                                  n_qmc=n_qmc, backend=backend)
+            se, dof = qmc_subsample_se(x, syn.H, lo, hi, tgt, ops_np,
+                                       syn.n_source, n_qmc, backend=backend)
+            q_ci = t_ppf(p, dof)
+        elif plan.kind == "range1d":
+            a, b = on_dev(lo[:, 0]), on_dev(hi[:, 0])
+            path = "range1d" + suffix
+            ans = batch_query_1d(syn.x, syn.h, a, b, on_dev(ops_np, np.int32),
+                                 plan.scale, backend=backend)
+            se = se_from_moments(ops_np, moments_1d(syn.x, syn.h, a, b),
+                                 plan.scale, n_eff)
+            q_ci = norm_ppf(p)
+        else:
+            lo_t, hi_t, tgt_t = on_dev(lo), on_dev(hi), on_dev(tgt, np.int32)
+            path = "box" + suffix
+            h_diag = syn.h_diag()
+            ans = batch_query_box(x, h_diag, lo_t, hi_t, tgt_t,
+                                  on_dev(ops_np, np.int32), plan.scale,
+                                  backend=backend)
+            se = se_from_moments(ops_np, moments_box(x, h_diag, lo_t, hi_t, tgt_t),
+                                 plan.scale, n_eff)
+            q_ci = norm_ppf(p)
+        emit(rest, ans[:n], se[:n], q_ci, path)
+
+    if rff_entries:
+        n = len(rff_entries)
+        ops_np, lo, hi, tgt = padded(rff_entries, _pad_count(n))
+        ans = batch_query_qmc_rff(x, syn.H, rff, lo, hi, tgt, ops_np,
+                                  plan.scale, n_qmc=n_qmc)
+        # feature-block batch-means: the exact path's sample-chunk CI would
+        # cost the O(n) pass this backend avoids
+        se, dof = qmc_rff_se(rff, x, syn.H, lo, hi, tgt, ops_np, syn.n_source,
+                             n_qmc)
+        emit(rff_entries, ans[:n], se[:n], t_ppf(p, dof), "qmc:rff")
+
+    for fam in families:
+        g_axis = fam[0].group_axis
+        gm = _pad_count(len(fam))
+        glo = _pad_rows(np.asarray([c.lo[g_axis] for c in fam], np.float32), gm)
+        ghi = _pad_rows(np.asarray([c.hi[g_axis] for c in fam], np.float32), gm)
         h_diag = syn.h_diag()
-        ans = batch_query_box(x, h_diag, lo, hi, tgt, ops_t, plan.scale,
-                              backend=backend)
-        mom = moments_box(x, h_diag, lo, hi, tgt)
-    se = se_from_moments(ops_np, mom, plan.scale, n_eff)
-    q_ci = norm_ppf(0.5 + ci_level / 2.0)
-    ans_np = ans.detach().cpu().numpy().astype(np.float64)[:n]
-    out = []
-    for est, s in zip(ans_np, se[:n]):
-        est = float(est)
-        out.append((est, path, est - q_ci * s, est + q_ci * s, n_eff))
-    return out
+        ans = batch_query_box_grouped(x, h_diag, fam[0].lo, fam[0].hi, glo, ghi,
+                                      g_axis=g_axis, tgt=fam[0].tgt, op=fam[0].op,
+                                      scale=plan.scale, backend=backend)
+        # the family's moments run on the per-entry full boxes (each entry's
+        # box carries its group window from _compile)
+        _, flo, fhi, ftgt = padded(fam, gm)
+        mom = moments_box(x, h_diag, on_dev(flo), on_dev(fhi), on_dev(ftgt, np.int32))
+        se = se_from_moments(np.full(gm, fam[0].op, np.int32), mom, plan.scale, n_eff)
+        emit(fam, ans[:len(fam)], se[:len(fam)], norm_ppf(p), "box:grouped" + suffix)
+
+    return [out[id(c)] for c in entries]
 
 
 def _execute(compiled: Sequence[_Compiled], n_out: int,
-             resolver: _StoreResolver, backend: str,
-             ci_level: float = DEFAULT_CI_LEVEL) -> List[AqpResult]:
+             resolver: _StoreResolver, backend: str, n_qmc: int = 4096,
+             ci_level: float = DEFAULT_CI_LEVEL, kde_backend: str = "auto",
+             kde_crossover: int = KDE_CROSSOVER) -> List[AqpResult]:
     """Answer compiled queries: exact categorical sketches first, then group
-    the rest by resolved synopsis, answer each group in one batched pass and
-    scatter back to submission order."""
+    the rest by resolved synopsis, answer each group in batched passes on
+    its path and scatter back to submission order."""
     results: List[Optional[AqpResult]] = [None] * n_out
     remaining: List[_Compiled] = []
     for c in compiled:
@@ -586,7 +759,17 @@ def _execute(compiled: Sequence[_Compiled], n_out: int,
     for key, g in groups.items():
         plan: _GroupPlan = g["plan"]
         entries: List[_Compiled] = g["entries"]
-        answered = _run_group(key, plan, entries, backend, ci_level=ci_level)
+        rff = None
+        if plan.kind == "qmc":
+            # fit-or-fetch the RFF synopsis only when some entry wants it
+            n_rows = int(plan.x_rows.shape[0])
+            if any(_resolve_kde_backend(c.kde_backend, kde_backend, n_rows,
+                                        kde_crossover) == "rff"
+                   for c in entries):
+                rff = resolver.density_for(key, g["version"], plan)
+        answered = _run_group(key, plan, entries, backend, n_qmc,
+                              ci_level=ci_level, kde_backend=kde_backend,
+                              rff=rff, kde_crossover=kde_crossover)
         for c, (est, path, ci_lo, ci_hi, n_eff) in zip(entries, answered):
             results[c.slot] = AqpResult(
                 estimate=est, path=path,
@@ -611,17 +794,30 @@ class QueryEngine:
         ])
 
     `backend` None picks the kernel path ("cuda") on a CUDA store and the
-    plain path ("torch") on a CPU store.
+    plain path ("torch") on a CPU store.  `kde_backend` picks the density
+    backend of full-H groups ("auto" | "exact" | "rff"); "auto" takes RFF
+    from `kde_crossover` sample rows up (default KDE_CROSSOVER), fitted
+    with `rff_features` features (default DEFAULT_RFF_FEATURES).
     """
 
     def __init__(self, store, selector: str = "plugin",
-                 backend: Optional[str] = None, max_groups: int = 64,
-                 ci_level: float = DEFAULT_CI_LEVEL):
+                 backend: Optional[str] = None, n_qmc: int = 4096,
+                 max_groups: int = 64, ci_level: float = DEFAULT_CI_LEVEL,
+                 kde_backend: str = "auto", kde_crossover: Optional[int] = None,
+                 rff_features: Optional[int] = None):
+        if kde_backend not in KDE_BACKENDS:
+            raise ValueError(f"unknown kde_backend {kde_backend!r}; "
+                             f"expected one of {KDE_BACKENDS}")
         self.store = store
         self.selector = selector
         self.backend = resolve_backend(backend, store.device)
+        self.n_qmc = n_qmc
         self.max_groups = max_groups
         self.ci_level = ci_level
+        self.kde_backend = kde_backend
+        self.kde_crossover = KDE_CROSSOVER if kde_crossover is None else int(kde_crossover)
+        self.rff_features = (DEFAULT_RFF_FEATURES if rff_features is None
+                             else int(rff_features))
         self.plans = PlanCache()
 
     def compile(self, queries: Union[AqpQuery, Sequence[AqpQuery]]
@@ -643,23 +839,29 @@ class QueryEngine:
                  backend: Optional[str] = None) -> _StoreResolver:
         """Store resolver wired to this engine's version-keyed plan cache."""
         return _StoreResolver(self.store, selector or self.selector,
-                              backend or self.backend, plans=self.plans)
+                              backend or self.backend, plans=self.plans,
+                              rff_features=self.rff_features)
 
     def run_compiled(self, compiled: Sequence[_Compiled],
                      selector: Optional[str] = None,
-                     backend: Optional[str] = None) -> List[AqpResult]:
+                     backend: Optional[str] = None,
+                     kde_backend: Optional[str] = None) -> List[AqpResult]:
         """Execute pre-compiled units (slots must be 0..n-1)."""
         backend = resolve_backend(backend or self.backend, self.store.device)
         return _execute(compiled, len(compiled),
                         self.resolver(selector, backend), backend,
-                        ci_level=self.ci_level)
+                        n_qmc=self.n_qmc, ci_level=self.ci_level,
+                        kde_backend=kde_backend or self.kde_backend,
+                        kde_crossover=self.kde_crossover)
 
     def execute(self, queries: Union[AqpQuery, Sequence[AqpQuery]],
                 selector: Optional[str] = None,
-                backend: Optional[str] = None, mode: str = "batch"
-                ) -> List[AqpResult]:
+                backend: Optional[str] = None, mode: str = "batch",
+                kde_backend: Optional[str] = None) -> List[AqpResult]:
         """Answer a batch of AqpQuery specs; one AqpResult per query (one per
-        group value for GROUP BY queries).  Only mode="batch" is ported."""
+        group value for GROUP BY queries).  `kde_backend` overrides the
+        engine's density backend for this batch ("auto" | "exact" | "rff",
+        full-H path only).  Only mode="batch" is ported."""
         if mode == "progressive":
             raise NotImplementedError(
                 "progressive execution over tiered reservoirs is not ported "
@@ -668,7 +870,7 @@ class QueryEngine:
             raise ValueError(f"unknown mode {mode!r}; "
                              f"expected 'batch' or 'progressive'")
         return self.run_compiled(self.compile(queries), selector=selector,
-                                 backend=backend)
+                                 backend=backend, kde_backend=kde_backend)
 
     def _group_values(self, q: AqpQuery) -> List[Optional[float]]:
         if q.group_by is None:

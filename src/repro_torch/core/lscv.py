@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import DTYPE, DeviceLike, resolve_backend, resolve_device
@@ -42,12 +43,33 @@ N_H_DEFAULT = 150  # paper §7.1: objective evaluated at a fixed 150 grid points
 # Covariance (eqs. 20-23), in the two-sum form the paper uses for reductions.
 # ---------------------------------------------------------------------------
 
+def _recip32(v: int) -> float:
+    """1/v as XLA folds a division by the constant v: float32(1) / float32(v)."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
 def covariance(x: torch.Tensor) -> torch.Tensor:
-    """x: (n, d) row per sample.  Returns the (d, d) Sigma of eqs. (22)/(23)."""
+    """x: (n, d) row per sample.  Returns the (d, d) Sigma of eqs. (22)/(23).
+
+    Formed as XLA compiles it inside the reference's jitted `lscv_h` and
+    `lscv_H`: each division is a multiplication by a float32 reciprocal, and
+    the difference is one fused multiply-add, s2 c1 - fl(s1 s1^T c2) rounded
+    once (here in float64, exact for the float32 product).  On a constant
+    column the two terms then differ by 2^-23 instead of cancelling to 0, so
+    the fit sees the covariance the reference's fit sees."""
     n = x.shape[0]
     s1 = torch.sum(x, dim=0)                      # (d,)
     s2 = x.T @ x                                  # (d, d) sum of outer products
-    return s2 / (n - 1) - torch.outer(s1, s1) / (n * (n - 1))
+    second = torch.outer(s1, s1) * _recip32(n * (n - 1))
+    return (s2.double() * _recip32(n - 1) - second.double()).to(x.dtype)
+
+
+def _inv(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of a small float32 matrix that does not raise on a singular
+    one: LU without the singularity check, so a zero pivot gives the inf /
+    NaN entries XLA's float32 `inv` gives.  Contiguous (cuSOLVER returns it
+    column-major, and the launchers take only contiguous matrices)."""
+    return torch.linalg.inv_ex(a).inverse.contiguous()
 
 
 def h0_start(n: int, d: int) -> float:
@@ -133,7 +155,7 @@ def lscv_h(x, n_h: int = N_H_DEFAULT, store_s: bool = False, chunk: int = 128,
     # Steps 1-3: covariance, det, inverse (sequential scalar work in the paper).
     sigma = covariance(x)
     det_sigma = torch.linalg.det(sigma)
-    sigma_inv = torch.linalg.inv(sigma).contiguous()   # cuSOLVER returns it column-major
+    sigma_inv = _inv(sigma)
 
     # Steps 4-5: h0 and search range (eqs. 28-29).
     h0 = torch.tensor(h0_start(n, d), dtype=DTYPE, device=x.device)
@@ -204,7 +226,7 @@ def g_of_H(x, H: torch.Tensor, chunk: int = 128, backend: Optional[str] = None,
     H = torch.as_tensor(H, dtype=DTYPE, device=x.device)
     n, d = x.shape
     det_H = torch.linalg.det(H)
-    H_inv = torch.linalg.inv(H).contiguous()
+    H_inv = _inv(H)
     c_k, c_kk, r_k = G.lscv_H_consts(d, det_H)
 
     if backend == "cuda":
@@ -242,7 +264,10 @@ def _theta_to_H(theta: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _H_to_theta(H: torch.Tensor) -> torch.Tensor:
-    L = torch.linalg.cholesky(H)
+    # a matrix that is not positive definite gives NaN, as jnp's cholesky
+    # does, instead of raising
+    L, info = torch.linalg.cholesky_ex(H)
+    L = torch.where(info == 0, L, torch.nan)
     idx = torch.arange(H.shape[0], device=H.device)
     L[idx, idx] = torch.log(torch.diagonal(L))
     il, jl = torch.tril_indices(H.shape[0], H.shape[0], device=H.device)

@@ -12,12 +12,13 @@ always fits on its plain path), so on the card PLUGIN's Psi6 and Psi4 run
 through the pairwise kernel, LSCV_h through the sv_precompute and lscv_grid
 kernels and LSCV_H's objective through the gh_fused kernel.
 
+The cache also holds the RFF density synopses of full-H groups, beside
+their exact synopses, sized by their own `nbytes`.
+
 Not ported yet, raising NotImplementedError when asked for: tiered
-reservoirs (ROADMAP queue 1.7), count-min sketches (queue 1.7), queries
-against an LSCV_H synopsis (its full-H qmc path, queue 1.10; the fit itself
-is ported), version subscriptions and admission sessions (queue 1.11) and
-checkpoints (queue 1.12; `repro_torch.convert.store_from_state` reads a
-reference snapshot).
+reservoirs (ROADMAP queue 1.7), count-min sketches (queue 1.7), version
+subscriptions and admission sessions (queue 1.11) and checkpoints (queue
+1.12; `repro_torch.convert.store_from_state` reads a reference snapshot).
 """
 from __future__ import annotations
 
@@ -180,15 +181,20 @@ class CategoricalSketch:
         return out
 
 
-def _entry_nbytes(syn: KDESynopsis) -> int:
-    """Device bytes of a cached synopsis: its sample and its bandwidth
-    (`h` or `H`)."""
+def _entry_nbytes(syn) -> int:
+    """Device bytes of a cached synopsis: a KDESynopsis's sample and
+    bandwidth (`h` or `H`), or a density backend's own `nbytes` (an RFF
+    synopsis holds no sample, only its (W, b, z))."""
+    if not isinstance(syn, KDESynopsis):
+        return int(syn.nbytes)
     return sum(int(t.nbytes) for t in (syn.x, syn.h, syn.H) if t is not None)
 
 
 class SynopsisCache:
-    """Fitted synopses keyed by (column-or-tuple, selector, backend), each
-    stored with the reservoir version it was fitted at: a lookup at another version
+    """Fitted synopses (KDESynopsis, or a density backend such as an
+    RFFSynopsis under a "#rff" column key) keyed by (column-or-tuple,
+    selector, backend), each stored with the reservoir version it was
+    fitted at: a lookup at another version
     misses, so reservoir updates invalidate implicitly.  An LRU bounded by
     `max_entries` and, optionally, `max_bytes`.  Thread-safe: every field is
     guarded by one lock."""

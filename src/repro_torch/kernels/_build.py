@@ -31,6 +31,10 @@ SOURCES = {
     "sv_precompute": "sv_precompute.cu",
     "lscv_grid": "lscv_grid.cu",
     "gh_fused": "gh_fused.cu",
+    "aqp_grouped": "aqp_grouped.cu",
+    "qmc_reduce": "qmc_reduce.cu",
+    "rff_eval": "rff_eval.cu",
+    "kde_eval": "kde_eval.cu",
 }
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -50,6 +50,18 @@ __global__ void sum_chunk_partials(const float* __restrict__ partials,
   else sum[c - q] = acc;
 }
 
+// Each thread c < width sums column c of a (n_chunks, width) partials array
+// in chunk order into out[c] (one fixed order: the same bits run to run).
+__global__ void sum_partial_columns(const float* __restrict__ partials,
+                                    int n_chunks, int width,
+                                    float* __restrict__ out) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= width) return;
+  float acc = 0.0f;
+  for (int k = 0; k < n_chunks; ++k) acc += partials[(size_t)k * width + c];
+  out[c] = acc;
+}
+
 // eqs. (49)/(50) in double precision with the +-1 correction of
 // repro/kernels/triangle.py: column l holds bx in [l(l+1)/2, (l+1)(l+2)/2).
 // Turns a 1-D block index over the upper-triangle tiles into the tile's row

@@ -15,14 +15,19 @@ from typing import Dict
 
 from . import aqp_batch as _ab
 from . import aqp_boxes as _abx
+from . import aqp_grouped as _agr
 from . import gh_fused as _gh
+from . import kde_eval as _kde
 from . import lscv_grid as _lg
 from . import pairwise_reduce as _pr
+from . import qmc_reduce as _qmc
 from . import ref
+from . import rff_eval as _rff
 from . import sv_precompute as _sv
 
 _COUNTERS = (_pr.launches, _ab.launches, _abx.launches, _sv.launches,
-             _lg.launches, _gh.launches)
+             _lg.launches, _gh.launches, _agr.launches, _qmc.launches,
+             _rff.launches, _kde.launches)
 
 
 def pairwise_scaled_ksum(x, g, kind="k4"):
@@ -73,6 +78,40 @@ def lscv_grid_sums(x, sigma_inv, h_grid, c_k, c_kk, tile=None, h_tile=None):
         return ref.lscv_grid_sums(x, sigma_inv, h_grid, c_k, c_kk)
     return lscv_grid_sums_from_s(sv_matrix(x, sigma_inv, tile=tile), h_grid,
                                  c_k, c_kk, h_tile=h_tile)
+
+
+def aqp_grouped_sums(x, h_diag, lo, hi, glo, ghi, g_axis, tgt):
+    if x.device.type == "cpu":
+        return ref.aqp_grouped_sums(x, h_diag, lo, hi, glo, ghi, int(g_axis),
+                                    int(tgt))
+    return _agr.aqp_grouped_sums(x, h_diag, lo, hi, glo, ghi, g_axis, tgt,
+                                 tile=_agr.TILE)
+
+
+def qmc_box_reduce(nodes, x, h_inv, log_norm, lo, hi, tgt):
+    if x.device.type == "cpu":
+        return ref.qmc_box_reduce(nodes, x, h_inv, log_norm, lo, hi, tgt)
+    return _qmc.qmc_box_reduce(nodes, x, h_inv, log_norm, lo, hi, tgt,
+                               tile=_qmc.TILE, m_tile=_qmc.M_TILE)
+
+
+def rff_density(points, w, b, z):
+    if points.device.type == "cpu":
+        return ref.rff_density(points, w, b, z)
+    return _rff.rff_density(points, w, b, z, tile=_rff.TILE,
+                            p_tile=_rff.P_TILE)
+
+
+def kde_eval(points, x, h):
+    """f^(points; x, h) (eq. 3); points (m, d) or (m,), x (n, d) or (n,)."""
+    if x.dim() == 1:
+        x = x[:, None]
+    if points.dim() == 1:
+        points = points[:, None]
+    if x.device.type == "cpu":
+        return ref.kde_eval(points, x, h)
+    return _kde.kde_eval(points.contiguous(), x.contiguous(), h, tile=_kde.TILE,
+                         p_tile=_kde.P_TILE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the port's kernels.
-Counterpart: `repro/kernels/ref.py:17-56,68-86,154-166`.
+Counterpart: `repro/kernels/ref.py`.
 
 Each function computes what its CUDA kernel computes, untiled, on any
 device: the CPU tests use them, the `ops.py` wrappers take them for tensors
@@ -14,6 +14,8 @@ of at most QUAD_SLAB_ELEMS floats, and the triangle sums visit only the
 columns right of each slab's first row.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -165,3 +167,109 @@ def lscv_grid_sums_from_s(s_mat: torch.Tensor, h_grid: torch.Tensor, c_k,
         s = torch.where(i[:, None] < j[None, start:], blk, torch.inf)
         acc = _grid_fold(acc, s, inv_h2, c_k, c_kk)
     return acc
+
+
+# --- GROUP BY, full-H and scalar-h density evaluation -------------------------
+
+def aqp_grouped_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                     hi: torch.Tensor, glo: torch.Tensor, ghi: torch.Tensor,
+                     g_axis: int, tgt: int):
+    """Unscaled factored GROUP BY integrals (eq. 11): the shared-axes
+    product crossed with G per-category windows on axis `g_axis`.  x: (n,d),
+    h_diag/lo/hi: (d,) (the group axis's lo/hi ignored), glo/ghi: (G,) ->
+    (count_raw, sum_raw), each (G,).  The first-moment factor sits on the
+    shared product when the target is a kept axis, on the group factor when
+    it is the group axis."""
+    inv_h = 1.0 / h_diag
+    za = (lo - x) * inv_h                                     # (n, d)
+    zb = (hi - x) * inv_h
+    d_Phi = G.phi_diff(za, zb)
+    axis = torch.arange(x.shape[1], device=x.device)
+    keep = axis != g_axis
+    shared_cnt = torch.prod(torch.where(keep, d_Phi, 1.0), dim=1)
+    xg = x[:, g_axis]
+    hg = h_diag[g_axis]
+    gza = (glo[None, :] - xg[:, None]) * (1.0 / hg)           # (n, G)
+    gzb = (ghi[None, :] - xg[:, None]) * (1.0 / hg)
+    g_Phi = G.phi_diff(gza, gzb)
+    cnt = torch.sum(shared_cnt[:, None] * g_Phi, dim=0)
+    if tgt == g_axis:
+        g_moment = xg[:, None] * g_Phi - hg * G.dens_diff(gza, gzb)
+        return cnt, torch.sum(shared_cnt[:, None] * g_moment, dim=0)
+    moment = x * d_Phi - h_diag * G.dens_diff(za, zb)
+    factors = torch.where(axis == tgt, moment, d_Phi)
+    shared_sm = torch.prod(torch.where(keep, factors, 1.0), dim=1)
+    return cnt, torch.sum(shared_sm[:, None] * g_Phi, dim=0)
+
+
+def _node_densities(nodes: torch.Tensor, x: torch.Tensor, h_inv: torch.Tensor,
+                    log_norm) -> torch.Tensor:
+    """f_m = sum_i exp(log_norm - (node_m - x_i)^T H^-1 (node_m - x_i) / 2),
+    in node slabs of at most QUAD_SLAB_ELEMS differences; the quadratic form
+    contracts v = diff H^-1 before the second dot."""
+    n, d = x.shape
+    rows_per = max(1, QUAD_SLAB_ELEMS // max(1, n * d))
+    parts = [torch.zeros((0,), dtype=x.dtype, device=x.device)]
+    for start in range(0, nodes.shape[0], rows_per):
+        diff = nodes[start:start + rows_per, None, :] - x[None]   # (r, n, d)
+        quad = 0.5 * torch.sum((diff @ h_inv) * diff, dim=-1)
+        parts.append(torch.sum(torch.exp(log_norm - quad), dim=1))
+    return torch.cat(parts)
+
+
+def inside_boxes(nodes: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+            ) -> torch.Tensor:
+    """(q, m) indicator of node m inside box q (closed intervals)."""
+    return torch.all((nodes[None] >= lo[:, None]) & (nodes[None] <= hi[:, None]),
+                     dim=2)
+
+
+def qmc_box_reduce(nodes: torch.Tensor, x: torch.Tensor, h_inv: torch.Tensor,
+                   log_norm, lo: torch.Tensor, hi: torch.Tensor,
+                   tgt: torch.Tensor):
+    """Raw double sums of the fused QMC box reduction: for each box q, the
+    sum over nodes inside it of the summed (not averaged) full-H Gaussian
+    kernel values against the whole sample, and the same weighted by the
+    node's target coordinate.  nodes: (m,d), x: (n,d), h_inv: (d,d),
+    lo/hi: (q,d), tgt: (q,) -> (cnt_sums, sum_sums)."""
+    f = _node_densities(nodes, x, h_inv, log_norm)
+    cnt, sm = [], []
+    for start in range(0, lo.shape[0], QUERY_SLAB):
+        w = inside_boxes(nodes, lo[start:start + QUERY_SLAB],
+                    hi[start:start + QUERY_SLAB]) * f[None, :]
+        tvals = nodes.T[tgt[start:start + QUERY_SLAB].long()]      # (qs, m)
+        cnt.append(torch.sum(w, dim=1))
+        sm.append(torch.sum(w * tvals, dim=1))
+    if not cnt:
+        z = torch.zeros((0,), dtype=x.dtype, device=x.device)
+        return z, z.clone()
+    return torch.cat(cnt), torch.cat(sm)
+
+
+POINT_SLAB = 4096    # evaluation points per slab of the density passes
+
+
+def rff_density(points: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                z: torch.Tensor) -> torch.Tensor:
+    """Un-normalised RFF density dots: cos(points @ W.T + b) @ z.
+    points: (m, d), w: (D, d), b/z: (D,) -> (m,)."""
+    parts = [torch.zeros((0,), dtype=points.dtype, device=points.device)]
+    for start in range(0, points.shape[0], POINT_SLAB):
+        p = points[start:start + POINT_SLAB]
+        parts.append(torch.cos(p @ w.T + b[None, :]) @ z)
+    return torch.cat(parts)
+
+
+def kde_eval(points: torch.Tensor, x: torch.Tensor, h) -> torch.Tensor:
+    """f^(points) per eq. (3), Gaussian kernel.  points: (m, d), x: (n, d)
+    -> (m,)."""
+    n, d = x.shape
+    h = torch.as_tensor(h, dtype=x.dtype, device=x.device).reshape(())
+    norm = (2.0 * math.pi) ** (-d / 2.0) * h ** (-d)
+    rows_per = max(1, QUAD_SLAB_ELEMS // max(1, n * d))
+    parts = [torch.zeros((0,), dtype=x.dtype, device=x.device)]
+    for start in range(0, points.shape[0], rows_per):
+        diff = (points[start:start + rows_per, None, :] - x[None]) / h
+        quad = 0.5 * torch.sum(diff * diff, dim=-1)
+        parts.append(norm * torch.mean(torch.exp(-quad), dim=1))
+    return torch.cat(parts)

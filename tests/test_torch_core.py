@@ -297,9 +297,9 @@ def test_synopsis_fit_and_queries_match_reference(rng, selector, d):
 
 @pytest.mark.parametrize("selector", ["lscv_h", "lscv_H"])
 def test_lscv_selectors_wait_for_their_slice(rng, selector):
-    """Both LSCV selectors fit (their slice, ROADMAP queue 1.9, is ported);
-    what still waits is the full-H slice (queue 1.10) that answers queries
-    against an LSCV_H synopsis."""
+    """Both LSCV selectors fit (their slice, ROADMAP queue 1.9, is ported),
+    and an LSCV_H synopsis answers its boxes by quasi-MC (the full-H slice,
+    queue 1.10), as the reference does under the same H."""
     data = rng.normal(0.0, 1.0, (60, 2)).astype(np.float32)
     syn = aqp.KDESynopsis.fit(data, selector=selector, device="cpu")
     lo, hi = [-1.0, -1.0], [1.0, 1.0]
@@ -308,8 +308,13 @@ def test_lscv_selectors_wait_for_their_slice(rng, selector):
         assert 0.0 < float(syn.count_box(lo, hi)) < 60.0
     else:
         assert syn.h is None and syn.H.shape == (2, 2)
-        with pytest.raises(NotImplementedError, match="1.10"):
-            syn.count_box(lo, hi)
+        H = jnp.asarray(syn.H.numpy())
+        box = (jnp.asarray(data), H, jnp.asarray(lo, jnp.float32),
+               jnp.asarray(hi, jnp.float32))
+        np.testing.assert_allclose(float(syn.count_box(lo, hi)),
+                                   float(jaqp.count_box_H(*box)), rtol=1e-4)
+        np.testing.assert_allclose(float(syn.sum_box(lo, hi, 1)),
+                                   float(jaqp.sum_box_H(*box, target=1)), rtol=1e-4)
 
 
 @pytest.mark.parametrize("sel,canon", [("Plugin", "plugin"), ("LSCV_H", "lscv_H"),

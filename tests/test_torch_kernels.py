@@ -245,7 +245,9 @@ def test_every_kernel_module_has_source_wrapper_plain_version_and_counter():
                 if isinstance(n, ast.FunctionDef)}
     mods = _launcher_modules()
     assert {m.stem for m in mods} == {"pairwise_reduce", "aqp_batch", "aqp_boxes",
-                                      "sv_precompute", "lscv_grid", "gh_fused"}
+                                      "sv_precompute", "lscv_grid", "gh_fused",
+                                      "aqp_grouped", "qmc_reduce", "rff_eval",
+                                      "kde_eval"}
     for mod in mods:
         text = mod.read_text()
         assert (KERNELS_DIR / "csrc" / f"{mod.stem}.cu").exists(), mod.name
@@ -277,9 +279,17 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing(rng):
     ops.sv_matrix(xd, m)
     ops.gh_fused_sum(xd, m, 0.3, 0.2)
     ops.lscv_grid_sums(xd, m, _t([0.5, 1.0]), 0.3, 0.2)
+    ops.aqp_grouped_sums(xd, _t([0.5, 0.5]), _t([-1, -1]), _t([1, 1]), _t([0.0, 1.0]),
+                         _t([0.5, 1.5]), 1, 0)
+    ops.qmc_box_reduce(xd, xd, m, -1.0, _t([[-1, -1]]), _t([[1, 1]]),
+                       _t([0], torch.int32))
+    ops.rff_density(xd, m, _t([0.1, 0.2]), _t([0.5, 0.5]))
+    ops.kde_eval(xd, xd, 0.5)
     assert ops.launch_counts() == {"pairwise_scaled_ksum": 0, "aqp_batch_sums": 0,
                                    "aqp_box_sums": 0, "sv_matrix": 0,
-                                   "lscv_grid_sums": 0, "gh_fused_sum": 0}
+                                   "lscv_grid_sums": 0, "gh_fused_sum": 0,
+                                   "aqp_grouped_sums": 0, "qmc_box_reduce": 0,
+                                   "rff_density": 0, "kde_eval": 0}
 
 
 @pytest.mark.parametrize("bad", ["cpu", "float64", "2d"])
@@ -314,6 +324,30 @@ def test_lscv_launchers_refuse_what_the_kernel_does_not_take(call):
                                       h_tile=256)
 
 
+@pytest.mark.parametrize("call", ["grouped_cpu", "qmc_cpu", "rff_cpu", "kde_cpu",
+                                  "kde_empty_sample"])
+def test_fullh_and_grouped_launchers_refuse_what_the_kernel_does_not_take(call):
+    """The launchers take CUDA tensors only: the wrappers in ops.py hand CPU
+    tensors to the plain versions, and nothing falls back."""
+    from repro_torch.kernels import aqp_grouped, kde_eval, qmc_reduce, rff_eval
+
+    x, v, g = torch.zeros(8, 2), torch.zeros(2), torch.zeros(3)
+    with pytest.raises((ValueError, TypeError)):
+        if call == "grouped_cpu":
+            aqp_grouped.aqp_grouped_sums(x, v, v, v, g, g, 0, 1, tile=128)
+        elif call == "qmc_cpu":
+            qmc_reduce.qmc_box_reduce(x, x, torch.eye(2), 0.0, x[:1], x[:1],
+                                      torch.zeros(1, dtype=torch.int32), tile=1024,
+                                      m_tile=256)
+        elif call == "rff_cpu":
+            rff_eval.rff_density(x, x, torch.zeros(8),
+                                 torch.zeros(8), tile=256, p_tile=256)
+        elif call == "kde_cpu":
+            kde_eval.kde_eval(x, x, 0.5, tile=1024, p_tile=256)
+        else:
+            kde_eval.kde_eval(x, torch.zeros(0, 2), 0.5, tile=1024, p_tile=256)
+
+
 # --- on the card -----------------------------------------------------------------------
 
 def test_cuda_kernels_match_plain_versions(cuda_device, rng):
@@ -338,7 +372,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, rng):
     counts = ops.launch_counts()
     assert counts == {"pairwise_scaled_ksum": 6, "aqp_batch_sums": 3,
                       "aqp_box_sums": 3, "sv_matrix": 0, "lscv_grid_sums": 0,
-                      "gh_fused_sum": 0}
+                      "gh_fused_sum": 0, "aqp_grouped_sums": 0, "qmc_box_reduce": 0,
+                      "rff_density": 0, "kde_eval": 0}
     q_t, l_t = tpr.triangle_map(n_tri_tiles(512), dev)
     q_c, l_c = bx_to_ql(torch.arange(n_tri_tiles(512)))
     assert torch.equal(q_t.cpu().long(), q_c) and torch.equal(l_t.cpu().long(), l_c)

@@ -269,8 +269,13 @@ def test_lscv_H_synopsis_matches_reference_by_objective(rng):
     assert got.h is None and got.H.shape == (2, 2)
     assert _g64_of_H(data, _np(got.H)) == pytest.approx(
         _g64_of_H(data, np.asarray(want.H)), rel=1e-2)
-    with pytest.raises(NotImplementedError, match="1.10"):
-        got.count_box([0.0, 0.0], [1.0, 1.0])
+    # its boxes answer by quasi-MC, as the reference's do under the same H
+    lo, hi = [0.0, 0.0], [1.0, 1.0]
+    np.testing.assert_allclose(
+        float(got.count_box(lo, hi)),
+        float(jaqp.count_box_H(jnp.asarray(data), jnp.asarray(_np(got.H)),
+                               jnp.asarray(lo, jnp.float32), jnp.asarray(hi, jnp.float32))),
+        rtol=1e-4)
 
 
 def test_lscv_h_on_cpu_counts_no_launches(rng):
@@ -291,3 +296,92 @@ def test_lscv_entry_points_default_to_cuda_or_raise():
             lscv.lscv_h(x, n_h=3)
         with pytest.raises(RuntimeError, match="CUDA"):
             lscv.lscv_H(x, max_iter=2)
+
+
+# --- a singular covariance: a constant column, or a joint with one constant axis ---------
+
+def _singular(case):
+    if case == "constant_column":
+        return np.full(64, 3.0, np.float32)
+    rng = np.random.default_rng(0)
+    return np.stack([rng.normal(size=64), np.full(64, 2.0)], 1).astype(np.float32)
+
+
+def _same_pattern(got, want):
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(got), test(want))
+
+
+@pytest.mark.parametrize("case", ["constant_column", "one_constant_axis"])
+def test_lscv_h_on_a_singular_covariance_matches_reference(case):
+    """The covariance is formed as the reference's jitted fit forms it (its
+    two terms differ by 2^-23 on a constant column instead of cancelling)
+    and inverted without a singularity check, so the port returns the
+    reference's h, grid and non-finite pattern of g where it used to raise."""
+    x = _singular(case)
+    got = lscv.lscv_h(x, device="cpu")
+    want = jl.lscv_h(jnp.asarray(x))
+    assert float(got.h) == float(want.h)
+    np.testing.assert_array_equal(_np(got.h_grid), np.asarray(want.h_grid))
+    g, w = _np(got.g_values), np.asarray(want.g_values)
+    _same_pattern(g, w)
+    fin = np.isfinite(w)
+    np.testing.assert_allclose(g[fin], w[fin], rtol=3e-4)
+    np.testing.assert_allclose(_np(got.sigma), np.asarray(want.sigma), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("case", ["constant_column", "one_constant_axis"])
+def test_lscv_H_and_h_start_on_a_singular_covariance(case):
+    """H_start equals the one inside the reference's (jitted) lscv_H, to
+    float32 noise on the constant axis.  On a constant column LSCV_H then
+    runs as the reference's does: a finite, vanishing H with an unbounded
+    objective, after the full 150 iterations.  With one constant axis
+    H_start has rank 1, and whether a float32 Cholesky factor of it exists
+    is decided by rounding (of the column sums, and inside the
+    factorisation): the reference's last pivot rounds positive, the port's
+    negative, so the port's LSCV_H returns NaN where the reference's returns
+    a finite, meaningless H.  It does not raise: the port's log-Cholesky map
+    gives NaN on a matrix that is not positive definite, as jnp's cholesky
+    does."""
+    x = _singular(case)
+    xr = x if x.ndim == 2 else x[:, None]
+    got = lscv.lscv_H(x, device="cpu")
+    want = jl.lscv_H(jnp.asarray(xr))
+    H0, W0 = _np(got.H_start), np.asarray(want.H_start)
+    np.testing.assert_allclose(H0, W0, rtol=1e-5, atol=1e-5 * np.abs(W0).max())
+    np.testing.assert_array_equal(_np(lscv.h_start(torch.tensor(xr))), H0)
+    for H in (np.array([[1.0, 2.0], [2.0, 1.0]], np.float32), np.eye(2, dtype=np.float32)):
+        _same_pattern(_np(lscv._H_to_theta(torch.tensor(H))),
+                      np.asarray(jl._H_to_theta(jnp.asarray(H))))
+    if case == "constant_column":
+        assert got.it == int(want.it) == 150
+        for g, w in ((_np(got.H), np.asarray(want.H)), (float(got.g), float(want.g))):
+            _same_pattern(np.asarray(g), np.asarray(w))
+        assert 0.0 < float(got.H[0, 0]) < 1e-30 and float(got.g) < -1e15
+    else:
+        assert np.all(np.isnan(_np(got.H)))
+
+
+def test_lscv_h_store_query_over_a_constant_column_matches_reference():
+    from repro.core import aqp_query as jq
+    from repro.data import aqp_store as jstore
+    from repro_torch.core import aqp_query as tq
+    from repro_torch.data import aqp_store as tstore
+
+    rng = np.random.default_rng(4)
+    batch = {"flat": np.full(300, 3.0, np.float32),
+             "loss": rng.normal(2.0, 0.5, 300).astype(np.float32)}
+    ref = jstore.TelemetryStore(capacity=128, seed=0)
+    port = tstore.TelemetryStore(capacity=128, seed=0, device="cpu")
+    for s in (ref, port):
+        s.add_batch(batch)
+    specs = [(m.AqpQuery("count", (m.Range("flat", 2.5, 3.5),)),
+              m.AqpQuery("avg", (m.Range("flat", 2.9, 3.05),)),
+              m.AqpQuery("sum", (m.Range("loss", 1.5, 2.5),))) for m in (tq, jq)]
+    got = port.query(list(specs[0]), selector="lscv_h")
+    want = ref.query(list(specs[1]), selector="lscv_h")
+    assert float(port.synopsis("flat", "lscv_h").h) == float(ref.synopsis("flat", "lscv_h").h)
+    for g, w in zip(got, want):
+        assert g.path == w.path == "range1d"
+        np.testing.assert_allclose(g.estimate, w.estimate, rtol=1e-4, atol=1e-3)

@@ -205,7 +205,7 @@ def test_store_without_device_needs_cuda():
 
 
 @pytest.mark.parametrize("call", ["tiered", "cm", "subscribe", "session", "to_state",
-                                  "progressive", "group_family"])
+                                  "progressive"])
 def test_unported_paths_raise(stores, call):
     _, port, _ = stores
     store = tstore.TelemetryStore(capacity=64, seed=0, device="cpu")
@@ -220,11 +220,8 @@ def test_unported_paths_raise(stores, call):
             store.session()
         elif call == "to_state":
             store.to_state()
-        elif call == "progressive":
-            port.query(_specs(tq)[:1], mode="progressive")
         else:
-            port.query([tq.AqpQuery("count", (tq.Box(("loss", "latency"), (0, 0), (3, 50)),),
-                                    group_by=tq.GroupBy("grad", values=(0.0, 1.0)))])
+            port.query(_specs(tq)[:1], mode="progressive")
 
 
 def test_port_imports_neither_jax_nor_repro():
@@ -314,8 +311,14 @@ def test_store_from_state_carries_an_lscv_H_fit_whose_queries_wait_for_1_10():
     assert syn.h is None and syn.selector == "lscv_H"
     np.testing.assert_array_equal(syn.H.numpy(), np.asarray(want.H))
     np.testing.assert_array_equal(syn.x.numpy(), np.asarray(want.x))
-    box = tq.AqpQuery("count", (tq.Box(JOINT, (1.0, 10.0, 0.0), (3.0, 30.0, 2.0)),))
-    with pytest.raises(NotImplementedError, match="1.10"):
-        carried.query([box], selector="lscv_H")
+    # its queries answer on the full-H qmc path, as the reference's do
+    box = [m.AqpQuery("count", (m.Box(JOINT, (1.0, 10.0, 0.0), (3.0, 30.0, 2.0)),))
+           for m in (tq, jq)]
+    got, = carried.query(box[:1], selector="lscv_H")
+    want, = ref.query(box[1:], selector="lscv_H")
+    assert got.path == want.path == "qmc"
+    for field in ("estimate", "ci_lo", "ci_hi"):
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field),
+                                   rtol=1e-4, err_msg=field)
     with pytest.raises(ValueError, match="exactly one"):
         convert.synopsis_from_numpy(np.zeros((4, 2)), None, 4, "lscv_H", device="cpu")
