@@ -39,11 +39,15 @@ non-zero and prints no result line):
   8. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
-     subsample; PLUGIN and LSCV_h against the paper's sequential oracles;
-     the kernel's own eqs. 49/50 tile mapping exhaustively;
+     subsample; two launches of lscv_grid_sums, gh_fused_sum and
+     aqp_grouped_sums on the same inputs giving the same bits; PLUGIN and
+     LSCV_h against the paper's sequential oracles; the kernel's own
+     eqs. 49/50 tile mapping exhaustively;
   9. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
-     for rff_density, whose first call is the probe gate's).
+     for rff_density, whose first call is the probe gate's; for
+     gh_fused_sum also path D's first 1-D call), beside the bound and the
+     SFU floor at the SM clock read after the kernel's windows.
 
 It prints a {"kernels": [...]} JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -90,10 +94,11 @@ KDE_RTOL, KDE_ATOL = 5e-4, 1e-7
 # small size with the plain versions)
 DEV = "cuda"
 
-# H100 SXM published peaks: FP32 outside the
-# tensor cores, HBM3 bandwidth
+# H100 SXM published peaks: FP32 outside the tensor cores (an FMA counts
+# as two FLOPs), HBM3 bandwidth; SFU (MUFU) lanes: 16 per SM x 132 SMs
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+SFU_LANES = 16 * 132
 
 TPU_KERNELS = {
     "pairwise_scaled_ksum": ("src/repro_torch/kernels/csrc/pairwise_reduce.cu",
@@ -955,12 +960,20 @@ def oracle_quadform_sum(x, m, c_k, c_kk) -> float:
     return total
 
 
-def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b):
+def first_d1_gh(calls_d):
+    """The inputs of path D's first 1-D gh_fused_sum call."""
+    return next(c for c in calls_d["gh_fused_sum"] if c[0][0].shape[1] == 1)
+
+
+def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d):
     """The LSCV kernels against their plain versions on the inputs of every
-    call of path A (sv_matrix, lscv_grid_sums) and the first and last calls
-    of path B (gh_fused_sum), at edge shapes, and against float64; path A's
-    aqp_batch / aqp_boxes calls against theirs; LSCV_h at n = 512 on the
-    card against the paper's sequential float64 oracle."""
+    call of path A (sv_matrix, lscv_grid_sums), the first and last calls of
+    path B and the first 1-D call of path D (gh_fused_sum), at edge shapes
+    (n not a multiple of a tile, d = 1..8 for gh_fused_sum), and against
+    float64; two launches of lscv_grid_sums and gh_fused_sum on the same
+    inputs give the same bits; path A's aqp_batch / aqp_boxes calls against
+    theirs; LSCV_h at n = 512 on the card against the paper's sequential
+    float64 oracle."""
     ops, ref, lscv = rt["ops"], rt["ref"], rt["lscv"]
     dev = torch.device(DEV)
     rng = np.random.default_rng(11)
@@ -1010,7 +1023,13 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b):
         errs.append(held(k, p, GRID_RTOL, GRID_ATOL,
                          f"lscv_grid_sums {call_shape('lscv_grid_sums', args, kw)}"))
     out["lscv_grid_sums"] = max(errs)
-    for n in (1, 2, 4097):
+    x, m, hg, c_k, c_kk = calls_a["lscv_grid_sums"][0][0]
+    s_mat = ops.sv_matrix(x, m)
+    same = torch.equal(ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk),
+                       ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk))
+    check(same, "lscv_grid_sums: two launches on path A's first S differ")
+    del s_mat
+    for n in (1, 2, 65, 4097, 4100):
         xs = torch.as_tensor(rng.normal(0, 1, (n, 2)).astype(np.float32), device=dev)
         ms = torch.eye(2, device=dev)
         hg = torch.linspace(0.05, 2.0, 150, device=dev)
@@ -1026,32 +1045,37 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b):
         check(rel < 2e-3, f"LSCV_h n=512 g[{i}] {float(res.g_values[i])} vs float64 {oracle}")
         worst = max(worst, rel)
     print(f"lscv_grid_sums: {len(errs)} path-A calls match plain, max |err| {max(errs):.3g}; "
-          f"edge shapes n=1/2/4097 match; LSCV_h n=512 d=3 on the kernels within {worst:.2g} "
-          f"relative of the sequential float64 oracle at 4 grid points")
+          f"two launches give the same bits; edge shapes n=1/2/65/4097/4100 match; LSCV_h "
+          f"n=512 d=3 on the kernels within {worst:.2g} relative of the sequential float64 "
+          f"oracle at 4 grid points")
 
     made = calls_b["gh_fused_sum"]
     errs = []
-    for tag, (args, kw) in (("first", made[0]), ("last", made[-1])):
+    for tag, (args, kw) in (("first path-B", made[0]), ("last path-B", made[-1]),
+                            ("first 1-D path-D", first_d1_gh(calls_d))):
         errs.append(held(float(ops.gh_fused_sum(*args, **kw)),
                          float(ref.gh_fused_sum(*args, **kw)), GH_RTOL, GH_ATOL,
-                         f"gh_fused_sum {tag} path-B call"))
+                         f"gh_fused_sum {tag} call"))
     out["gh_fused_sum"] = max(errs)
+    args, kw = made[0]
+    check(torch.equal(ops.gh_fused_sum(*args, **kw), ops.gh_fused_sum(*args, **kw)),
+          "gh_fused_sum: two launches on path B's first inputs differ")
     x, h_inv, c_k, c_kk = made[-1][0]
     sub = x[:4096].contiguous()
     held(float(ops.gh_fused_sum(sub, h_inv, c_k, c_kk)),
          oracle_quadform_sum(sub.cpu().numpy(), h_inv.cpu().numpy(), float(c_k), float(c_kk)),
          GH_RTOL, GH_ATOL, "gh_fused_sum vs float64")
-    for n in (1, 2, 4097):
-        for d in (1, 3, 8):
+    for n in (1, 2, 513, 4097):
+        for d in range(1, 9):
             xs = torch.as_tensor(rng.normal(0, 1, (n, d)).astype(np.float32), device=dev)
             m0 = rng.normal(0, 1, (d, d))
             ms = torch.as_tensor((0.1 * m0 @ m0.T + np.eye(d)).astype(np.float32), device=dev)
             held(float(ops.gh_fused_sum(xs, ms, 0.31, 0.17)),
                  float(ref.gh_fused_sum(xs, ms, 0.31, 0.17)), GH_RTOL, GH_ATOL,
                  f"gh_fused_sum n={n} d={d}")
-    print(f"gh_fused_sum: first and last of {len(made)} path-B calls match plain, max |err| "
-          f"{max(errs):.3g}; n=4096 within tolerance of float64; edge shapes n=1/2/4097 x "
-          f"d=1/3/8 match plain")
+    print(f"gh_fused_sum: first and last of {len(made)} path-B calls and path D's first 1-D "
+          f"call match plain, max |err| {max(errs):.3g}; two launches give the same bits; "
+          f"n=4096 within tolerance of float64; edge shapes n=1/2/513/4097 x d=1..8 match plain")
     torch.cuda.synchronize()
     return out
 
@@ -1225,83 +1249,133 @@ def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-# FP32 operations per pair of the pairwise kernel: sub, scale, square, the
-# polynomial's FMAs, the density's multiplies, exp, add
-PAIR_OPS = {"k6": 14, "k4": 13, "gauss": 10}
+# FLOPs per pair of the pairwise kernel (an FMA counts two): sub, scale,
+# square, -1/2 *, exp, 1/sqrt(2 pi) *, the add, and the polynomial with its
+# product with the density (k4: a subtraction and one FMA; k6: a
+# subtraction and two FMAs)
+PAIR_OPS = {"k6": 13, "k4": 11, "gauss": 7}
+# SFU (MUFU) instructions per erfcf on its fast path, one ex2 and one
+# reciprocal: aqp_batch_tiles' SASS (scripts/bench_lscv_kernels.py --sass)
+# holds 4 EX2 for the 2 erfcf and 2 expf of its loop, and the RCPs of the
+# erfcf and their slow paths
+MUFU_ERFC = 2
 
 
-def bound_ms(name: str, args, kwargs) -> tuple:
-    """Least time on an H100 for the work of one call: the larger of bytes
-    (each input read once, each output written once) over HBM bandwidth and
-    operations over the FP32 peak.  Operations count each exp / erfc as one
-    and each FMA as one (a lower bound: on the card an exp is several
-    instructions or an SFU op, and the peak counts an FMA as two).  For
-    lscv_grid_sums the work is the grid phase alone: the strict upper
-    triangle of S read once, 4 operations per (pair, h) (scale, exp2,
-    two FMAs).  aqp_grouped_sums: 13 per (row, axis) for the shared
-    product, 15 per (row, category) (2 erfc, the window's differences, the
-    FMAs), 13 more per (row, category) when the target is the group axis;
-    qmc_box_reduce: d^2 + 2d + 3 per (node, row) (subtractions, the
-    quadratic form's FMAs, scale, exp, add) and 2d + 3 per (box, node);
-    rff_density: d + 3 per (point, feature) (projection FMAs, phase, cos,
-    FMA); kde_eval: 2d + 3 per (point, row) (subtractions and FMAs of the
-    distance, scale, exp2, add)."""
+def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
+    """(bound ms, "bytes" or "operations", SFU ops) for the work of one call
+    on an H100.  The bound is the larger of bytes (each input read once,
+    each output written once) over HBM bandwidth and FLOPs over the FP32
+    peak, with an FMA as two FLOPs (the convention of the 67 TFLOP/s peak)
+    and an exp / erfc / cos as one.  SFU ops are the MUFU instructions the
+    kernel issues (an exp or exp2 one, an erfcf MUFU_ERFC, a reciprocal
+    one; cosf none: its range reduction and polynomial are FMA work); the
+    caller turns them into the SFU floor at the SM clock it reads.  Per unit
+    of work, FLOPs / SFU ops:
+      pairwise_scaled_ksum: PAIR_OPS / 1 per pair;
+      aqp_batch_sums: 24 / (2 erfc + 2 exp) per (query, point): z_a, z_b
+        (sub, mul each), the Phi difference (add, 2 mul, 2 erfc, sub, mul),
+        the count add, the density difference (2 x square, mul, exp; sub,
+        mul) and the moment (FMA, mul, add);
+      aqp_box_sums: 13 / 2 erfc per (query, row, axis) (z_a, z_b, the Phi
+        difference, two products) and 14 / 2 exp per (query, row) (count
+        add; the target's density difference, FMA, mul, product, add);
+      sv_matrix: d subs and d(d+1)/2 + d FMAs per pair / none;
+      lscv_grid_sums: 6 / (1 - poly_share) per (pair, h) (the scale, the
+        exp2, two FMAs; poly_share of the exp2 are the kernel's polynomial);
+        the grid phase alone, the strict upper triangle of S read once;
+      gh_fused_sum: d subs, d(d+1)/2 + d FMAs, the exp2, two FMAs per pair
+        (d^2 + 4d + 5) / 1;
+      aqp_grouped_sums: 14 / (2 erfc + 1 rcp) per (row, axis), 15 / 2 erfc
+        per (row, category) and 11 / 2 exp more when the target is the
+        group axis;
+      qmc_box_reduce: d subs, d^2 + d FMAs, the scaled exponent's FMA, exp,
+        add per (node, row) (2d^2 + 3d + 4) / 1, and 2d compares, an add and
+        an FMA per (box, node) / none;
+      rff_density: the projection (a mul and d - 1 FMAs), the phase add,
+        cos and an FMA per (point, feature): 2d + 3 / none;
+      kde_eval: d subs, d FMAs, the scale, exp2, add per (point, row):
+        3d + 3 / 1."""
+    mufu = 0
     if name == "pairwise_scaled_ksum":
         x = args[0]
         n = x.shape[0]
         nbytes = 4 * n + 4 + 4
-        ops = PAIR_OPS[kwargs["kind"]] * n * (n - 1) // 2
+        pairs = n * (n - 1) // 2
+        ops, mufu = PAIR_OPS[kwargs["kind"]] * pairs, pairs
     elif name == "aqp_batch_sums":
         x, _h, a, _b = args
         n, q = x.shape[0], a.shape[0]
         nbytes = 4 * n + 4 + 8 * q + 8 * q
-        ops = 24 * n * q                     # 2 erfc, 2 exp, ~20 FP32 per pair
+        ops, mufu = 24 * n * q, (2 * MUFU_ERFC + 2) * n * q
     elif name == "aqp_box_sums":
         x, _h, lo, _hi, _t = args
         (n, d), q = x.shape, lo.shape[0]
         nbytes = 4 * n * d + 4 * d + 8 * q * d + 4 * q + 8 * q
-        ops = (13 * d + 13) * n * q          # per axis 2 erfc + 11; target 2 exp + 11
+        ops = (13 * d + 14) * n * q
+        mufu = (2 * MUFU_ERFC * d + 2) * n * q
     elif name == "sv_matrix":
         n, d = args[0].shape
         nbytes = 4 * n * d + 4 * d * d + 4 * n * n
-        ops = (2 * d + d * (d + 1) // 2) * n * (n - 1) // 2   # subs, quadratic-form FMAs
+        ops = (d + 2 * (d * (d + 1) // 2 + d)) * n * (n - 1) // 2
     elif name == "lscv_grid_sums":
         n, n_h = args[0].shape[0], args[2].shape[0]
         nbytes = 4 * n * (n - 1) // 2 + 8 * n_h + 8
-        ops = 4 * n_h * n * (n - 1) // 2
+        terms = n_h * n * (n - 1) // 2
+        ops, mufu = 6 * terms, round((1.0 - poly_share) * terms)
     elif name == "gh_fused_sum":
         n, d = args[0].shape
         nbytes = 4 * n * d + 4 * d * d + 8 + 4
-        ops = (2 * d + d * (d + 1) // 2 + 3) * n * (n - 1) // 2  # + exp2, two FMAs
+        pairs = n * (n - 1) // 2
+        ops, mufu = (d * d + 4 * d + 5) * pairs, pairs
     elif name == "aqp_grouped_sums":
         (n, d), G = args[0].shape, args[4].shape[0]
         nbytes = 4 * n * d + 12 * d + 8 * G + 8 * G
-        ops = 13 * n * d + (28 if args[7] == args[6] else 15) * n * G
+        group_tgt = args[7] == args[6]
+        ops = 14 * n * d + (26 if group_tgt else 15) * n * G
+        mufu = (2 * MUFU_ERFC + 1) * n * d + (2 * MUFU_ERFC + (2 if group_tgt else 0)) * n * G
     elif name == "qmc_box_reduce":
         (m, d), n, q = args[0].shape, args[1].shape[0], args[4].shape[0]
         nbytes = 4 * (m * d + n * d + d * d + 1 + 2 * q * d + q) + 8 * q
-        ops = (d * d + 2 * d + 3) * m * n + (2 * d + 3) * q * m
+        ops = (2 * d * d + 3 * d + 4) * m * n + (2 * d + 3) * q * m
+        mufu = m * n
     elif name == "rff_density":
         (m, d), nf = args[0].shape, args[1].shape[0]
         nbytes = 4 * (m * d + nf * d + 2 * nf) + 4 * m
-        ops = (d + 3) * m * nf
+        ops = (2 * d + 3) * m * nf
     else:                                    # kde_eval
         (m, d), n = args[0].shape, args[1].shape[0]
         nbytes = 4 * (m * d + n * d + 1) + 4 * m
-        ops = (2 * d + 3) * m * n
+        ops, mufu = (3 * d + 3) * m * n, m * n
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    if t_ops >= t_bytes:
+        return t_ops, "operations", mufu
+    return t_bytes, "bytes", mufu
 
 
-def timings(torch, rt, first, main_calls, calls_a):
+def sfu_floor_ms(mufu: int, clock_mhz: float) -> float:
+    """MUFU instructions over 16 per clock per SM on 132 SMs at the SM
+    clock read (MHz)."""
+    return mufu / (SFU_LANES * clock_mhz * 1e6) * 1e3
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def timings(torch, rt, first, main_calls, calls_a, calls_d):
     """Kernel and plain version on the inputs of each kernel's first call
     on its path (`first`: name -> (args, kwargs)), in the order plain,
-    kernel, kernel, plain.  lscv_grid_sums is timed as its grid phase alone,
-    over the S that sv_matrix makes from those inputs.  A plain version
-    whose first call takes over a second is timed over 2 runs, one over a
-    tenth of a second over 5, the rest over 15; each line says which."""
+    kernel, kernel, plain, with the SM clock read just after the kernel's
+    windows for its SFU floor.  lscv_grid_sums is timed as its grid phase
+    alone, over the S that sv_matrix makes from those inputs.  A plain
+    version whose first call takes over a second is timed over 2 runs, one
+    over a tenth of a second over 5, the rest over 15; each line says
+    which."""
     ops, ref = rt["ops"], rt["ref"]
+    poly_share = rt["lscv_grid"].POLY_SHARE
     out = {}
     for name in TPU_KERNELS:
         args, kw = first[name]
@@ -1327,15 +1401,18 @@ def timings(torch, rt, first, main_calls, calls_a):
         p1 = time_ms(torch, plain, reps=reps, warm=warm)
         k1 = time_ms(torch, kern)
         k2 = time_ms(torch, kern)
+        mhz = sm_clock_mhz()
         p2 = time_ms(torch, plain, reps=reps, warm=warm)
         s_mat = None
-        b, by = bound_ms(name, args, kw)
-        out[name] = (min(k1, k2), min(p1, p2), b, by)
+        b, by, mufu = bound_ms(name, args, kw, poly_share)
+        sfu = sfu_floor_ms(mufu, mhz)
+        out[name] = (min(k1, k2), min(p1, p2), b, by, sfu, mhz)
         which = "largest" if name == "rff_density" else "first"
         print(f"time {name} ({call_shape(name, args, kw)}, the {which} call on path "
               f"{KERNEL_PATH[name]}{note}): kernel {k1:.4f} / {k2:.4f} ms (median of 15), "
-              f"plain {p1:.4f} / {p2:.4f} ms (median of {reps}), bound {b:.4f} ms ({by}); "
-              f"no single PyTorch call computes it (library_ms null)")
+              f"plain {p1:.4f} / {p2:.4f} ms (median of {reps}), bound {b:.4f} ms ({by}), "
+              f"SFU floor {sfu:.4f} ms ({mufu} MUFU at {mhz:.0f} MHz); no single PyTorch "
+              f"call computes it (library_ms null)")
     x, h = main_calls["aqp_batch_sums"][0][0][:2]
     a, b = all_range_bounds(torch, main_calls)
     k1 = time_ms(torch, lambda: ops.aqp_batch_sums(x, h, a, b))
@@ -1349,6 +1426,16 @@ def timings(torch, rt, first, main_calls, calls_a):
     print(f"time sv_matrix extra shape ({call_shape('sv_matrix', (x, m), {})}, the joint's "
           f"call on path A): kernel {k1:.4f} / {k2:.4f} ms, "
           f"bound {bound_ms('sv_matrix', (x, m), {})[0]:.4f} ms")
+    args, kw = first_d1_gh(calls_d)
+    p1 = time_ms(torch, lambda: ref.gh_fused_sum(*args, **kw))
+    k1 = time_ms(torch, lambda: ops.gh_fused_sum(*args, **kw))
+    k2 = time_ms(torch, lambda: ops.gh_fused_sum(*args, **kw))
+    mhz = sm_clock_mhz()
+    p2 = time_ms(torch, lambda: ref.gh_fused_sum(*args, **kw))
+    b, by, mufu = bound_ms("gh_fused_sum", args, kw)
+    print(f"time gh_fused_sum second shape ({call_shape('gh_fused_sum', args, kw)}, the first "
+          f"1-D call on path D): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
+          f"bound {b:.4f} ms ({by}), SFU floor {sfu_floor_ms(mufu, mhz):.4f} ms at {mhz:.0f} MHz")
     return out
 
 
@@ -1365,9 +1452,10 @@ def main() -> int:
     from repro_torch import synopses
     from repro_torch.core import aqp, aqp_multid, aqp_query, kde, lscv, plugin
     from repro_torch.data import aqp_store
-    from repro_torch.kernels import _build, ops, pairwise_reduce, ref
+    from repro_torch.kernels import _build, lscv_grid, ops, pairwise_reduce, ref
     rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
           "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
+          "lscv_grid": lscv_grid,
           "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses}
     t_start = time.perf_counter()
 
@@ -1387,7 +1475,7 @@ def main() -> int:
     counts["E"], calls_e = path_e(torch, rt, store, specs)
     print(f"phases through path E: {time.perf_counter() - t_start:.1f} s")
     errs = kernels_vs_plain(torch, rt, calls_main)
-    errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b))
+    errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))
     print(f"phases through the plain-version checks: {time.perf_counter() - t_start:.1f} s")
     paths = {"plugin": calls_main, "A": calls_a, "B": calls_b, "C": calls_c, "D": calls_d,
@@ -1395,14 +1483,15 @@ def main() -> int:
     first = {name: paths[KERNEL_PATH[name]][name][0] for name in TPU_KERNELS}
     first["rff_density"] = max(calls_d["rff_density"],
                                key=lambda c: c[0][0].shape[0] * c[0][1].shape[0])
-    times = timings(torch, rt, first, calls_main, calls_a)
+    times = timings(torch, rt, first, calls_main, calls_a, calls_d)
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
-        k_ms, p_ms, b_ms, by = times[name]
+        k_ms, p_ms, b_ms, by, sfu, mhz = times[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[KERNEL_PATH[name]][name],
                         "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
-                        "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+                        "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                        "sfu_floor_ms": sfu, "sm_clock_mhz": mhz})
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -3,8 +3,9 @@ kernel launchers (counterpart: none; the Pallas calls needed no binding)."""
 from __future__ import annotations
 
 import ctypes
+import numbers
 import threading
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -52,8 +53,27 @@ def device_scalars(values, device: torch.device) -> torch.Tensor:
                         for v in values])
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def scalar_arg(value, name: str, device: torch.device
+               ) -> Tuple[Optional[torch.Tensor], float]:
+    """A kernel constant passed as (tensor, 0.0) for a one-element tensor,
+    moved to `device` as float32 (no copy when it is already that, and
+    never synced to the host), or as (None, value) for a Python number; the
+    kernel reads the tensor when its pointer is not null.  Raises before
+    any launch on anything else."""
+    if isinstance(value, torch.Tensor):
+        if value.numel() != 1:
+            raise ValueError(f"{name} must have one element, got shape "
+                             f"{tuple(value.shape)}")
+        return value.to(device=device, dtype=torch.float32).reshape(()), 0.0
+    if isinstance(value, bool) or not isinstance(value, numbers.Real):
+        raise TypeError(f"{name} must be a number or a one-element tensor, "
+                        f"got {type(value).__name__}")
+    return None, float(value)
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """The tensor's device pointer; a null pointer for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

@@ -28,6 +28,16 @@ __device__ __forceinline__ float dens_diff(float za, float zb) {
   return kInvSqrt2Pi * (expf(-0.5f * zb * zb) - expf(-0.5f * za * za));
 }
 
+// 2^x by one SFU op (ex2.approx.ftz.f32): no denormal fix-ups, a result
+// below 2^-126 is flushed to +0, and -inf gives +0.  Used where a flushed
+// term is far below the tolerance of the sum it enters (gh_fused.cu,
+// lscv_grid.cu); the build has no global -ftz.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Sum over the 32 lanes of a warp, the same tree every call.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
