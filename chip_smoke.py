@@ -1266,11 +1266,12 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
     on an H100.  The bound is the larger of bytes (each input read once,
     each output written once) over HBM bandwidth and FLOPs over the FP32
     peak, with an FMA as two FLOPs (the convention of the 67 TFLOP/s peak)
-    and an exp / erfc / cos as one.  SFU ops are the MUFU instructions the
-    kernel issues (an exp or exp2 one, an erfcf MUFU_ERFC, a reciprocal
-    one; cosf none: its range reduction and polynomial are FMA work); the
-    caller turns them into the SFU floor at the SM clock it reads.  Per unit
-    of work, FLOPs / SFU ops:
+    and an exp / erfc / cos as one; a sum of k products is one multiply
+    and k - 1 FMAs (its first term needs no add).  SFU ops are the MUFU
+    instructions the kernel issues (an exp or exp2 one, an erfcf MUFU_ERFC,
+    a reciprocal one; cosf none: its range reduction and polynomial are FMA
+    work); the caller turns them into the SFU floor at the SM clock it
+    reads.  Per unit of work, FLOPs / SFU ops:
       pairwise_scaled_ksum: PAIR_OPS / 1 per pair;
       aqp_batch_sums: 24 / (2 erfc + 2 exp) per (query, point): z_a, z_b
         (sub, mul each), the Phi difference (add, 2 mul, 2 erfc, sub, mul),
@@ -1279,22 +1280,26 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
       aqp_box_sums: 13 / 2 erfc per (query, row, axis) (z_a, z_b, the Phi
         difference, two products) and 14 / 2 exp per (query, row) (count
         add; the target's density difference, FMA, mul, product, add);
-      sv_matrix: d subs and d(d+1)/2 + d FMAs per pair / none;
+      sv_matrix: d subs, the quadratic form (d rows of d - a products each
+        and the sum of d products: d + 1 multiplies, d(d-1)/2 + d - 1 FMAs)
+        per pair: d^2 + 3d - 1 / none;
       lscv_grid_sums: 6 / (1 - poly_share) per (pair, h) (the scale, the
         exp2, two FMAs; poly_share of the exp2 are the kernel's polynomial);
         the grid phase alone, the strict upper triangle of S read once;
-      gh_fused_sum: d subs, d(d+1)/2 + d FMAs, the exp2, two FMAs per pair
-        (d^2 + 4d + 5) / 1;
+      gh_fused_sum: d subs, the quadratic form as in sv_matrix, the exp2,
+        two FMAs per pair: (d^2 + 3d + 4) / 1 (the kernel issues one FMA
+        more: its sum of d products starts from 0);
       aqp_grouped_sums: 14 / (2 erfc + 1 rcp) per (row, axis), 15 / 2 erfc
         per (row, category) and 11 / 2 exp more when the target is the
         group axis;
-      qmc_box_reduce: d subs, d^2 + d FMAs, the scaled exponent's FMA, exp,
-        add per (node, row) (2d^2 + 3d + 4) / 1, and 2d compares, an add and
-        an FMA per (box, node) / none;
+      qmc_box_reduce: d subs, the quadratic form (d + 1 sums of d products:
+        d + 1 multiplies, d^2 - 1 FMAs), the scaled exponent's FMA, exp, add
+        per (node, row): (2d^2 + 2d + 3) / 1, and 2d compares, an add and an
+        FMA per (box, node) / none;
       rff_density: the projection (a mul and d - 1 FMAs), the phase add,
         cos and an FMA per (point, feature): 2d + 3 / none;
-      kde_eval: d subs, d FMAs, the scale, exp2, add per (point, row):
-        3d + 3 / 1."""
+      kde_eval: d subs, the sum of d squares (a multiply, d - 1 FMAs), the
+        scale, exp2, add per (point, row): 3d + 2 / 1."""
     mufu = 0
     if name == "pairwise_scaled_ksum":
         x = args[0]
@@ -1316,7 +1321,7 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
     elif name == "sv_matrix":
         n, d = args[0].shape
         nbytes = 4 * n * d + 4 * d * d + 4 * n * n
-        ops = (d + 2 * (d * (d + 1) // 2 + d)) * n * (n - 1) // 2
+        ops = (d * d + 3 * d - 1) * n * (n - 1) // 2
     elif name == "lscv_grid_sums":
         n, n_h = args[0].shape[0], args[2].shape[0]
         nbytes = 4 * n * (n - 1) // 2 + 8 * n_h + 8
@@ -1326,7 +1331,7 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         n, d = args[0].shape
         nbytes = 4 * n * d + 4 * d * d + 8 + 4
         pairs = n * (n - 1) // 2
-        ops, mufu = (d * d + 4 * d + 5) * pairs, pairs
+        ops, mufu = (d * d + 3 * d + 4) * pairs, pairs
     elif name == "aqp_grouped_sums":
         (n, d), G = args[0].shape, args[4].shape[0]
         nbytes = 4 * n * d + 12 * d + 8 * G + 8 * G
@@ -1336,7 +1341,7 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
     elif name == "qmc_box_reduce":
         (m, d), n, q = args[0].shape, args[1].shape[0], args[4].shape[0]
         nbytes = 4 * (m * d + n * d + d * d + 1 + 2 * q * d + q) + 8 * q
-        ops = (2 * d * d + 3 * d + 4) * m * n + (2 * d + 3) * q * m
+        ops = (2 * d * d + 2 * d + 3) * m * n + (2 * d + 3) * q * m
         mufu = m * n
     elif name == "rff_density":
         (m, d), nf = args[0].shape, args[1].shape[0]
@@ -1345,7 +1350,7 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
     else:                                    # kde_eval
         (m, d), n = args[0].shape, args[1].shape[0]
         nbytes = 4 * (m * d + n * d + 1) + 4 * m
-        ops, mufu = (3 * d + 3) * m * n, m * n
+        ops, mufu = (3 * d + 2) * m * n, m * n
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
     if t_ops >= t_bytes:

@@ -5,7 +5,7 @@ from __future__ import annotations
 import ctypes
 import numbers
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 
@@ -53,27 +53,24 @@ def device_scalars(values, device: torch.device) -> torch.Tensor:
                         for v in values])
 
 
-def scalar_arg(value, name: str, device: torch.device
-               ) -> Tuple[Optional[torch.Tensor], float]:
-    """A kernel constant passed as (tensor, 0.0) for a one-element tensor,
-    moved to `device` as float32 (no copy when it is already that, and
-    never synced to the host), or as (None, value) for a Python number; the
-    kernel reads the tensor when its pointer is not null.  Raises before
-    any launch on anything else."""
+def scalar_arg(value, name: str, device: torch.device) -> torch.Tensor:
+    """A kernel constant as a 0-d float32 tensor on `device`, whose pointer
+    the kernel reads: a one-element tensor is moved there (no copy when it
+    already is float32 there, and never synced to the host), a Python
+    number is copied there.  Raises before any launch on anything else."""
     if isinstance(value, torch.Tensor):
         if value.numel() != 1:
             raise ValueError(f"{name} must have one element, got shape "
                              f"{tuple(value.shape)}")
-        return value.to(device=device, dtype=torch.float32).reshape(()), 0.0
+        return value.to(device=device, dtype=torch.float32).reshape(())
     if isinstance(value, bool) or not isinstance(value, numbers.Real):
         raise TypeError(f"{name} must be a number or a one-element tensor, "
                         f"got {type(value).__name__}")
-    return None, float(value)
+    return torch.tensor(float(value), dtype=torch.float32, device=device)
 
 
-def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    """The tensor's device pointer; a null pointer for None."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

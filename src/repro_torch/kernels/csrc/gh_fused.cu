@@ -14,9 +14,9 @@
 // the SM's 4 warp-instructions per clock bind, not its 16 ex2 per clock.
 //
 // What the design does about it: every instruction that is not that
-// arithmetic goes.  The triangle tile is K x K with K = R * blockDim.x: each
-// thread owns R rows (points and accumulators in registers), so one column
-// read from shared memory serves R pairs; a column is padded to 1, 2, 4 or 8
+// arithmetic goes.  The triangle tile is K x K with K = kRows * blockDim.x:
+// each thread owns kRows = 4 rows (points and accumulators in registers), so
+// one column read from shared memory serves 4 pairs; a column is padded to 1, 2, 4 or 8
 // floats and read as 16-byte broadcasts (one float4 holds 4 columns at d = 1,
 // 2 at d = 2, one at d = 3..4, half of one at d = 5..8).  The column loop is
 // unrolled over kColStep columns with no per-pair bounds: tiles off the
@@ -28,9 +28,9 @@
 // v = x_i - x_j (the TPU kernel's qe + qf - 2 e^T M f expansion cancels for
 // close pairs), with M folded into its d(d+1)/2 symmetric coefficients
 // pre-scaled by -log2(e)/4, so e4 = exp(-s/4) is one ex2, exp(-s/2) = e4^2
-// and T_H = e4 (c_kk - 2 c_k e4).  c_k and c_kk come as device pointers or
-// as values, so the objective needs no host sync and no extra kernel before
-// the launch.  Each block reduces into one partial in a fixed tree and a
+// and T_H = e4 (c_kk - 2 c_k e4).  c_k and c_kk are read from device
+// memory, so the objective needs no host sync and no extra kernel before the
+// launch.  Each block reduces into one partial in a fixed tree and a
 // second one-block kernel adds the partials in a fixed order (no float
 // atomics): two launches give the same bits.
 #include <cuda_runtime.h>
@@ -42,6 +42,7 @@ namespace repro_torch {
 
 constexpr float kNegQuarterLog2e = -0.36067376022224085f;   // -log2(e) / 4
 constexpr int kColStep = 8;   // columns per unrolled step (K is a multiple of 32)
+constexpr int kRows = 4;      // rows per thread
 
 // Floats one column takes in shared memory: d padded to 1, 2, 4 or 8.
 template <int D>
@@ -112,15 +113,16 @@ __device__ __forceinline__ void walk_columns(const float4* __restrict__ cols4,
   }
 }
 
-// blockDim.x = T (a multiple of 32), tile side K = R * T; dynamic shared
+// blockDim.x = T (a multiple of 32), tile side K = kRows * T; dynamic shared
 // memory K * ColPad<D>::P floats.  Thread t owns rows q*K + r*T + t.
-template <int D, int R>
+template <int D>
 __global__ void gh_tiles(const float* __restrict__ x, int n,
                          const float* __restrict__ h_inv,
-                         const float* __restrict__ ck_ptr, float ck_val,
-                         const float* __restrict__ ckk_ptr, float ckk_val,
+                         const float* __restrict__ c_k_ptr,
+                         const float* __restrict__ c_kk_ptr,
                          float* __restrict__ partials) {
   using Pad = ColPad<D>;
+  constexpr int R = kRows;
   constexpr int kCoef = D * (D + 1) / 2;
   extern __shared__ float4 cols4[];
   float* cols = reinterpret_cast<float*>(cols4);
@@ -151,8 +153,8 @@ __global__ void gh_tiles(const float* __restrict__ x, int n,
 #pragma unroll
     for (int a = 0; a < D; ++a) xi[r][a] = (i < n) ? x[i * D + a] : 0.0f;
   }
-  const float c_kk = ckk_ptr ? ckk_ptr[0] : ckk_val;
-  const float m2ck = -2.0f * (ck_ptr ? ck_ptr[0] : ck_val);
+  const float c_kk = c_kk_ptr[0];
+  const float m2ck = -2.0f * c_k_ptr[0];
   __syncthreads();
 
   float c[kCoef];
@@ -188,60 +190,43 @@ __global__ void gh_tiles(const float* __restrict__ x, int n,
 }
 
 template <int D>
-int launch_gh(const float* x, int n, const float* h_inv, const float* ck_ptr,
-              float ck_val, const float* ckk_ptr, float ckk_val, int rows,
-              int threads, long long n_tri, float* partials, cudaStream_t s) {
-  const size_t smem = (size_t)rows * threads * ColPad<D>::P * sizeof(float);
-  switch (rows) {
-    case 1:
-      gh_tiles<D, 1><<<(unsigned)n_tri, threads, smem, s>>>(
-          x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, partials);
-      break;
-    case 2:
-      gh_tiles<D, 2><<<(unsigned)n_tri, threads, smem, s>>>(
-          x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, partials);
-      break;
-    case 4:
-      gh_tiles<D, 4><<<(unsigned)n_tri, threads, smem, s>>>(
-          x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, partials);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+void launch_gh(const float* x, int n, const float* h_inv, const float* c_k,
+               const float* c_kk, int threads, long long n_tri, float* partials,
+               cudaStream_t s) {
+  const size_t smem = (size_t)kRows * threads * ColPad<D>::P * sizeof(float);
+  gh_tiles<D><<<(unsigned)n_tri, threads, smem, s>>>(x, n, h_inv, c_k, c_kk,
+                                                     partials);
 }
 
 }  // namespace repro_torch
 
-// x: (n, d) row-major, h_inv: (d, d), 1 <= d <= 8; c_k (c_kk) is read from
-// ck_ptr (ckk_ptr) when that is not null, else taken as ck_val (ckk_val).
-// Tiles of side K = rows * threads, rows in {1, 2, 4}, threads a multiple
+// x: (n, d) row-major, h_inv: (d, d), 1 <= d <= 8; c_k, c_kk: one float
+// each in device memory.  Tiles of side K = 4 * threads, threads a multiple
 // of 32; partials holds n_tri floats with n_tri = T(T+1)/2, T = ceil(n/K).
 // Returns the cudaError_t of the launches.
 extern "C" int gh_fused_sum_launch(const float* x, int n, int d,
-                                   const float* h_inv, const float* ck_ptr,
-                                   float ck_val, const float* ckk_ptr,
-                                   float ckk_val, int rows, int threads,
+                                   const float* h_inv, const float* c_k,
+                                   const float* c_kk, int threads,
                                    float* partials, float* out,
                                    void* stream_ptr) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  const long long k = (long long)rows * threads;
+  const long long k = (long long)kRows * threads;
   const long long n_tiles = (n + k - 1) / k;
   const long long n_tri = n_tiles * (n_tiles + 1) / 2;
-  int err;
   switch (d) {
-    case 1: err = launch_gh<1>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
-    case 2: err = launch_gh<2>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
-    case 3: err = launch_gh<3>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
-    case 4: err = launch_gh<4>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
-    case 5: err = launch_gh<5>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
-    case 6: err = launch_gh<6>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
-    case 7: err = launch_gh<7>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
-    case 8: err = launch_gh<8>(x, n, h_inv, ck_ptr, ck_val, ckk_ptr, ckk_val, rows, threads, n_tri, partials, s); break;
+    case 1: launch_gh<1>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
+    case 2: launch_gh<2>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
+    case 3: launch_gh<3>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
+    case 4: launch_gh<4>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
+    case 5: launch_gh<5>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
+    case 6: launch_gh<6>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
+    case 7: launch_gh<7>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
+    case 8: launch_gh<8>(x, n, h_inv, c_k, c_kk, threads, n_tri, partials, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != (int)cudaSuccess) return err;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   sum_tile_partials<<<1, 256, 0, s>>>(partials, n_tri, out);
   return (int)cudaGetLastError();
 }

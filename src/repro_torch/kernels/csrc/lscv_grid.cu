@@ -60,9 +60,10 @@ constexpr float kExp2P5 = 0.0013398872688412666f;
 constexpr float kExp2P6 = 0.00015353341586887836f;
 // END EXP2_POLY
 
-// 2^x on the FP32 pipe, within 2 ulp where the result is normal and +0 for
-// x < -126 (as ex2.approx.ftz flushes).  t = x + magic holds j = rint(x) in
-// its low mantissa bits, so bits(t) << 23 is j << 23 modulo 2^32.
+// 2^x on the FP32 pipe, within 2 ulp where the result is normal, +0 for
+// x < -126 (as ex2.approx.ftz flushes) and x itself for a NaN x.  t = x +
+// magic holds j = rint(x) in its low mantissa bits, so bits(t) << 23 is
+// j << 23 modulo 2^32.
 __device__ __forceinline__ float exp2_poly(float x) {
   const float t = x + kExp2Magic;
   const float f = x - (t - kExp2Magic);
@@ -74,15 +75,14 @@ __device__ __forceinline__ float exp2_poly(float x) {
   p = fmaf(p, f, kExp2P1);
   p = fmaf(p, f, kExp2P0);
   const float r = __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
-  return x < -126.0f ? 0.0f : r;
+  return x >= -126.0f ? r : (x < -126.0f ? 0.0f : x);
 }
 
-// partials: (n_h, n_tri); block bx writes column bx.  c_k (c_kk) is read from
-// ck_ptr (ckk_ptr) when that is not null, else taken as ck_val (ckk_val).
+// partials: (n_h, n_tri); block bx writes column bx.
 __global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
                                 const float* __restrict__ a_h, int n_h,
-                                const float* __restrict__ ck_ptr, float ck_val,
-                                const float* __restrict__ ckk_ptr, float ckk_val,
+                                const float* __restrict__ c_k_ptr,
+                                const float* __restrict__ c_kk_ptr,
                                 long long n_tri, float* __restrict__ partials) {
   constexpr int kVecs = kGridTile * kGridTile / 4;
   __shared__ float4 tile4[kVecs];
@@ -107,8 +107,8 @@ __global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
     }
   }
   __syncthreads();
-  const float c_kk = ckk_ptr ? ckk_ptr[0] : ckk_val;
-  const float m2ck = -2.0f * (ck_ptr ? ck_ptr[0] : ck_val);
+  const float c_kk = c_kk_ptr[0];
+  const float m2ck = -2.0f * c_k_ptr[0];
   for (int h = threadIdx.x; h < n_h; h += blockDim.x) {
     const float a = a_h[h];
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -133,20 +133,21 @@ __global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
 }  // namespace repro_torch
 
 // S: (n, n) row-major (only its strict upper triangle is read); a_h: (n_h,)
-// = -log2(e) / (4 h^2); partials: n_h * n_tri floats with n_tri = T(T+1)/2,
-// T = ceil(n / 64); out: (n_h,).  `threads` per block (a multiple of 32).
+// = -log2(e) / (4 h^2); c_k, c_kk: one float each in device memory;
+// partials: n_h * n_tri floats with n_tri = T(T+1)/2, T = ceil(n / 64);
+// out: (n_h,).  `threads` per block (a multiple of 32).
 // Returns the cudaError_t of the launches.
 extern "C" int lscv_grid_sums_launch(const float* S, int n, const float* a_h,
-                                     int n_h, const float* ck_ptr, float ck_val,
-                                     const float* ckk_ptr, float ckk_val,
-                                     int threads, float* partials, float* out,
+                                     int n_h, const float* c_k,
+                                     const float* c_kk, int threads,
+                                     float* partials, float* out,
                                      void* stream_ptr) {
   using namespace repro_torch;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long n_tiles = (n + kGridTile - 1) / kGridTile;
   const long long n_tri = n_tiles * (n_tiles + 1) / 2;
   lscv_grid_tiles<<<(unsigned)n_tri, threads, 0, stream>>>(
-      S, n, a_h, n_h, ck_ptr, ck_val, ckk_ptr, ckk_val, n_tri, partials);
+      S, n, a_h, n_h, c_k, c_kk, n_tri, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_tile_partials<<<(unsigned)n_h, 256, 0, stream>>>(partials, n_tri, out);

@@ -4,7 +4,7 @@ over s = (x_i - x_j)^T H^-1 (x_i - x_j) (§6.3, eqs. 32-35).
 Counterpart: `repro/kernels/gh_fused.py` (`gh_fused_sum`).
 
 The kernel walks the upper-triangle tiles of side K (eqs. 49/50), each
-block with K / R threads that own R rows apiece; `tile_shape` picks K, R
+block with K / ROWS threads that own ROWS rows apiece; `tile_shape` picks K
 and the grid, and `block_pairs` mirrors which pairs a block sums.
 """
 from __future__ import annotations
@@ -19,9 +19,9 @@ from ._launch import (LaunchCounter, check_tensor, check_tile, ptr, raise_on,
                       scalar_arg, stream)
 from .triangle import bx_to_ql, n_tri_tiles
 
-TILE = 512          # side K of a triangle tile: 128 threads x 4 rows each
-ROWS = (4, 2, 1)    # rows per thread the kernel is instantiated for
-MAX_D = 8           # ... and d = 1..8
+TILE = 512          # side K of a triangle tile: 128 threads x ROWS rows each
+ROWS = 4            # rows per thread (kRows in the source)
+MAX_D = 8           # the kernel is instantiated for d = 1..8
 
 
 launches = LaunchCounter("gh_fused_sum")
@@ -31,31 +31,30 @@ launches = LaunchCounter("gh_fused_sum")
 def _fn():
     fn = _build.load("gh_fused").gh_fused_sum_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def tile_shape(n: int, tile: int):
-    """(K, R, threads, n_tri) of a launch over n rows: the tile side K is
+    """(K, threads, n_tri) of a launch over n rows: the tile side K is
     `tile` (a multiple of 32 in [32, 1024]) capped at the next power of two
-    of n (at least 32); R is the largest of ROWS that leaves whole warps,
-    K / R threads; n_tri blocks, one per upper-triangle tile."""
-    k = min(check_tile(tile, "tile"), max(32, 1 << (n - 1).bit_length()))
-    r = next(r for r in ROWS if k % (32 * r) == 0)
-    return k, r, k // r, n_tri_tiles(-(-n // k))
+    of n, then rounded up to a multiple of 128 (one warp of ROWS rows per
+    thread); K / ROWS threads; n_tri blocks, one per upper-triangle tile."""
+    k = min(check_tile(tile, "tile"), max(1, 1 << (n - 1).bit_length()))
+    k = -(-k // (32 * ROWS)) * 32 * ROWS
+    return k, k // ROWS, n_tri_tiles(-(-n // k))
 
 
-def block_pairs(bx: int, n: int, k: int, r: int):
+def block_pairs(bx: int, n: int, k: int):
     """The pairs (i, j) that block bx adds, as (i, j) int64 tensors: thread
-    t owns rows qK + rT + t (T = K / r threads), the block's columns are
-    lK .. lK + K - 1; a tile off the diagonal whose columns all lie below n
-    adds every (row, column), any other tile only i < j < n."""
-    threads = k // r
+    t owns rows qK + rT + t (r < ROWS, T = K / ROWS threads), the block's
+    columns are lK .. lK + K - 1; a tile off the diagonal whose columns all
+    lie below n adds every (row, column), any other tile only i < j < n."""
+    threads = k // ROWS
     q, l = (int(v) for v in bx_to_ql(bx))
-    local = (torch.arange(r)[:, None] * threads + torch.arange(threads)[None]).reshape(-1)
+    local = (torch.arange(ROWS)[:, None] * threads + torch.arange(threads)[None]).reshape(-1)
     cols = torch.arange(k)
     c_end = min(k, n - l * k)
     ii, cc = torch.meshgrid(local, cols, indexing="ij")
@@ -70,17 +69,17 @@ def gh_fused_sum(x: torch.Tensor, h_inv: torch.Tensor, c_k, c_kk,
                  tile: int) -> torch.Tensor:
     """0-d float32 sum on x's device.  x: (n, d) float32 CUDA with
     1 <= d <= 8, h_inv: (d, d) float32 on the same device; c_k, c_kk:
-    numbers or one-element tensors (read on the device, never synced to
-    the host); `tile` as `tile_shape` takes it.  n < 2 gives 0 and
+    numbers or one-element tensors (read on the device, a tensor never
+    synced to the host, a number copied there first); `tile` as `tile_shape` takes it.  n < 2 gives 0 and
     launches nothing."""
     check_tensor(x, "x", torch.float32, (None, None))
     n, d = x.shape
     if not 1 <= d <= MAX_D:
         raise ValueError(f"gh_fused_sum takes 1 <= d <= {MAX_D}, got d={d}")
     check_tensor(h_inv, "h_inv", torch.float32, (d, d), x.device)
-    k, r, threads, n_tri = tile_shape(n, tile)
-    ck, ck_val = scalar_arg(c_k, "c_k", x.device)
-    ckk, ckk_val = scalar_arg(c_kk, "c_kk", x.device)
+    k, threads, n_tri = tile_shape(n, tile)
+    ck = scalar_arg(c_k, "c_k", x.device)
+    ckk = scalar_arg(c_kk, "c_kk", x.device)
     if n < 2:
         return torch.zeros((), dtype=torch.float32, device=x.device)
     if n_tri >= 2 ** 31:
@@ -88,8 +87,8 @@ def gh_fused_sum(x: torch.Tensor, h_inv: torch.Tensor, c_k, c_kk,
     out = torch.empty((), dtype=torch.float32, device=x.device)
     partials = torch.empty((n_tri,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _fn()(ptr(x), n, d, ptr(h_inv), ptr(ck), ck_val, ptr(ckk), ckk_val,
-                    r, threads, ptr(partials), ptr(out), stream(x.device))
+        err = _fn()(ptr(x), n, d, ptr(h_inv), ptr(ck), ptr(ckk), threads,
+                    ptr(partials), ptr(out), stream(x.device))
     raise_on(err, "gh_fused_sum")
     launches.inc()
     return out

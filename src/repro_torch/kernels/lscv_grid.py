@@ -31,9 +31,8 @@ launches = LaunchCounter("lscv_grid_sums")
 def _fn():
     fn = _build.load("lscv_grid").lscv_grid_sums_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -42,7 +41,8 @@ def lscv_grid_sums_from_s(s: torch.Tensor, h_grid: torch.Tensor, c_k, c_kk,
                           h_tile: int) -> torch.Tensor:
     """(n_h,) float32 on S's device.  s: (n, n) float32 CUDA, of which only
     the strict upper triangle is read; h_grid: (n_h,) float32 on the same
-    device; c_k, c_kk: numbers or one-element tensors (read on the device).
+    device; c_k, c_kk: numbers or one-element tensors (read on the device;
+    a number is copied there first).
     n == 0 gives zeros and launches nothing."""
     check_tensor(s, "s", torch.float32, (None, None))
     n = s.shape[0]
@@ -50,8 +50,8 @@ def lscv_grid_sums_from_s(s: torch.Tensor, h_grid: torch.Tensor, c_k, c_kk,
     check_tensor(h_grid, "h_grid", torch.float32, (None,), s.device)
     n_h = h_grid.shape[0]
     threads = min(check_tile(h_tile, "h_tile"), -(-n_h // 32) * 32)
-    ck, ck_val = scalar_arg(c_k, "c_k", s.device)
-    ckk, ckk_val = scalar_arg(c_kk, "c_kk", s.device)
+    ck = scalar_arg(c_k, "c_k", s.device)
+    ckk = scalar_arg(c_kk, "c_kk", s.device)
     if n == 0 or n_h == 0:
         return torch.zeros((n_h,), dtype=torch.float32, device=s.device)
     n_tri = n_tri_tiles(-(-n // TILE))
@@ -61,8 +61,8 @@ def lscv_grid_sums_from_s(s: torch.Tensor, h_grid: torch.Tensor, c_k, c_kk,
     out = torch.empty((n_h,), dtype=torch.float32, device=s.device)
     partials = torch.empty((n_h, n_tri), dtype=torch.float32, device=s.device)
     with torch.cuda.device(s.device):
-        err = _fn()(ptr(s), n, ptr(a_h), n_h, ptr(ck), ck_val, ptr(ckk), ckk_val,
-                    threads, ptr(partials), ptr(out), stream(s.device))
+        err = _fn()(ptr(s), n, ptr(a_h), n_h, ptr(ck), ptr(ckk), threads,
+                    ptr(partials), ptr(out), stream(s.device))
     raise_on(err, "lscv_grid_sums")
     launches.inc()
     return out
