@@ -22,32 +22,37 @@ non-zero and prints no result line):
      (150 iterations) with one gh_fused launch per objective evaluation; H
      SPD and g(H) <= g(H_start);
   5. path C, GROUP BY: 104 GROUP BY specs over the 64-code model_id column
-     through a joint that holds it, one aqp_grouped launch per family; each
-     family held against its boxes fanned out through a float64 oracle and
-     against the stream's exact per-code counts within the CIs; a
-     bit-identical repeat with no fit launches;
+     through a joint that holds it, one aqp_grouped launch for all the
+     families (estimates and CI moment sums); each family held against its
+     boxes fanned out through a float64 oracle and against the stream's
+     exact per-code counts within the CIs; a bit-identical repeat with no
+     fit launches;
   6. path D, full-H serving: the 1 024-spec mix with `selector="lscv_H"`
      (the joint's fit cached from path B, the two 1-D columns fitted on
      gh_fused), every group on the RFF density synopsis ("auto" at 32 768
      rows: rff_eval launches), then the same specs with
      `kde_backend="exact"` (qmc_reduce launches); the exact answers held
      against a float64 oracle of eq. 6 on the same Halton nodes, the RFF
-     answers against the exact ones within their CIs; bit-identical repeats;
+     answers against the exact ones within their CIs; one qmc_reduce launch
+     per exact group (the estimate and its 8 CI chunks); bit-identical
+     repeats;
   7. path E, `kde_eval` at 4 096 points on a 1-D sample and on the joint,
      and the trapezoid forms of eqs. 9-10 on 64 ranges against the closed
      forms (kde_eval launches);
   8. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
-     subsample; two launches of lscv_grid_sums, gh_fused_sum and
-     aqp_grouped_sums on the same inputs giving the same bits; PLUGIN and
+     subsample; two launches of lscv_grid_sums, gh_fused_sum,
+     aqp_grouped_sums and qmc_box_reduce on the same inputs giving the same
+     bits; PLUGIN and
      LSCV_h against the paper's sequential oracles; the kernel's own
      eqs. 49/50 tile mapping exhaustively;
   9. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
-     gh_fused_sum also path D's first 1-D call), beside the bound and the
-     SFU floor at the SM clock read after the kernel's windows.
+     gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
+     joint's d = 3 call of path D exact), beside the bound and the SFU floor
+     at the SM clock read after the kernel's windows.
 
 It prints a {"kernels": [...]} JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -127,6 +132,12 @@ KERNEL_PATH = {"pairwise_scaled_ksum": "plugin", "aqp_batch_sums": "plugin",
                "aqp_box_sums": "plugin", "sv_matrix": "A", "lscv_grid_sums": "A",
                "gh_fused_sum": "B", "aqp_grouped_sums": "C", "qmc_box_reduce": "D exact",
                "rff_density": "D", "kde_eval": "E"}
+# the ops wrappers that launch each kernel: the engine runs a GROUP BY
+# group's families, and a full-H group's estimate with its CI chunks, through
+# the batched wrappers
+WRAPPERS = {name: (name,) for name in TPU_KERNELS}
+WRAPPERS["aqp_grouped_sums"] = ("aqp_grouped_sums", "aqp_grouped_moments")
+WRAPPERS["qmc_box_reduce"] = ("qmc_box_reduce", "qmc_box_reduce_split")
 
 
 class SmokeFailure(RuntimeError):
@@ -159,8 +170,9 @@ def recording(ops):
     block runs, so each kernel is held and timed on exactly the inputs the
     main path gave it.  The launch counters live in the launchers and are
     not touched."""
-    calls = {name: [] for name in TPU_KERNELS}
-    originals = {name: getattr(ops, name) for name in TPU_KERNELS}
+    names = [w for ws in WRAPPERS.values() for w in ws]
+    calls = {name: [] for name in names}
+    originals = {name: getattr(ops, name) for name in names}
 
     def keep(name):
         def wrapper(*args, **kwargs):
@@ -168,7 +180,7 @@ def recording(ops):
             return originals[name](*args, **kwargs)
         return wrapper
 
-    for name in TPU_KERNELS:
+    for name in names:
         setattr(ops, name, keep(name))
     try:
         yield calls
@@ -189,9 +201,15 @@ def call_shape(name: str, args, kwargs) -> str:
     if name == "aqp_grouped_sums":
         return (f"G={args[4].shape[0]} n={args[0].shape[0]} d={args[0].shape[1]} "
                 f"g_axis={args[6]} tgt={args[7]}")
-    if name == "qmc_box_reduce":
+    if name == "aqp_grouped_moments":
+        n_self = sum(int(g) == int(t) for g, t in zip(args[7], args[8]))
+        return (f"F={args[2].shape[0]} ({n_self} with the group axis as target) "
+                f"W={args[4].shape[0]} Gmax={args[4].shape[1]} n={args[0].shape[0]} "
+                f"d={args[0].shape[1]}")
+    if name in ("qmc_box_reduce", "qmc_box_reduce_split"):
+        splits = f" splits={args[7]}" if len(args) > 7 else ""
         return (f"q={args[4].shape[0]} m={args[0].shape[0]} n={args[1].shape[0]} "
-                f"d={args[1].shape[1]}")
+                f"d={args[1].shape[1]}{splits}")
     if name == "rff_density":
         return f"m={args[0].shape[0]} D={args[1].shape[0]} d={args[0].shape[1]}"
     if name == "kde_eval":
@@ -337,9 +355,11 @@ def driven(torch, ops, what: str, fn):
     sec = time.perf_counter() - t0
     counts = ops.launch_counts()
     print(f"{what}: {sec * 1e3:.1f} ms; launches {counts}")
+    for kernel, wrappers in WRAPPERS.items():
+        made = sum(len(calls[w]) for w in wrappers)
+        check(made == counts[kernel],
+              f"{what}: {kernel}: {made} wrapper calls but {counts[kernel]} launches")
     for name, made in calls.items():
-        check(len(made) == counts[name],
-              f"{what}: {name}: {len(made)} wrapper calls but {counts[name]} launches")
         shapes = [call_shape(name, a, k) for a, k in made]
         if len(set(shapes)) == 1 and len(shapes) > 3:
             print(f"{what}: calls of {name}: {len(shapes)} x {shapes[0]}")
@@ -487,9 +507,10 @@ def select_op(agg: str, cnt, sm):
     return {"count": cnt, "sum": sm}.get(agg, sm / cnt if cnt > 1e-3 else 0.0)
 
 
-def oracle_boxes_dev(torch, x, h, lo, hi, tgt):
+def oracle_boxes_dev(torch, x, h, lo, hi, tgt, moments: bool = False):
     """oracle_boxes in float64 on the card (x (n,d), h (d,), lo/hi (q,d)
-    float64 tensors, tgt (q,) ints): unscaled (count, sum) per box."""
+    float64 tensors, tgt (q,) ints): unscaled (count, sum) per box, or with
+    `moments` the five CI sums (sum c, sum s, sum c^2, sum s^2, sum c s)."""
     from torch.special import ndtr
     za = (lo[:, None, :] - x[None]) / h
     zb = (hi[:, None, :] - x[None]) / h
@@ -498,8 +519,10 @@ def oracle_boxes_dev(torch, x, h, lo, hi, tgt):
     moment = x[None] * d_Phi - h * d_phi
     t = torch.as_tensor(np.asarray(tgt), device=x.device)
     sel = torch.arange(x.shape[1], device=x.device)[None, None, :] == t[:, None, None]
-    return (torch.prod(d_Phi, 2).sum(1).cpu().numpy(),
-            torch.prod(torch.where(sel, moment, d_Phi), 2).sum(1).cpu().numpy())
+    c = torch.prod(d_Phi, 2)
+    s = torch.prod(torch.where(sel, moment, d_Phi), 2)
+    terms = (c, s, c * c, s * s, c * s) if moments else (c, s)
+    return tuple(v.sum(1).cpu().numpy() for v in terms)
 
 
 def path_c(torch, rt, store, gspecs, stream):
@@ -511,8 +534,11 @@ def path_c(torch, rt, store, gspecs, stream):
     check(len(res) == n_fam * N_CODES, f"path C: {len(res)} results, expected "
           f"{n_fam} x {N_CODES} categories")
     want = {k: 0 for k in counts}
-    want.update(pairwise_scaled_ksum=2 * len(GJOINT), aqp_grouped_sums=n_fam)
+    want.update(pairwise_scaled_ksum=2 * len(GJOINT), aqp_grouped_sums=1)
     check(counts == want, f"path C launches {counts}, expected {want}")
+    check(len(calls["aqp_grouped_moments"]) == 1
+          and calls["aqp_grouped_moments"][0][0][2].shape[0] == n_fam,
+          f"path C: the {n_fam} families are not one aqp_grouped_moments call")
     check({r.path for r in res} == {"box:grouped:cuda"}, f"path C paths {({r.path for r in res})}")
     est = np.asarray([r.estimate for r in res])
     lo = np.asarray([r.ci_lo for r in res])
@@ -687,6 +713,11 @@ def path_d(torch, rt, store, specs):
         print(f"path D group {col}: H diag {syn.H.diagonal().tolist()}; RFF fit "
               f"{fit_s[j] * 1e3:.1f} ms, probe_rel_err {rff.probe_rel_err:.4f}, "
               f"degraded {rff.degraded}; path {paths.pop()}")
+    n_degraded = len(slices) - len(rff_groups)
+    check(counts["qmc_box_reduce"] == n_degraded
+          and len(calls["qmc_box_reduce_split"]) == n_degraded,
+          f"path D: {counts['qmc_box_reduce']} qmc_box_reduce launches for {n_degraded} "
+          f"degraded groups (one each: the estimate and its CI chunks)")
     per_group = []
     for args, _ in calls["rff_density"]:           # each fit's probe call opens a group
         if args[0].shape[0] == rt["query"].RFF_GATE_PROBES:
@@ -694,16 +725,18 @@ def path_d(torch, rt, store, specs):
         per_group[-1] += 1
     print(f"path D: rff_density launches {counts['rff_density']}, per group {per_group} (a "
           f"probe per fit, then an estimate and 8 feature blocks per RFF group), "
-          f"qmc_box_reduce {counts['qmc_box_reduce']} (degraded groups); {sec:.3f} s")
+          f"qmc_box_reduce {counts['qmc_box_reduce']} (one per degraded group); {sec:.3f} s")
 
     eng = store.shared_engine("lscv_H")
     res_x, sec_x, counts_x, calls_x = driven(
         torch, ops, "path D exact (kde_backend='exact', fits cached)",
         lambda: eng.execute(specs, kde_backend="exact"))
     want = {k: 0 for k in counts_x}
-    want["qmc_box_reduce"] = 3 * (1 + 8)       # an estimate and 8 CI chunks per group
+    want["qmc_box_reduce"] = 3                 # one per group: the estimate and 8 CI chunks
     check(counts_x == want, f"path D exact launches {counts_x}, expected {want}")
-    nodes = [a[0].shape[0] for a, _ in calls_x["qmc_box_reduce"] if a[1].shape[0] == CAPACITY]
+    check([a[7] for a, _ in calls_x["qmc_box_reduce_split"]] == [8, 8, 8],
+          "path D exact: each group's launch carries its 8 CI chunks")
+    nodes = [a[0].shape[0] for a, _ in calls_x["qmc_box_reduce_split"]]
     print(f"path D exact: Halton nodes per group (_qmc_plan): {nodes}")
     worst, in_ci, n_rff = 0.0, 0, 0
     for col, idx in slices.items():
@@ -1101,24 +1134,37 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
         return max(held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, what + " count"),
                    held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, what + " sum"))
 
-    made = calls_c["aqp_grouped_sums"]
-    out["aqp_grouped_sums"] = max(grouped_pair(a, f"aqp_grouped {call_shape('aqp_grouped_sums', a, k)}")
+    def moments_pair(args, what):
+        k, p = ops.aqp_grouped_moments(*args), ref.aqp_grouped_moments(*args)
+        check(tuple(k.shape) == (args[2].shape[0], 5, args[4].shape[1]), f"{what} shape")
+        return max(held(k[:, t].cpu(), p[:, t].cpu(), AQP_RTOL,
+                        CNT_ATOL if t in (0, 2) else SUM_ATOL, f"{what} sum {t}")
+                   for t in range(5))
+
+    made = calls_c["aqp_grouped_moments"]
+    out["aqp_grouped_sums"] = max(moments_pair(a, f"aqp_grouped_moments "
+                                                  f"{call_shape('aqp_grouped_moments', a, k)}")
                                   for a, k in made)
     args = made[0][0]
-    k1, k2 = ops.aqp_grouped_sums(*args), ops.aqp_grouped_sums(*args)
-    check(torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1]),
-          "aqp_grouped: two launches on the same inputs differ")
-    x, h, lo, hi, glo, ghi, g_axis, tgt = args
+    check(torch.equal(ops.aqp_grouped_moments(*args), ops.aqp_grouped_moments(*args)),
+          "aqp_grouped_moments: two launches on the same inputs differ")
+    x, h, lo, hi, wlo, whi, win, g_axes, tgts = args
     sub = x[:4096].contiguous()
-    blo = lo.double().repeat(glo.shape[0], 1)
-    bhi = hi.double().repeat(glo.shape[0], 1)
-    blo[:, g_axis], bhi[:, g_axis] = glo.double(), ghi.double()
-    for t in (tgt, g_axis):
-        k = ops.aqp_grouped_sums(sub, h, lo, hi, glo, ghi, g_axis, t)
-        c64, s64 = oracle_boxes_dev(torch, sub.double(), h.double(), blo, bhi,
-                                    [t] * glo.shape[0])
-        held(k[0].cpu(), c64, AQP_RTOL, CNT_ATOL, f"aqp_grouped tgt={t} count vs float64")
-        held(k[1].cpu(), s64, AQP_RTOL, SUM_ATOL, f"aqp_grouped tgt={t} sum vs float64")
+    for f in (0, next(i for i, (g, t) in enumerate(zip(g_axes, tgts)) if g == t)):
+        g_axis, tgt, G = g_axes[f], tgts[f], wlo.shape[1]
+        blo = lo[f].double().repeat(G, 1)
+        bhi = hi[f].double().repeat(G, 1)
+        blo[:, g_axis], bhi[:, g_axis] = wlo[win[f]].double(), whi[win[f]].double()
+        five64 = oracle_boxes_dev(torch, sub.double(), h.double(), blo, bhi, [tgt] * G,
+                                  moments=True)
+        five = ops.aqp_grouped_moments(sub, h, lo[f:f + 1], hi[f:f + 1], wlo, whi, [win[f]],
+                                       [g_axis], [tgt])[0]
+        for t in range(5):
+            held(five[t].cpu(), five64[t], AQP_RTOL, CNT_ATOL if t in (0, 2) else SUM_ATOL,
+                 f"aqp_grouped_moments family {f} (tgt={tgt}) sum {t} vs float64")
+        k = ops.aqp_grouped_sums(sub, h, lo[f], hi[f], wlo[win[f]], whi[win[f]], g_axis, tgt)
+        held(k[0].cpu(), five64[0], AQP_RTOL, CNT_ATOL, f"aqp_grouped tgt={tgt} count vs float64")
+        held(k[1].cpu(), five64[1], AQP_RTOL, SUM_ATOL, f"aqp_grouped tgt={tgt} sum vs float64")
     for n, d, G, ga, tg in ((1, 1, 1, 0, 0), (4097, 3, 1, 1, 0), (4097, 2, 130, 0, 1),
                             (4097, 3, 64, 2, 2), (0, 2, 4, 1, 0), (50, 3, 0, 1, 1)):
         xs = t32(rng.normal(0, 1.5, (n, d)).astype(np.float32))
@@ -1129,25 +1175,53 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
         check(k[0].shape == (G,), f"aqp_grouped n={n} G={G} shape")
         grouped_pair((xs, hs, ls, ls + 2.0, t32(codes), t32(codes + 0.05), ga, tg),
                      f"aqp_grouped n={n} d={d} G={G}")
-    print(f"aqp_grouped: {len(made)} path-C calls ({call_shape('aqp_grouped_sums', args, {})}) "
-          f"match plain, max |err| {out['aqp_grouped_sums']:.3g}; two launches give the same "
-          f"bits; n=4096 within tolerance of float64 on both target branches; edge shapes "
-          f"n=0/1/4097, G=0/1/130, d=1/2/3 match plain")
+    # the batched kernel at edge shapes: n not a multiple of a block's rows,
+    # d = 1..8, F = 1 and 104, G = 1, the group axis as the target, and
+    # families over differing window tables (three tables of G = 1, 5, 64)
+    tables = [np.arange(G, dtype=np.float32) * (3.0 / G) - 1.5 for G in (1, 5, 64)]
+    wl = np.zeros((3, 64), np.float32)
+    wh = np.zeros((3, 64), np.float32)
+    for i, c in enumerate(tables):
+        wl[i, :len(c)], wh[i, :len(c)] = c - 0.5, c + 0.5
+    for n, d, F in [(1, 1, 1), (33, 2, 104), (4097, 3, 104), (32_768 + 5, 3, 7)] + \
+            [(1000 + d, d, 6) for d in range(1, 9)]:
+        xs = t32(rng.normal(0, 1.5, (n, d)).astype(np.float32))
+        hs = t32(rng.uniform(0.2, 0.8, d).astype(np.float32))
+        ls = rng.uniform(-2, 0, (F, d)).astype(np.float32)
+        ga = rng.integers(0, d, F)
+        tg = np.where(rng.uniform(size=F) < 0.3, ga, rng.integers(0, d, F))
+        wi = rng.integers(0, 3, F)
+        margs = (xs, hs, t32(ls), t32(ls + 2.0), t32(wl), t32(wh), wi.tolist(), ga.tolist(),
+                 tg.tolist())
+        moments_pair(margs, f"aqp_grouped_moments n={n} d={d} F={F}")
+    print(f"aqp_grouped: the path-C call ({call_shape('aqp_grouped_moments', args, {})}) "
+          f"matches plain on all five sums, max |err| {out['aqp_grouped_sums']:.3g}; two "
+          f"launches give the same bits; n=4096 within tolerance of float64 on both target "
+          f"branches (five sums, and the one-family wrapper); one-family edge shapes "
+          f"n=0/1/4097, G=0/1/130, d=1/2/3 and batched edge shapes n=1/33/4097/32773, "
+          f"d=1..8, F=1/6/7/104 over window tables of G=1/5/64 match plain")
 
     def qmc_pair(args, what):
-        k, p = ops.qmc_box_reduce(*args), ref.qmc_box_reduce(*args)
+        split = len(args) > 7
+        k = (ops.qmc_box_reduce_split if split else ops.qmc_box_reduce)(*args)
+        p = (ref.qmc_box_reduce_split if split else ref.qmc_box_reduce)(*args)
         errs = []
         for kk, pp, ch in ((k[0], p[0], "count"), (k[1], p[1], "sum")):
-            atol = QMC_ATOL * max(float(pp.abs().max()) if pp.numel() else 0.0, 1.0)
-            errs.append(held(kk.cpu(), pp.cpu(), QMC_RTOL, atol, f"{what} {ch}"))
-        return max(errs)
+            rows = kk.shape[0] if kk.dim() == 2 else 1
+            for j, (kr, pr) in enumerate(zip(kk.reshape(rows, -1), pp.reshape(rows, -1))):
+                atol = QMC_ATOL * max(float(pr.abs().max()) if pr.numel() else 0.0, 1.0)
+                errs.append(held(kr.cpu(), pr.cpu(), QMC_RTOL, atol, f"{what} {ch} row {j}"))
+        return max(errs, default=0.0)
 
-    made = calls_dx["qmc_box_reduce"]
-    full = [c for c in made if c[0][1].shape[0] == CAPACITY]
-    chunks = [c for c in made if c[0][1].shape[0] != CAPACITY]
-    out["qmc_box_reduce"] = max(qmc_pair(a, f"qmc_box_reduce {call_shape('qmc_box_reduce', a, k)}")
-                                for a, k in made + calls_d["qmc_box_reduce"])
-    nodes, x, h_inv, log_norm, lo, hi, tgt = full[-1][0]
+    made = calls_dx["qmc_box_reduce_split"] + calls_d["qmc_box_reduce_split"]
+    out["qmc_box_reduce"] = max(
+        qmc_pair(a, f"qmc_box_reduce {call_shape('qmc_box_reduce_split', a, k)}")
+        for a, k in made)
+    args = made[0][0]
+    k1, k2 = ops.qmc_box_reduce_split(*args), ops.qmc_box_reduce_split(*args)
+    check(torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1]),
+          "qmc_box_reduce: two launches on the same inputs differ")
+    nodes, x, h_inv, log_norm, lo, hi, tgt, _ = calls_dx["qmc_box_reduce_split"][-1][0]
     ns, xs, ls, hs, ts = (nodes[:4096].contiguous(), x[:2048].contiguous(), lo[:32].contiguous(),
                           hi[:32].contiguous(), tgt[:32].contiguous())
     k = ops.qmc_box_reduce(ns, xs, h_inv, log_norm, ls, hs, ts)
@@ -1162,23 +1236,37 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
     held(k[0].cpu(), c64.cpu(), QMC_RTOL, QMC_ATOL * float(c64.abs().max()), "qmc_box_reduce count vs float64")
     held(k[1].cpu(), s64.cpu(), QMC_RTOL, QMC_ATOL * float(s64.abs().max().clamp_min(1.0)),
          "qmc_box_reduce sum vs float64")
-    for n, d, q, m in ((1, 1, 1, 1), (4097, 3, 70, 1000), (300, 8, 5, 33), (0, 2, 3, 4),
-                       (10, 2, 0, 4), (10, 2, 3, 0)):
+
+    def qmc_args(n, d, q, m):
         xs = t32(rng.normal(0, 1, (n, d)).astype(np.float32))
         ns = t32(rng.uniform(-2, 2, (m, d)).astype(np.float32))
         a0 = rng.normal(0, 0.3, (d, d))
         Hm = a0 @ a0.T + 0.5 * np.eye(d)
         ls = t32(rng.uniform(-2, 0, (q, d)).astype(np.float32))
-        args = (ns, xs, t32(np.linalg.inv(Hm).astype(np.float32)),
+        return (ns, xs, t32(np.linalg.inv(Hm).astype(np.float32)),
                 float(-0.5 * d * np.log(2 * np.pi) - 0.5 * np.linalg.slogdet(Hm)[1]),
                 ls, ls + 1.5, t32(rng.integers(0, d, q), torch.int32))
+
+    for n, d, q, m in ((1, 1, 1, 1), (4097, 3, 70, 1000), (300, 8, 5, 33), (0, 2, 3, 4),
+                       (10, 2, 0, 4), (10, 2, 3, 0)):
+        args = qmc_args(n, d, q, m)
         check(ops.qmc_box_reduce(*args)[0].shape == (q,), f"qmc_box_reduce q={q} shape")
         qmc_pair(args, f"qmc_box_reduce n={n} d={d} q={q} m={m}")
-    print(f"qmc_box_reduce: all {len(made) + len(calls_d['qmc_box_reduce'])} calls of paths D "
-          f"exact and D ({len(full)} estimates, {call_shape('qmc_box_reduce', full[0][0], {})} "
-          f"first, and {len(chunks)} CI chunks on exact) match plain, max |err| "
-          f"{out['qmc_box_reduce']:.3g}; m=4096 n=2048 q=32 within tolerance of float64; edge "
-          f"shapes n/m/q = 0 and 1, d=1/3/8 match plain")
+    # the split launch at edge shapes: m below one density block's 512 nodes,
+    # n not a multiple of a chunk, a split tail, d = 1..8, 0 and 16 splits
+    for n, d, q, m, sp in [(4100, 1, 70, 300, 8), (32_768 + 7, 1, 256, 4096, 8),
+                           (999, 2, 5, 33, 16), (3000, 5, 9, 1000, 0), (8, 2, 3, 17, 8)] + \
+            [(700 + d, d, 17, 777, 3) for d in range(1, 9)]:
+        args = qmc_args(n, d, q, m) + (sp,)
+        check(ops.qmc_box_reduce_split(*args)[0].shape == (sp + 1, q),
+              f"qmc_box_reduce_split splits={sp} shape")
+        qmc_pair(args, f"qmc_box_reduce_split n={n} d={d} q={q} m={m} splits={sp}")
+    print(f"qmc_box_reduce: all {len(made)} calls of paths D exact and D "
+          f"({call_shape('qmc_box_reduce_split', made[0][0], {})} first) match plain on "
+          f"every row (the whole sample and each CI chunk), max |err| "
+          f"{out['qmc_box_reduce']:.3g}; two launches give the same bits; m=4096 n=2048 q=32 "
+          f"within tolerance of float64; edge shapes n/m/q = 0 and 1, d=1..8, m < 512, "
+          f"split tails, 0 and 16 splits match plain")
 
     def rff_pair(args, what):
         return held(ops.rff_density(*args).cpu(), ref.rff_density(*args).cpu(),
@@ -1289,13 +1377,20 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
       gh_fused_sum: d subs, the quadratic form as in sv_matrix, the exp2,
         two FMAs per pair: (d^2 + 3d + 4) / 1 (the kernel issues one FMA
         more: its sum of d products starts from 0);
-      aqp_grouped_sums: 14 / (2 erfc + 1 rcp) per (row, axis), 15 / 2 erfc
-        per (row, category) and 11 / 2 exp more when the target is the
-        group axis;
-      qmc_box_reduce: d subs, the quadratic form (d + 1 sums of d products:
-        d + 1 multiplies, d^2 - 1 FMAs), the scaled exponent's FMA, exp, add
-        per (node, row): (2d^2 + 2d + 3) / 1, and 2d compares, an add and an
-        FMA per (box, node) / none;
+      aqp_grouped_moments (F families over W window tables in one call):
+        per (row, window of a table) the Phi difference, 11 / 2 erfc (z_a,
+        z_b: sub, mul each; the tail select's add, 2 mul, 2 erfc, sub, mul),
+        and 11 / 2 exp more for its first moment where a family with the
+        group axis as target uses the table; per (row, family, kept axis)
+        the same 11 / 2 erfc and the product's mul; per (row, family) with
+        the target on a kept axis its first moment, 11 / 2 exp; per (row,
+        family, category) 10 (two products, two adds, three FMAs for the
+        squares and the cross product: 7 instructions);
+      qmc_box_reduce_split (K row chunks): d subs, the quadratic form (d
+        sums of d products, d multiplies and d^2 - d FMAs, then the sum of
+        the d products with log_norm, d FMAs), exp, add per (node, row):
+        (2d^2 + 2d + 2) / 1, and per (box, node) 2d compares and an add and
+        an FMA for each of the K + 1 rows: 2d + 3(K + 1) / none;
       rff_density: the projection (a mul and d - 1 FMAs), the phase add,
         cos and an FMA per (point, feature): 2d + 3 / none;
       kde_eval: d subs, the sum of d squares (a multiply, d - 1 FMAs), the
@@ -1332,25 +1427,33 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         nbytes = 4 * n * d + 4 * d * d + 8 + 4
         pairs = n * (n - 1) // 2
         ops, mufu = (d * d + 3 * d + 4) * pairs, pairs
-    elif name == "aqp_grouped_sums":
-        (n, d), G = args[0].shape, args[4].shape[0]
-        nbytes = 4 * n * d + 12 * d + 8 * G + 8 * G
-        group_tgt = args[7] == args[6]
-        ops = 14 * n * d + (26 if group_tgt else 15) * n * G
-        mufu = (2 * MUFU_ERFC + 1) * n * d + (2 * MUFU_ERFC + (2 if group_tgt else 0)) * n * G
-    elif name == "qmc_box_reduce":
-        (m, d), n, q = args[0].shape, args[1].shape[0], args[4].shape[0]
-        nbytes = 4 * (m * d + n * d + d * d + 1 + 2 * q * d + q) + 8 * q
-        ops = (2 * d * d + 2 * d + 3) * m * n + (2 * d + 3) * q * m
+    elif name == "aqp_grouped_moments":
+        x, _h, lo, _hi, wlo, _whi, win, g_axes, tgts = args
+        (n, d), F, (W, G) = x.shape, lo.shape[0], wlo.shape
+        nbytes = 4 * n * d + 4 * d + 8 * F * d + 8 * W * G + 20 * F * G
+        fams = list(zip(win, g_axes, tgts))
+        tables = {(w, g) for w, g, _ in fams}
+        self_tables = {(w, g) for w, g, t in fams if g == t}
+        kept_tgt = sum(g != t for _, g, t in fams)
+        ops = (n * G * (11 * len(tables) + 11 * len(self_tables))
+               + n * F * (d - 1) * 12 + n * kept_tgt * 11 + n * F * G * 10)
+        mufu = (n * G * (2 * MUFU_ERFC * len(tables) + 2 * len(self_tables))
+                + n * F * (d - 1) * 2 * MUFU_ERFC + n * kept_tgt * 2)
+    elif name == "qmc_box_reduce_split":
+        (m, d), n, q, k = args[0].shape, args[1].shape[0], args[4].shape[0], args[7]
+        nbytes = 4 * (m * d + n * d + d * d + 1 + 2 * q * d + q) + 8 * q * (k + 1)
+        ops = (2 * d * d + 2 * d + 2) * m * n + (2 * d + 3 * (k + 1)) * q * m
         mufu = m * n
     elif name == "rff_density":
         (m, d), nf = args[0].shape, args[1].shape[0]
         nbytes = 4 * (m * d + nf * d + 2 * nf) + 4 * m
         ops = (2 * d + 3) * m * nf
-    else:                                    # kde_eval
+    elif name == "kde_eval":
         (m, d), n = args[0].shape, args[1].shape[0]
         nbytes = 4 * (m * d + n * d + 1) + 4 * m
         ops, mufu = (3 * d + 2) * m * n, m * n
+    else:
+        raise KeyError(f"bound_ms: no count of {name}'s work")
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_FP32 * 1e3
     if t_ops >= t_bytes:
@@ -1370,9 +1473,9 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def timings(torch, rt, first, main_calls, calls_a, calls_d):
+def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx):
     """Kernel and plain version on the inputs of each kernel's first call
-    on its path (`first`: name -> (args, kwargs)), in the order plain,
+    on its path (`first`: name -> (wrapper, args, kwargs)), in the order plain,
     kernel, kernel, plain, with the SM clock read just after the kernel's
     windows for its SFU floor.  lscv_grid_sums is timed as its grid phase
     alone, over the S that sv_matrix makes from those inputs.  A plain
@@ -1383,8 +1486,8 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d):
     poly_share = rt["lscv_grid"].POLY_SHARE
     out = {}
     for name in TPU_KERNELS:
-        args, kw = first[name]
-        note = ""
+        wrapper, args, kw = first[name]
+        note = "" if wrapper == name else f", {wrapper}"
         if name == "lscv_grid_sums":
             x, m, hg, c_k, c_kk = args
             s_mat = ops.sv_matrix(x, m)
@@ -1397,10 +1500,10 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d):
             note = ", grid phase alone over its S"
         else:
             def kern():
-                return getattr(ops, name)(*args, **kw)
+                return getattr(ops, wrapper)(*args, **kw)
 
             def plain():
-                return getattr(ref, name)(*args, **({} if name == "sv_matrix" else kw))
+                return getattr(ref, wrapper)(*args, **({} if name == "sv_matrix" else kw))
         probe = time_ms(torch, plain, reps=1, warm=0)
         reps, warm = (2, 0) if probe > 1000 else ((5, 1) if probe > 100 else (15, 3))
         p1 = time_ms(torch, plain, reps=reps, warm=warm)
@@ -1409,11 +1512,11 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d):
         mhz = sm_clock_mhz()
         p2 = time_ms(torch, plain, reps=reps, warm=warm)
         s_mat = None
-        b, by, mufu = bound_ms(name, args, kw, poly_share)
+        b, by, mufu = bound_ms(wrapper, args, kw, poly_share)
         sfu = sfu_floor_ms(mufu, mhz)
         out[name] = (min(k1, k2), min(p1, p2), b, by, sfu, mhz)
         which = "largest" if name == "rff_density" else "first"
-        print(f"time {name} ({call_shape(name, args, kw)}, the {which} call on path "
+        print(f"time {name} ({call_shape(wrapper, args, kw)}, the {which} call on path "
               f"{KERNEL_PATH[name]}{note}): kernel {k1:.4f} / {k2:.4f} ms (median of 15), "
               f"plain {p1:.4f} / {p2:.4f} ms (median of {reps}), bound {b:.4f} ms ({by}), "
               f"SFU floor {sfu:.4f} ms ({mufu} MUFU at {mhz:.0f} MHz); no single PyTorch "
@@ -1441,6 +1544,17 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d):
     print(f"time gh_fused_sum second shape ({call_shape('gh_fused_sum', args, kw)}, the first "
           f"1-D call on path D): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
           f"bound {b:.4f} ms ({by}), SFU floor {sfu_floor_ms(mufu, mhz):.4f} ms at {mhz:.0f} MHz")
+    args, kw = next(c for c in calls_dx["qmc_box_reduce_split"] if c[0][1].shape[1] == 3)
+    p1 = time_ms(torch, lambda: ref.qmc_box_reduce_split(*args, **kw), reps=5, warm=1)
+    k1 = time_ms(torch, lambda: ops.qmc_box_reduce_split(*args, **kw))
+    k2 = time_ms(torch, lambda: ops.qmc_box_reduce_split(*args, **kw))
+    mhz = sm_clock_mhz()
+    p2 = time_ms(torch, lambda: ref.qmc_box_reduce_split(*args, **kw), reps=5, warm=1)
+    b, by, mufu = bound_ms("qmc_box_reduce_split", args, kw)
+    print(f"time qmc_box_reduce second shape ({call_shape('qmc_box_reduce_split', args, kw)}, "
+          f"the joint's call on path D exact): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+          f"{p2:.4f} ms (median of 5), bound {b:.4f} ms ({by}), SFU floor "
+          f"{sfu_floor_ms(mufu, mhz):.4f} ms at {mhz:.0f} MHz")
     return out
 
 
@@ -1485,10 +1599,14 @@ def main() -> int:
     print(f"phases through the plain-version checks: {time.perf_counter() - t_start:.1f} s")
     paths = {"plugin": calls_main, "A": calls_a, "B": calls_b, "C": calls_c, "D": calls_d,
              "D exact": calls_dx, "E": calls_e}
-    first = {name: paths[KERNEL_PATH[name]][name][0] for name in TPU_KERNELS}
-    first["rff_density"] = max(calls_d["rff_density"],
-                               key=lambda c: c[0][0].shape[0] * c[0][1].shape[0])
-    times = timings(torch, rt, first, calls_main, calls_a, calls_d)
+    first = {}
+    for name in TPU_KERNELS:
+        made = paths[KERNEL_PATH[name]]
+        wrapper = next(w for w in WRAPPERS[name] if made[w])
+        first[name] = (wrapper,) + made[wrapper][0]
+    first["rff_density"] = ("rff_density",) + max(
+        calls_d["rff_density"], key=lambda c: c[0][0].shape[0] * c[0][1].shape[0])
+    times = timings(torch, rt, first, calls_main, calls_a, calls_d, calls_dx)
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         k_ms, p_ms, b_ms, by, sfu, mhz = times[name]

@@ -11,9 +11,14 @@ estimate passes (as in the reference: neither is a kernel there).
 qmc: no closed form under a full bandwidth matrix; the CI comes from
 subsample (batch-means) variance over K equal chunks of the retained
 sample, each answered on the node set planned for the full sample, with a
-Student-t quantile (K - 1 dof).  On the "cuda" backend each chunk's pass is
-the qmc_reduce kernel on that chunk (the estimate's function on a
-subsample), so the path runs no plain version of a kernel on the card.
+Student-t quantile (K - 1 dof).  On the "cuda" backend the chunks are row
+splits of the estimate's own launch of the qmc_reduce kernel
+(`qmc_answers_and_se`), so the path runs one kernel launch per group and
+no plain version of a kernel on the card.
+
+GROUP BY families on the "cuda" backend take their five moment sums from
+the aqp_grouped kernel's launch (`aqp_multid.grouped_family_moments`) and
+run no moment pass here.
 
 Quantiles are closed-form approximations (Acklam's inverse normal CDF,
 a Cornish-Fisher expansion for Student-t), accurate to ~1e-4 in the
@@ -27,10 +32,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import DTYPE
+
 from . import gaussian as G
 from .aqp import AVG_MIN_COUNT, OP_COUNT, OP_SUM, Q_CHUNK
-from .aqp_multid import (_estimates64, _host64, _qmc_kernel_terms, _qmc_plan,
-                         _qmc_shared_terms, _QmcInputs)
+from .aqp_multid import (_estimates64, _host64, _qmc_kernel_split_terms,
+                         _qmc_plan, _qmc_shared_terms, _QmcInputs, _select)
 
 DEFAULT_CI_LEVEL = 0.95
 
@@ -178,6 +185,38 @@ def se_from_moments(ops: np.ndarray, moments, scale: float,
 
 # --- subsample (batch-means) CI for the quasi-MC path -----------------------
 
+def qmc_answers_and_se(x: torch.Tensor, H: torch.Tensor, lo: np.ndarray,
+                       hi: np.ndarray, tgt: np.ndarray, ops: np.ndarray,
+                       scale: float, n_source: int, n_qmc: int,
+                       k_sub: int = QMC_SUBSAMPLES
+                       ) -> Tuple[torch.Tensor, np.ndarray, int]:
+    """(answers, per-query SE, t dof) of a full-H group on the qmc_reduce
+    kernel: ONE plan and ONE launch give the estimate (the whole sample, as
+    `batch_query_qmc`) and the K batch-means replicates of
+    `qmc_subsample_se` (the sample's K equal row chunks over the same
+    nodes), read back in one device-to-host copy.  The answers are a (q,)
+    float32 tensor on the host."""
+    q = np.asarray(lo).shape[0]
+    m = x.shape[0]
+    k = min(k_sub, m // 2)
+    plan = _qmc_plan(_host64(x), _host64(H), lo, hi, n_qmc)
+    if plan is None:                  # zero-measure boxes: estimate is 0
+        se = np.full((q,), np.inf) if k < 2 else np.zeros((q,), np.float64)
+        return torch.zeros((q,), dtype=DTYPE), se, max(k - 1, 1)
+    inp = _QmcInputs(plan, tgt, x.shape[1], x.device)
+    splits = k if k >= 2 else 0
+    cnt_raw, sum_raw = _qmc_kernel_split_terms(x, H, inp, splits)
+    cnt_raw, sum_raw = torch.stack([cnt_raw, sum_raw]).cpu()
+    ans = _select(ops, scale * cnt_raw[0], scale * sum_raw[0])
+    if splits == 0:
+        return ans, np.full((q,), np.inf), 1
+    ops = np.asarray(ops)
+    scale_k = n_source / (m // k)
+    e = np.stack([_estimates64(ops, scale_k, cnt_raw[1 + j], sum_raw[1 + j])
+                  for j in range(k)])
+    return ans, e.std(axis=0, ddof=1) / math.sqrt(k), k - 1
+
+
 def qmc_subsample_se(x: torch.Tensor, H: torch.Tensor, lo: np.ndarray,
                      hi: np.ndarray, tgt: np.ndarray, ops: np.ndarray,
                      n_source: int, n_qmc: int, k_sub: int = QMC_SUBSAMPLES,
@@ -187,24 +226,29 @@ def qmc_subsample_se(x: torch.Tensor, H: torch.Tensor, lo: np.ndarray,
     independent uniform subsamples).  All chunks reduce over the node set
     planned for the full sample, so the quasi-MC integration error is
     common-mode and the spread isolates sampling variance.  backend="cuda"
-    answers each chunk in the qmc_reduce kernel, "torch" on the plain
-    density pass."""
+    reads the chunks from one split launch of the qmc_reduce kernel
+    (`qmc_answers_and_se`), "torch" answers each on the plain density
+    pass."""
     q = np.asarray(lo).shape[0]
     m = x.shape[0]
     k = min(k_sub, m // 2)
     if k < 2:
         return np.full((q,), np.inf), 1
+    if backend == "cuda":
+        _, se, dof = qmc_answers_and_se(x, H, lo, hi, tgt, ops, 1.0, n_source,
+                                        n_qmc, k_sub)
+        return se, dof
     plan = _qmc_plan(_host64(x), _host64(H), lo, hi, n_qmc)
     if plan is None:                  # zero-measure boxes: estimate is 0
         return np.zeros((q,), np.float64), k - 1
     inp = _QmcInputs(plan, tgt, x.shape[1], x.device)
-    terms = _qmc_kernel_terms if backend == "cuda" else _qmc_shared_terms
     ops = np.asarray(ops)
     chunk = m // k
     scale_k = n_source / chunk
     ests = []
     for j in range(k):
-        cnt_raw, sum_raw = terms(x[j * chunk:(j + 1) * chunk].contiguous(), H, inp)
+        cnt_raw, sum_raw = _qmc_shared_terms(x[j * chunk:(j + 1) * chunk].contiguous(),
+                                             H, inp)
         ests.append(_estimates64(ops, scale_k, cnt_raw, sum_raw))
     e = np.stack(ests)
     return e.std(axis=0, ddof=1) / math.sqrt(k), k - 1

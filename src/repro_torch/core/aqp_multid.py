@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +78,46 @@ def batch_query_box_grouped(x: torch.Tensor, h_diag: torch.Tensor, lo, hi,
     if op == OP_SUM:
         return sums
     return _avg_or_zero(counts, sums)
+
+
+def grouped_family_moments(x: torch.Tensor, h_diag: torch.Tensor, boxes,
+                           windows, g_axis: Sequence[int],
+                           tgt: Sequence[int]) -> torch.Tensor:
+    """The five moment sums (sum c, sum s, sum c^2, sum s^2, sum c s) of F
+    GROUP BY families of one diagonal-bandwidth synopsis, as a (F, 5, Gmax)
+    float32 tensor on the host: family f answers its categories' COUNT / SUM
+    from the first two and its CI from all five.  boxes: F (lo, hi) shared
+    boxes of d floats; windows: F (glo, ghi) category windows on the group
+    axis (Gmax the most categories; shorter tables are padded with
+    zero-width windows).  The families' boxes and window tables (equal
+    tables once) go to the device in one copy, all families run in one
+    launch of the aqp_grouped kernel (its plain version for a sample on the
+    CPU), and the sums come back in one copy."""
+    from repro_torch.kernels import ops as kops
+    n_fam, d = len(boxes), x.shape[1]
+    gmax = max(len(glo) for glo, _ in windows)
+    tables: Dict[bytes, int] = {}
+    rows, win = [], []
+    for glo, ghi in windows:
+        row = np.zeros((2, gmax), np.float32)
+        row[0, :len(glo)] = glo
+        row[1, :len(ghi)] = ghi
+        idx = tables.setdefault(row.tobytes(), len(tables))
+        if idx == len(rows):
+            rows.append(row)
+        win.append(idx)
+    tab = np.stack(rows)                                          # (W, 2, Gmax)
+    lo = np.asarray([b[0] for b in boxes], np.float32).reshape(n_fam, d)
+    hi = np.asarray([b[1] for b in boxes], np.float32).reshape(n_fam, d)
+    buf = torch.as_tensor(np.concatenate([lo.ravel(), hi.ravel(),
+                                          tab[:, 0].ravel(), tab[:, 1].ravel()]),
+                          device=x.device)
+    nb, nw = n_fam * d, len(rows) * gmax
+    five = kops.aqp_grouped_moments(
+        x, h_diag, buf[:nb].view(n_fam, d), buf[nb:2 * nb].view(n_fam, d),
+        buf[2 * nb:2 * nb + nw].view(-1, gmax), buf[2 * nb + nw:].view(-1, gmax),
+        win, g_axis, tgt)
+    return five.cpu()
 
 
 # --- batched quasi-MC (full-H groups) ----------------------------------------
@@ -179,17 +219,27 @@ def _qmc_shared_terms(x: torch.Tensor, H: torch.Tensor, inp: _QmcInputs):
                                 inp.chi, inp.tgt, x.shape[0])
 
 
-def _qmc_kernel_terms(x: torch.Tensor, H: torch.Tensor, inp: _QmcInputs):
-    """The same terms from the qmc_reduce kernel: its raw double sums times
-    vol(G) / m (the sample size cancels)."""
+def _qmc_kernel_split_terms(x: torch.Tensor, H, inp: _QmcInputs, splits: int):
+    """`_qmc_kernel_terms` for the whole sample (row 0) and for `splits`
+    equal row chunks x[j c:(j + 1) c], c = m // splits (rows 1..splits), in
+    ONE launch of the qmc_reduce kernel: (count_raw, sum_raw), each
+    (splits + 1, q) on x's device."""
     from repro_torch.kernels import ops as kops
     d = x.shape[1]
     Hf = torch.as_tensor(H, dtype=DTYPE, device=x.device)
     h_inv = torch.linalg.inv(Hf).contiguous()   # cuSOLVER returns it column-major
     log_norm = -0.5 * d * math.log(2.0 * math.pi) - 0.5 * torch.linalg.slogdet(Hf)[1]
-    cnt_sums, sum_sums = kops.qmc_box_reduce(inp.nodes, x, h_inv, log_norm,
-                                             inp.clo, inp.chi, inp.tgt)
+    cnt_sums, sum_sums = kops.qmc_box_reduce_split(inp.nodes, x, h_inv, log_norm,
+                                                   inp.clo, inp.chi, inp.tgt,
+                                                   splits)
     return inp.factor * cnt_sums, inp.factor * sum_sums
+
+
+def _qmc_kernel_terms(x: torch.Tensor, H: torch.Tensor, inp: _QmcInputs):
+    """The same terms from the qmc_reduce kernel: its raw double sums times
+    vol(G) / m (the sample size cancels)."""
+    cnt_raw, sum_raw = _qmc_kernel_split_terms(x, H, inp, 0)
+    return cnt_raw[0], sum_raw[0]
 
 
 def _select(ops, counts, sums):

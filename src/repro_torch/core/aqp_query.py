@@ -52,12 +52,14 @@ import torch
 
 from repro_torch.device import resolve_backend
 
-from .aqp import (OP_CODES, OP_COUNT, OP_SUM, KDESynopsis, batch_query_1d,
-                  canonical_selector)
+from .aqp import (OP_CODES, OP_COUNT, OP_SUM, KDESynopsis, _select_op,
+                  batch_query_1d, canonical_selector)
 from .aqp_ci import (DEFAULT_CI_LEVEL, moments_1d, moments_box, norm_ppf,
-                     qmc_subsample_se, se_from_moments, t_ppf)
+                     qmc_answers_and_se, qmc_subsample_se, se_from_moments,
+                     t_ppf)
 from .aqp_multid import (batch_query_box, batch_query_box_grouped,
-                         batch_query_qmc, batch_query_qmc_rff, qmc_rff_se)
+                         batch_query_qmc, batch_query_qmc_rff,
+                         grouped_family_moments, qmc_rff_se)
 from .kde import kde_eval_H
 
 ColumnKey = Union[None, str, Tuple[str, ...]]
@@ -597,7 +599,9 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
     """Answer one resolved group in batched passes; returns one
     (estimate, path label, ci_lo, ci_hi, n_effective) per entry, in entry
     order.  The CI comes from a separate pass (moments, or batch-means on
-    the full-H paths).
+    the full-H paths), except on the "cuda" backend, where a full-H group's
+    batch-means chunks and the GROUP BY families' moment sums come from
+    the estimate's own launch.
 
     GROUP BY families — entries expanded from one query that differ only on
     the group column's code window — are peeled off onto the factored
@@ -673,10 +677,15 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
         ops_np, lo, hi, tgt = padded(rest, _pad_count(n))
         if plan.kind == "qmc":
             path = "qmc" + suffix
-            ans = batch_query_qmc(x, syn.H, lo, hi, tgt, ops_np, plan.scale,
-                                  n_qmc=n_qmc, backend=backend)
-            se, dof = qmc_subsample_se(x, syn.H, lo, hi, tgt, ops_np,
-                                       syn.n_source, n_qmc, backend=backend)
+            if backend == "cuda":
+                # one plan and one launch: the estimate and its K CI chunks
+                ans, se, dof = qmc_answers_and_se(x, syn.H, lo, hi, tgt, ops_np,
+                                                  plan.scale, syn.n_source, n_qmc)
+            else:
+                ans = batch_query_qmc(x, syn.H, lo, hi, tgt, ops_np, plan.scale,
+                                      n_qmc=n_qmc, backend=backend)
+                se, dof = qmc_subsample_se(x, syn.H, lo, hi, tgt, ops_np,
+                                           syn.n_source, n_qmc, backend=backend)
             q_ci = t_ppf(p, dof)
         elif plan.kind == "range1d":
             a, b = on_dev(lo[:, 0]), on_dev(hi[:, 0])
@@ -709,21 +718,38 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
                              n_qmc)
         emit(rff_entries, ans[:n], se[:n], t_ppf(p, dof), "qmc:rff")
 
-    for fam in families:
-        g_axis = fam[0].group_axis
-        gm = _pad_count(len(fam))
-        glo = _pad_rows(np.asarray([c.lo[g_axis] for c in fam], np.float32), gm)
-        ghi = _pad_rows(np.asarray([c.hi[g_axis] for c in fam], np.float32), gm)
-        h_diag = syn.h_diag()
-        ans = batch_query_box_grouped(x, h_diag, fam[0].lo, fam[0].hi, glo, ghi,
-                                      g_axis=g_axis, tgt=fam[0].tgt, op=fam[0].op,
-                                      scale=plan.scale, backend=backend)
-        # the family's moments run on the per-entry full boxes (each entry's
-        # box carries its group window from _compile)
-        _, flo, fhi, ftgt = padded(fam, gm)
-        mom = moments_box(x, h_diag, on_dev(flo), on_dev(fhi), on_dev(ftgt, np.int32))
-        se = se_from_moments(np.full(gm, fam[0].op, np.int32), mom, plan.scale, n_eff)
-        emit(fam, ans[:len(fam)], se[:len(fam)], norm_ppf(p), "box:grouped" + suffix)
+    if families and backend == "cuda":
+        # every family in one launch of the aqp_grouped kernel, whose five
+        # moment sums give each category's estimate and CI (no moment pass)
+        g_axes = [fam[0].group_axis for fam in families]
+        five = grouped_family_moments(
+            x, syn.h_diag(), [(fam[0].lo, fam[0].hi) for fam in families],
+            [([c.lo[g] for c in fam], [c.hi[g] for c in fam])
+             for fam, g in zip(families, g_axes)],
+            g_axes, [fam[0].tgt for fam in families])
+        fam_ops = np.asarray([fam[0].op for fam in families], np.int32)[:, None]
+        ans = _select_op(torch.as_tensor(fam_ops), plan.scale * five[:, 0],
+                         plan.scale * five[:, 1])
+        se = se_from_moments(np.broadcast_to(fam_ops, ans.shape), five.unbind(1),
+                             plan.scale, n_eff)
+        for fam, a, s in zip(families, ans, se):
+            emit(fam, a[:len(fam)], s[:len(fam)], norm_ppf(p), "box:grouped" + suffix)
+    else:
+        for fam in families:
+            g_axis = fam[0].group_axis
+            gm = _pad_count(len(fam))
+            glo = _pad_rows(np.asarray([c.lo[g_axis] for c in fam], np.float32), gm)
+            ghi = _pad_rows(np.asarray([c.hi[g_axis] for c in fam], np.float32), gm)
+            h_diag = syn.h_diag()
+            ans = batch_query_box_grouped(x, h_diag, fam[0].lo, fam[0].hi, glo, ghi,
+                                          g_axis=g_axis, tgt=fam[0].tgt, op=fam[0].op,
+                                          scale=plan.scale, backend=backend)
+            # the family's moments run on the per-entry full boxes (each entry's
+            # box carries its group window from _compile)
+            _, flo, fhi, ftgt = padded(fam, gm)
+            mom = moments_box(x, h_diag, on_dev(flo), on_dev(fhi), on_dev(ftgt, np.int32))
+            se = se_from_moments(np.full(gm, fam[0].op, np.int32), mom, plan.scale, n_eff)
+            emit(fam, ans[:len(fam)], se[:len(fam)], norm_ppf(p), "box:grouped" + suffix)
 
     return [out[id(c)] for c in entries]
 

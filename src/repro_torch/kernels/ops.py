@@ -88,11 +88,31 @@ def aqp_grouped_sums(x, h_diag, lo, hi, glo, ghi, g_axis, tgt):
                                  tile=_agr.TILE)
 
 
+def aqp_grouped_moments(x, h_diag, lo, hi, wlo, whi, win, g_axis, tgt):
+    """The five moment sums (F, 5, Gmax) of F GROUP BY families in one
+    launch of the aqp_grouped kernel; win / g_axis / tgt are host ints."""
+    if x.device.type == "cpu":
+        return ref.aqp_grouped_moments(x, h_diag, lo, hi, wlo, whi, win, g_axis,
+                                       tgt)
+    return _agr.aqp_grouped_moments(x, h_diag, lo, hi, wlo, whi, win, g_axis,
+                                    tgt, tile=_agr.TILE)
+
+
 def qmc_box_reduce(nodes, x, h_inv, log_norm, lo, hi, tgt):
     if x.device.type == "cpu":
         return ref.qmc_box_reduce(nodes, x, h_inv, log_norm, lo, hi, tgt)
     return _qmc.qmc_box_reduce(nodes, x, h_inv, log_norm, lo, hi, tgt,
                                tile=_qmc.TILE, m_tile=_qmc.M_TILE)
+
+
+def qmc_box_reduce_split(nodes, x, h_inv, log_norm, lo, hi, tgt, splits):
+    """`qmc_box_reduce` over the whole sample and over `splits` equal row
+    chunks in one launch: (cnt_sums, sum_sums), each (splits + 1, q)."""
+    if x.device.type == "cpu":
+        return ref.qmc_box_reduce_split(nodes, x, h_inv, log_norm, lo, hi, tgt,
+                                        splits)
+    return _qmc.qmc_box_reduce_split(nodes, x, h_inv, log_norm, lo, hi, tgt,
+                                     splits, tile=_qmc.TILE, m_tile=_qmc.M_TILE)
 
 
 def rff_density(points, w, b, z):

@@ -171,15 +171,13 @@ def lscv_grid_sums_from_s(s_mat: torch.Tensor, h_grid: torch.Tensor, c_k,
 
 # --- GROUP BY, full-H and scalar-h density evaluation -------------------------
 
-def aqp_grouped_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
-                     hi: torch.Tensor, glo: torch.Tensor, ghi: torch.Tensor,
-                     g_axis: int, tgt: int):
-    """Unscaled factored GROUP BY integrals (eq. 11): the shared-axes
-    product crossed with G per-category windows on axis `g_axis`.  x: (n,d),
-    h_diag/lo/hi: (d,) (the group axis's lo/hi ignored), glo/ghi: (G,) ->
-    (count_raw, sum_raw), each (G,).  The first-moment factor sits on the
-    shared product when the target is a kept axis, on the group factor when
-    it is the group axis."""
+def _grouped_terms(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                   hi: torch.Tensor, glo: torch.Tensor, ghi: torch.Tensor,
+                   g_axis: int, tgt: int):
+    """Per-row terms (c, s), each (n, G), of one GROUP BY family: c =
+    shared_cnt * gPhi, and s with the first-moment factor on the shared
+    product when the target is a kept axis, on the group factor when it is
+    the group axis."""
     inv_h = 1.0 / h_diag
     za = (lo - x) * inv_h                                     # (n, d)
     zb = (hi - x) * inv_h
@@ -192,14 +190,49 @@ def aqp_grouped_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     gza = (glo[None, :] - xg[:, None]) * (1.0 / hg)           # (n, G)
     gzb = (ghi[None, :] - xg[:, None]) * (1.0 / hg)
     g_Phi = G.phi_diff(gza, gzb)
-    cnt = torch.sum(shared_cnt[:, None] * g_Phi, dim=0)
+    c = shared_cnt[:, None] * g_Phi
     if tgt == g_axis:
         g_moment = xg[:, None] * g_Phi - hg * G.dens_diff(gza, gzb)
-        return cnt, torch.sum(shared_cnt[:, None] * g_moment, dim=0)
+        return c, shared_cnt[:, None] * g_moment
     moment = x * d_Phi - h_diag * G.dens_diff(za, zb)
     factors = torch.where(axis == tgt, moment, d_Phi)
     shared_sm = torch.prod(torch.where(keep, factors, 1.0), dim=1)
-    return cnt, torch.sum(shared_sm[:, None] * g_Phi, dim=0)
+    return c, shared_sm[:, None] * g_Phi
+
+
+def aqp_grouped_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                     hi: torch.Tensor, glo: torch.Tensor, ghi: torch.Tensor,
+                     g_axis: int, tgt: int):
+    """Unscaled factored GROUP BY integrals (eq. 11): the shared-axes
+    product crossed with G per-category windows on axis `g_axis`.  x: (n,d),
+    h_diag/lo/hi: (d,) (the group axis's lo/hi ignored), glo/ghi: (G,) ->
+    (count_raw, sum_raw), each (G,).  The first-moment factor sits on the
+    shared product when the target is a kept axis, on the group factor when
+    it is the group axis."""
+    c, s = _grouped_terms(x, h_diag, lo, hi, glo, ghi, g_axis, tgt)
+    return torch.sum(c, dim=0), torch.sum(s, dim=0)
+
+
+def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                        hi: torch.Tensor, wlo: torch.Tensor, whi: torch.Tensor,
+                        win, g_axis, tgt) -> torch.Tensor:
+    """The five moment sums of F GROUP BY families: (F, 5, Gmax) with
+    (sum c, sum s, sum c^2, sum s^2, sum c s) over the rows per (family,
+    category), c and s the per-row terms of `aqp_grouped_sums`.  x: (n,d),
+    h_diag: (d,), lo/hi: (F, d), wlo/whi: (W, Gmax) window tables; win,
+    g_axis, tgt: F ints (family f's table, group axis, target axis)."""
+    lo = torch.as_tensor(lo, device=x.device)
+    hi = torch.as_tensor(hi, device=x.device)
+    wlo = torch.as_tensor(wlo, device=x.device)
+    whi = torch.as_tensor(whi, device=x.device)
+    out = torch.zeros((lo.shape[0], 5, wlo.shape[1]), dtype=x.dtype, device=x.device)
+    for f, (w, g, t) in enumerate(zip(win, g_axis, tgt)):
+        c, s = _grouped_terms(x, h_diag, lo[f], hi[f], wlo[int(w)], whi[int(w)],
+                              int(g), int(t))
+        out[f] = torch.stack([torch.sum(c, dim=0), torch.sum(s, dim=0),
+                              torch.sum(c * c, dim=0), torch.sum(s * s, dim=0),
+                              torch.sum(c * s, dim=0)])
+    return out
 
 
 def _node_densities(nodes: torch.Tensor, x: torch.Tensor, h_inv: torch.Tensor,
@@ -224,6 +257,24 @@ def inside_boxes(nodes: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
                      dim=2)
 
 
+def _box_density_sums(nodes: torch.Tensor, f: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor, tgt: torch.Tensor):
+    """For densities f: (S, m) at the nodes, the per-box sums over the nodes
+    inside each box of f and of f times the node's target coordinate:
+    (cnt_sums, sum_sums), each (S, q)."""
+    cnt, sm = [], []
+    for start in range(0, lo.shape[0], QUERY_SLAB):
+        w = inside_boxes(nodes, lo[start:start + QUERY_SLAB],
+                         hi[start:start + QUERY_SLAB])[None] * f[:, None, :]
+        tvals = nodes.T[tgt[start:start + QUERY_SLAB].long()]      # (qs, m)
+        cnt.append(torch.sum(w, dim=2))
+        sm.append(torch.sum(w * tvals[None], dim=2))
+    if not cnt:
+        z = torch.zeros((f.shape[0], 0), dtype=f.dtype, device=f.device)
+        return z, z.clone()
+    return torch.cat(cnt, dim=1), torch.cat(sm, dim=1)
+
+
 def qmc_box_reduce(nodes: torch.Tensor, x: torch.Tensor, h_inv: torch.Tensor,
                    log_norm, lo: torch.Tensor, hi: torch.Tensor,
                    tgt: torch.Tensor):
@@ -233,17 +284,29 @@ def qmc_box_reduce(nodes: torch.Tensor, x: torch.Tensor, h_inv: torch.Tensor,
     node's target coordinate.  nodes: (m,d), x: (n,d), h_inv: (d,d),
     lo/hi: (q,d), tgt: (q,) -> (cnt_sums, sum_sums)."""
     f = _node_densities(nodes, x, h_inv, log_norm)
-    cnt, sm = [], []
-    for start in range(0, lo.shape[0], QUERY_SLAB):
-        w = inside_boxes(nodes, lo[start:start + QUERY_SLAB],
-                    hi[start:start + QUERY_SLAB]) * f[None, :]
-        tvals = nodes.T[tgt[start:start + QUERY_SLAB].long()]      # (qs, m)
-        cnt.append(torch.sum(w, dim=1))
-        sm.append(torch.sum(w * tvals, dim=1))
-    if not cnt:
-        z = torch.zeros((0,), dtype=x.dtype, device=x.device)
-        return z, z.clone()
-    return torch.cat(cnt), torch.cat(sm)
+    cnt, sm = _box_density_sums(nodes, f[None], lo, hi, tgt)
+    return cnt[0], sm[0]
+
+
+def qmc_box_reduce_split(nodes: torch.Tensor, x: torch.Tensor,
+                         h_inv: torch.Tensor, log_norm, lo: torch.Tensor,
+                         hi: torch.Tensor, tgt: torch.Tensor, splits: int):
+    """`qmc_box_reduce` over the whole sample and over each of `splits`
+    row chunks x[j c:(j + 1) c], c = n // splits: (cnt_sums, sum_sums), each
+    (splits + 1, q), row 0 the whole sample (the chunks' densities plus the
+    tail's, in that order), row 1 + j chunk j."""
+    n = x.shape[0]
+    splits = int(splits)
+    if not 0 <= splits <= 16 or (n and splits > n):
+        raise ValueError(f"splits={splits} must lie in [0, min(16, n={n})]")
+    c = n // splits if splits else 0
+    fs = [_node_densities(nodes, x[j * c:(j + 1) * c], h_inv, log_norm)
+          for j in range(splits)]
+    full = torch.zeros((nodes.shape[0],), dtype=x.dtype, device=x.device)
+    for fj in fs:
+        full = full + fj
+    full = full + _node_densities(nodes, x[splits * c:], h_inv, log_norm)
+    return _box_density_sums(nodes, torch.stack([full] + fs), lo, hi, tgt)
 
 
 POINT_SLAB = 4096    # evaluation points per slab of the density passes

@@ -130,6 +130,36 @@ def test_qmc_box_reduce_plain_matches_reference_kernel(rng):
     np.testing.assert_allclose(got[1], np.asarray(want[1]), **QMC_TOL)
 
 
+@pytest.mark.parametrize("n,d,q,m,splits", [(200, 2, 9, 129, 8),    # n = 8 x 25: no tail
+                                             (203, 2, 9, 129, 8),    # a 3-row tail
+                                             (37, 1, 4, 50, 5),
+                                             (66, 3, 70, 64, 2),
+                                             (30, 2, 3, 33, 0)])     # no splits
+def test_qmc_box_reduce_split_plain_matches_reference_per_chunk(rng, n, d, q, m, splits):
+    """Row 0 is the reference's qmc_box_reduce over the whole sample, row
+    1 + j the reference's on row chunk j (c = n // splits rows each), and the
+    rows past the chunks enter row 0 only, at the reference's rtol 1e-5."""
+    args = _qmc_inputs(rng, n, d, q, m)
+    nodes, x, h_inv, log_norm, lo, hi, tgt = args
+    cnt, sm = ops.qmc_box_reduce_split(_t(nodes), _t(x), _t(h_inv), float(log_norm),
+                                       _t(lo), _t(hi), _t(tgt, torch.int32), splits)
+    assert cnt.shape == sm.shape == (splits + 1, q)
+    c = n // splits if splits else 0
+    chunks = [x] + [x[j * c:(j + 1) * c] for j in range(splits)]
+    for row, xs in enumerate(chunks):
+        want = jref.qmc_box_reduce(*[jnp.asarray(a) for a in (nodes, xs, h_inv, log_norm,
+                                                              lo, hi, tgt)])
+        np.testing.assert_allclose(_np(cnt[row]), np.asarray(want[0]), **QMC_TOL)
+        np.testing.assert_allclose(_np(sm[row]), np.asarray(want[1]), **QMC_TOL)
+    tail = jref.qmc_box_reduce(*[jnp.asarray(a) for a in (nodes, x[splits * c:], h_inv,
+                                                          log_norm, lo, hi, tgt)])
+    np.testing.assert_allclose(_np(cnt[0]), _np(cnt[1:].sum(0)) + np.asarray(tail[0]),
+                               **QMC_TOL)
+    with pytest.raises(ValueError):
+        ops.qmc_box_reduce_split(_t(nodes), _t(x[:3]), _t(h_inv), float(log_norm),
+                                 _t(lo), _t(hi), _t(tgt, torch.int32), 4)
+
+
 @pytest.mark.parametrize("n,q,m", [(0, 3, 4), (10, 0, 4), (10, 3, 0)])
 def test_qmc_box_reduce_empty_inputs_give_zeros(rng, n, q, m):
     args = _qmc_inputs(rng, n, 2, q, m)
@@ -289,6 +319,35 @@ def test_qmc_subsample_se_matches_reference(rng, backend):
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
     se, dof = aqp_ci.qmc_subsample_se(_t(x[:3]), _t(H), lo, hi, tgt, ops_, 5000, 256)
     assert dof == 1 and np.all(np.isinf(se))
+
+
+def test_qmc_answers_and_se_match_reference_estimate_and_ci(rng):
+    """The one-launch full-H answers and batch-means SE of the "cuda"
+    backend (the plain versions on the CPU) against the reference's
+    `batch_query_qmc` and `qmc_subsample_se`, and the per-chunk SE against
+    the port's own plain chunk passes."""
+    x = rng.normal(0, 1, (203, 2)).astype(np.float32)
+    H = _spd(rng, 2, ridge=0.2)
+    lo, hi, tgt, ops_ = _boxes(rng, x, 9)
+    ans, se, dof = aqp_ci.qmc_answers_and_se(_t(x), _t(H), lo, hi, tgt, ops_, 12.5,
+                                             5000, 256)
+    want = jmd.batch_query_qmc(jnp.asarray(x), jnp.asarray(H), lo, hi, tgt, ops_,
+                               jnp.float32(12.5), n_qmc=256)
+    np.testing.assert_allclose(_np(ans), np.asarray(want), rtol=1e-4, atol=1e-3)
+    want_se, wdof = jci.qmc_subsample_se(jnp.asarray(x), jnp.asarray(H), lo, hi, tgt,
+                                         ops_, 5000, 256)
+    assert dof == wdof == 7
+    np.testing.assert_allclose(se, want_se, rtol=1e-3, atol=1e-3)
+    plain, _ = aqp_ci.qmc_subsample_se(_t(x), _t(H), lo, hi, tgt, ops_, 5000, 256,
+                                       backend="torch")
+    np.testing.assert_allclose(se, plain, rtol=1e-4, atol=1e-6)
+    ans3, se3, dof3 = aqp_ci.qmc_answers_and_se(_t(x[:3]), _t(H), lo, hi, tgt, ops_,
+                                                12.5, 5000, 256)
+    assert dof3 == 1 and np.all(np.isinf(se3)) and np.all(np.isfinite(_np(ans3)))
+    flat = np.zeros((2, 2))
+    ans0, se0, dof0 = aqp_ci.qmc_answers_and_se(_t(x), _t(H), flat, flat, tgt[:2],
+                                                ops_[:2], 12.5, 5000, 256)
+    assert _np(ans0).tolist() == [0.0, 0.0] and se0.tolist() == [0.0, 0.0] and dof0 == 7
 
 
 # --- the RFF synopsis ---------------------------------------------------------------------
@@ -515,6 +574,42 @@ def test_exact_backend_matches_reference_on_the_same_H(rng):
     _assert_match(got, want, 1.0)
 
 
+def test_exact_pass_on_cuda_is_one_split_launch_per_group_and_matches_reference(
+        rng, monkeypatch):
+    """On the "cuda" backend (CPU tensors: the plain versions) a full-H
+    group takes its estimates and its batch-means CI from one split pass:
+    one `qmc_box_reduce_split` call, no other density pass; answers and CI
+    bounds match the reference's on the same H."""
+    ref_store, port, xs = _fullh_stores(rng, 1200, h_scale=0.4)
+    res = port.joints[PAIR]
+    port.cache.put(PAIR, "lscv_H", res.version,
+                   port.cache.get(PAIR, "lscv_H", res.version, backend="torch"),
+                   backend="cuda")
+    want = ref_store.engine(selector="lscv_H").execute(_pair_boxes(jq, xs),
+                                                       kde_backend="exact")
+    calls = {"qmc_box_reduce_split": 0, "qmc_box_reduce": 0}
+
+    def spy(name):
+        orig = getattr(ops, name)
+
+        def counted(*a, **k):
+            calls[name] += 1
+            return orig(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+
+    for name in calls:
+        spy(name)
+    monkeypatch.setattr(aqp_multid, "kde_eval_H", None)      # no plain density pass
+    got = port.engine(selector="lscv_H").execute(_pair_boxes(tq, xs), kde_backend="exact",
+                                                 backend="cuda")
+    assert calls == {"qmc_box_reduce_split": 1, "qmc_box_reduce": 0}
+    assert {g.path for g in got} == {"qmc:cuda"}
+    for g, w in zip(got, want):
+        for field in ("estimate", "ci_lo", "ci_hi"):
+            np.testing.assert_allclose(getattr(g, field), getattr(w, field), rtol=1e-4,
+                                       atol=1e-4, err_msg=field)
+
+
 def test_auto_backend_routes_around_the_crossover(rng, monkeypatch):
     _, port, xs = _fullh_stores(rng, 800, h_scale=0.4)
     queries = _pair_boxes(tq, xs, k=3)
@@ -606,6 +701,28 @@ def test_cuda_fullh_kernels_match_plain_versions(cuda_device, rng):
                                    _np(ref.kde_eval(pts, x, 0.6)), **KDE_TOL)
     counts = ops.launch_counts()
     assert (counts["qmc_box_reduce"], counts["rff_density"], counts["kde_eval"]) == (3, 3, 3)
+
+
+def test_cuda_qmc_split_kernel_matches_plain_version(cuda_device, rng):
+    """The split launch against its plain version: nodes fewer than a
+    density block holds (m < 512), n not a multiple of a chunk, a split tail,
+    d = 1..8, no splits and 16; two launches give the same bits."""
+    dev = cuda_device
+    ops.reset_launch_counts()
+    cases = [(4100, 1, 70, 300, 8), (4097, 3, 256, 4096, 8), (999, 2, 5, 33, 16),
+             (3000, 5, 9, 1000, 0)] + [(700 + d, d, 17, 777, 3) for d in range(1, 9)]
+    for n, d, q, m, splits in cases:
+        nodes, x, h_inv, ln, lo, hi, tgt = _qmc_inputs(rng, n, d, q, m)
+        args = [_t(a).to(dev) for a in (nodes, x, h_inv)] + [float(ln)] + \
+            [_t(a).to(dev) for a in (lo, hi)] + [_t(tgt, torch.int32).to(dev), splits]
+        k = ops.qmc_box_reduce_split(*args)
+        p = ref.qmc_box_reduce_split(*args)
+        for kk, pp in zip(k, p):
+            np.testing.assert_allclose(_np(kk), _np(pp), rtol=QMC_TOL["rtol"],
+                                       atol=QMC_TOL["atol"] * max(float(pp.abs().max()), 1.0))
+        again = ops.qmc_box_reduce_split(*args)
+        assert torch.equal(k[0], again[0]) and torch.equal(k[1], again[1])
+    assert ops.launch_counts()["qmc_box_reduce"] == 2 * len(cases)
 
 
 def test_qmc_box_answers_of_legacy_box_queries_match_reference(rng):

@@ -24,6 +24,7 @@ import pytest
 import torch
 from scipy.special import ndtr
 
+from repro.core import aqp_ci as jci
 from repro.core import aqp_multid as jmd
 from repro.core import aqp_query as jq
 from repro.data import aqp_store as jstore
@@ -147,6 +148,108 @@ def test_grouped_plain_is_tail_stable_against_float64(rng, tgt):
     np.testing.assert_allclose(sm.numpy(), s64, rtol=1e-4, atol=1e-12)
 
 
+# --- F families in one pass: the five moment sums ---------------------------------
+
+# (g_axis, tgt, G) per family: targets on a kept axis and on the group axis,
+# G = 1, 5 and 64, two group axes
+FAMILIES = [(1, 0, 5), (1, 1, 5), (2, 2, 64), (0, 2, 1), (2, 0, 64), (1, 2, 5)]
+
+
+def _families(rng, n, d=3, spread=1.0):
+    """A sample, bandwidths, and one shared box and window table per family
+    of FAMILIES (families 0, 1 and 5 share a table; 2 and 4 another)."""
+    x = rng.normal(0.0, spread, (n, d)).astype(np.float32)
+    h = rng.uniform(0.2, 0.6, d).astype(np.float32)
+    lo = rng.uniform(-2.0, -0.5, (len(FAMILIES), d)).astype(np.float32)
+    hi = (lo + rng.uniform(1.0, 3.0, (len(FAMILIES), d))).astype(np.float32)
+    tables = {}
+    for g_axis, _, G in FAMILIES:
+        codes = np.arange(G, dtype=np.float32) * (3.0 / G) - 1.5
+        tables.setdefault((g_axis, G), (codes - 0.5, codes + 0.5))
+    windows = [tables[(g, G)] for g, _, G in FAMILIES]
+    return x, h, lo, hi, windows
+
+
+def _stacked(windows):
+    """(wlo, whi, win) window tables of the families, equal tables once,
+    padded to the most categories with zero-width windows."""
+    gmax = max(len(w[0]) for w in windows)
+    keys, win = [], []
+    for w in windows:
+        if not any(w is k for k in keys):
+            keys.append(w)
+        win.append(next(i for i, k in enumerate(keys) if k is w))
+    wlo = np.zeros((len(keys), gmax), np.float32)
+    whi = np.zeros((len(keys), gmax), np.float32)
+    for i, (a, b) in enumerate(keys):
+        wlo[i, :len(a)], whi[i, :len(b)] = a, b
+    return wlo, whi, win
+
+
+@pytest.mark.parametrize("n", [301, 64])
+def test_grouped_moments_plain_matches_reference(rng, n):
+    """Each family's sum c and sum s against the reference's grouped oracle,
+    and all five sums against the reference's CI moments on the family's
+    boxes fanned out (the shared box with each category's window), at the
+    AQP kernels' rtol 1e-4."""
+    x, h, lo, hi, windows = _families(rng, n)
+    wlo, whi, win = _stacked(windows)
+    g_axes, tgts = [f[0] for f in FAMILIES], [f[1] for f in FAMILIES]
+    five = ops.aqp_grouped_moments(_t(x), _t(h), _t(lo), _t(hi), _t(wlo), _t(whi), win,
+                                   g_axes, tgts).numpy()
+    assert five.shape == (len(FAMILIES), 5, 64)
+    for f, (g_axis, tgt, G) in enumerate(FAMILIES):
+        glo, ghi = windows[f]
+        want = jref.aqp_grouped_sums(*[jnp.asarray(a) for a in (x, h, lo[f], hi[f], glo,
+                                                                ghi)], g_axis, tgt)
+        np.testing.assert_allclose(five[f, 0, :G], np.asarray(want[0]), **CNT_TOL)
+        np.testing.assert_allclose(five[f, 1, :G], np.asarray(want[1]), **SUM_TOL)
+        blo, bhi = np.repeat(lo[f][None], G, axis=0), np.repeat(hi[f][None], G, axis=0)
+        blo[:, g_axis], bhi[:, g_axis] = glo, ghi
+        mom = jci.moments_box(jnp.asarray(x), jnp.asarray(h), jnp.asarray(blo),
+                              jnp.asarray(bhi), jnp.full((G,), tgt, jnp.int32))
+        for k, (got, w) in enumerate(zip(five[f, :, :G], mom)):
+            np.testing.assert_allclose(got, np.asarray(w), **(CNT_TOL if k in (0, 2)
+                                                              else SUM_TOL),
+                                       err_msg=f"family {f} sum {k}")
+
+
+@pytest.mark.parametrize("keys", [
+    [(0, 2, 0)] * 96 + [(0, 2, 2)] * 8,                 # path C: one table, two kinds
+    [(0, 1, 0), (1, 1, 1), (0, 1, 1), (0, 2, 0), (1, 1, 0)] * 9,
+    [(0, 0, 0)],
+])
+def test_family_tiles_group_equal_keys_in_tiles_of_at_most_32(keys):
+    """The launcher's tiles: every family once, tiles of at most 32
+    families that agree on (window table, group axis, target is the group
+    axis), the order stable within a key."""
+    from repro_torch.kernels import aqp_grouped as agr
+    win, g_axis, tgt = zip(*keys)
+    order, tiles = agr.family_tiles(win, g_axis, tgt)
+    assert sorted(order) == list(range(len(keys)))
+    covered = []
+    for w, g, self_, begin, count in tiles:
+        fams = order[begin:begin + count]
+        assert 1 <= count <= agr.FAM_TILE and fams == sorted(fams)
+        assert all((win[f], g_axis[f], int(tgt[f] == g_axis[f])) == (w, g, self_)
+                   for f in fams)
+        covered += fams
+    assert sorted(covered) == list(range(len(keys)))
+    assert len(tiles) == sum(-(-sum(1 for k in keys if (k[0], k[1], int(k[2] == k[1])) == u)
+                                 // agr.FAM_TILE)
+                             for u in {(w, g, int(t == g)) for w, g, t in keys})
+
+
+def test_grouped_moments_of_one_family_are_its_grouped_sums(rng):
+    """F = 1 through the batched plain version gives what the one-family
+    version gives, bit for bit (the same per-row terms, summed alike)."""
+    x, h, lo, hi, glo, ghi = _family(rng, 257, 3, 11)
+    five = ops.aqp_grouped_moments(_t(x), _t(h), _t(lo[None]), _t(hi[None]),
+                                   _t(glo[None]), _t(ghi[None]), [0], [2], [1])
+    cnt, sm = ops.aqp_grouped_sums(*[_t(a) for a in (x, h, lo, hi, glo, ghi)], 2, 1)
+    assert torch.equal(five[0, 0], cnt) and torch.equal(five[0, 1], sm)
+
+
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
 @pytest.mark.parametrize("op", [0, 1, 2])
 def test_batch_query_box_grouped_matches_reference(rng, backend, op):
@@ -243,6 +346,31 @@ def test_group_by_repeat_is_bit_identical_and_launches_nothing_on_cpu(gstores):
     assert sum(ops.launch_counts().values()) == 0     # CPU tensors: plain versions
 
 
+def test_group_by_on_cuda_runs_one_grouped_pass_and_no_moment_pass(gstores, monkeypatch):
+    """On the "cuda" backend (CPU tensors: the plain versions) the families of
+    a group take their estimates and CIs from one batched grouped pass: no
+    family runs the CI moment pass, which only the plain box group keeps."""
+    _, port, want = gstores
+    calls = {"moments_box": 0, "aqp_grouped_moments": 0, "aqp_grouped_sums": 0}
+
+    def spy(mod, name):
+        orig = getattr(mod, name)
+
+        def counted(*a, **k):
+            calls[name] += 1
+            return orig(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+
+    spy(tq, "moments_box")
+    spy(ops, "aqp_grouped_moments")
+    spy(ops, "aqp_grouped_sums")
+    got = port.query(_gspecs(tq), backend="cuda")
+    assert calls == {"moments_box": 1, "aqp_grouped_moments": 1, "aqp_grouped_sums": 0}
+    assert [g.estimate for g in got] == [g.estimate for g in port.query(_gspecs(tq),
+                                                                          backend="cuda")]
+    assert len(got) == len(want)
+
+
 def test_group_by_family_matches_fanned_out_box_queries(gstores):
     """A GROUP BY family answers what one Box spec per category answers."""
     _, port, _ = gstores
@@ -266,6 +394,31 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     return torch.device("cuda")
+
+
+def test_cuda_grouped_moments_kernel_matches_plain_version(cuda_device, rng):
+    """The batched kernel against its plain version: six families over
+    three window tables (both kinds of target, G = 1, 5, 64), one family,
+    104 families over one table, n not a multiple of a block's rows; and two
+    launches give the same bits."""
+    dev = cuda_device
+    ops.reset_launch_counts()
+    for n, fams in ((301, FAMILIES), (4097, FAMILIES), (1, FAMILIES[:1]),
+                    (5000, [(2, i % 3 if i < 96 else 2, 64) for i in range(104)])):
+        x, h, _, _, _ = _families(rng, n)
+        lo = rng.uniform(-2.0, -0.5, (len(fams), 3)).astype(np.float32)
+        hi = lo + np.float32(2.0)
+        codes = {G: np.arange(G, dtype=np.float32) * (3.0 / G) - 1.5 for _, _, G in fams}
+        wlo, whi, win = _stacked([(codes[G] - 0.5, codes[G] + 0.5) for _, _, G in fams])
+        args = [_t(a).to(dev) for a in (x, h, lo, hi, wlo, whi)] + [
+            win, [f[0] for f in fams], [f[1] for f in fams]]
+        k = ops.aqp_grouped_moments(*args)
+        p = ref.aqp_grouped_moments(*args)
+        for t in range(5):
+            np.testing.assert_allclose(k[:, t].cpu(), p[:, t].cpu(),
+                                       **(CNT_TOL if t in (0, 2) else SUM_TOL))
+        assert torch.equal(k, ops.aqp_grouped_moments(*args))
+    assert ops.launch_counts()["aqp_grouped_sums"] == 4 + 4
 
 
 def test_cuda_grouped_kernel_matches_plain_version(cuda_device, rng):

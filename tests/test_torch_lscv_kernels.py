@@ -266,7 +266,7 @@ def test_redesigned_launchers_refuse_cpu_tensors(call):
                                       h_tile=tlg.H_TILE)
 
 
-@pytest.mark.parametrize("fname", ["gh_fused.cu", "lscv_grid.cu"])
+@pytest.mark.parametrize("fname", ["gh_fused.cu", "lscv_grid.cu", "qmc_reduce.cu"])
 def test_redesigned_sources_carry_their_note_and_no_switch(fname):
     text = (CSRC / fname).read_text()
     assert "Replaces the TPU kernel repro/kernels/" in text
@@ -276,9 +276,11 @@ def test_redesigned_sources_carry_their_note_and_no_switch(fname):
 
 
 def test_ftz_stays_local_to_the_two_kernels():
+    """ex2.approx.ftz only where a flushed term is far below the tolerance
+    of its sum: the two LSCV kernels and the quasi-MC density pass."""
     assert not any("ftz" in f for f in _build.NVCC_FLAGS)
     users = sorted(p.name for p in CSRC.glob("*.cu") if "ex2_ftz(" in p.read_text())
-    assert users == ["gh_fused.cu", "lscv_grid.cu"]
+    assert users == ["gh_fused.cu", "lscv_grid.cu", "qmc_reduce.cu"]
 
 
 def test_cpu_wrappers_still_take_the_plain_versions(rng):
