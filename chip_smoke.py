@@ -33,19 +33,19 @@ non-zero and prints no result line):
      rows: rff_eval launches), then the same specs with
      `kde_backend="exact"` (qmc_reduce launches); the exact answers held
      against a float64 oracle of eq. 6 on the same Halton nodes, the RFF
-     answers against the exact ones within their CIs; one qmc_reduce launch
-     per exact group (the estimate and its 8 CI chunks); bit-identical
-     repeats;
+     answers against the exact ones within their CIs; one rff_eval launch
+     per RFF group (the estimate and its 8 feature blocks) beside one probe
+     per fit, and one qmc_reduce launch per exact group (the estimate and its
+     8 CI chunks); bit-identical repeats;
   7. path E, `kde_eval` at 4 096 points on a 1-D sample and on the joint,
      and the trapezoid forms of eqs. 9-10 on 64 ranges against the closed
      forms (kde_eval launches);
   8. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
-     subsample; two launches of lscv_grid_sums, gh_fused_sum,
-     aqp_grouped_sums and qmc_box_reduce on the same inputs giving the same
-     bits; PLUGIN and
-     LSCV_h against the paper's sequential oracles; the kernel's own
+     subsample; two launches of every kernel but sv_matrix, aqp_batch,
+     aqp_boxes and kde_eval on the same inputs giving the same bits; PLUGIN
+     and LSCV_h against the paper's sequential oracles; the kernel's own
      eqs. 49/50 tile mapping exhaustively;
   9. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
@@ -133,11 +133,12 @@ KERNEL_PATH = {"pairwise_scaled_ksum": "plugin", "aqp_batch_sums": "plugin",
                "gh_fused_sum": "B", "aqp_grouped_sums": "C", "qmc_box_reduce": "D exact",
                "rff_density": "D", "kde_eval": "E"}
 # the ops wrappers that launch each kernel: the engine runs a GROUP BY
-# group's families, and a full-H group's estimate with its CI chunks, through
-# the batched wrappers
+# group's families, a full-H group's estimate with its CI chunks, and an RFF
+# group's estimate with its feature blocks through the batched wrappers
 WRAPPERS = {name: (name,) for name in TPU_KERNELS}
 WRAPPERS["aqp_grouped_sums"] = ("aqp_grouped_sums", "aqp_grouped_moments")
 WRAPPERS["qmc_box_reduce"] = ("qmc_box_reduce", "qmc_box_reduce_split")
+WRAPPERS["rff_density"] = ("rff_density", "rff_density_blocks")
 
 
 class SmokeFailure(RuntimeError):
@@ -210,8 +211,9 @@ def call_shape(name: str, args, kwargs) -> str:
         splits = f" splits={args[7]}" if len(args) > 7 else ""
         return (f"q={args[4].shape[0]} m={args[0].shape[0]} n={args[1].shape[0]} "
                 f"d={args[1].shape[1]}{splits}")
-    if name == "rff_density":
-        return f"m={args[0].shape[0]} D={args[1].shape[0]} d={args[0].shape[1]}"
+    if name in ("rff_density", "rff_density_blocks"):
+        blocks = f" blocks={args[4]}" if len(args) > 4 else ""
+        return f"m={args[0].shape[0]} D={args[1].shape[0]} d={args[0].shape[1]}{blocks}"
     if name == "kde_eval":
         return f"m={args[0].shape[0]} n={args[1].shape[0]} d={args[1].shape[-1]}"
     return f"n={args[0].shape[0]} d={args[0].shape[1]}"
@@ -446,8 +448,9 @@ def main_path(torch, rt, store, specs, stream):
                                    lambda: store.query(specs))
     check_answers(store, specs, stream, res, "plugin", ":cuda")
     n_axes = len(RANGE_COLS) + len(JOINT)
-    check(counts["pairwise_scaled_ksum"] >= 2 * n_axes,
-          f"pairwise launched {counts['pairwise_scaled_ksum']} < {2 * n_axes}")
+    check(counts["pairwise_scaled_ksum"] == 2 * n_axes,
+          f"pairwise launched {counts['pairwise_scaled_ksum']} times, not Psi6 and Psi4 for "
+          f"each of {n_axes} axes")
     check(counts["aqp_batch_sums"] >= len(RANGE_COLS), "aqp_batch launches")
     check(counts["aqp_box_sums"] >= 1, "aqp_boxes launches")
     repeat_query(torch, ops, store, specs, res, "plugin", "main path")
@@ -718,14 +721,22 @@ def path_d(torch, rt, store, specs):
           and len(calls["qmc_box_reduce_split"]) == n_degraded,
           f"path D: {counts['qmc_box_reduce']} qmc_box_reduce launches for {n_degraded} "
           f"degraded groups (one each: the estimate and its CI chunks)")
-    per_group = []
-    for args, _ in calls["rff_density"]:           # each fit's probe call opens a group
-        if args[0].shape[0] == rt["query"].RFF_GATE_PROBES:
-            per_group.append(0)
-        per_group[-1] += 1
-    print(f"path D: rff_density launches {counts['rff_density']}, per group {per_group} (a "
-          f"probe per fit, then an estimate and 8 feature blocks per RFF group), "
-          f"qmc_box_reduce {counts['qmc_box_reduce']} (one per degraded group); {sec:.3f} s")
+    # the labels of PR 13-15 on this store: the two 1-D columns on qmc:rff,
+    # the joint degraded to the exact pass
+    check(rff_groups == list(RANGE_COLS),
+          f"path D: RFF groups {rff_groups}, expected the 1-D columns {list(RANGE_COLS)}")
+    probes, blocks = calls["rff_density"], calls["rff_density_blocks"]
+    check(len(probes) == len(slices)
+          and all(a[0].shape[0] == rt["query"].RFF_GATE_PROBES for a, _ in probes),
+          f"path D: {len(probes)} rff_density calls, expected one probe per fit")
+    check(len(blocks) == len(rff_groups) and all(a[4] == 8 for a, _ in blocks)
+          and counts["rff_density"] == len(slices) + len(rff_groups),
+          f"path D: {counts['rff_density']} rff_density launches, expected a probe per fit and "
+          f"one launch per RFF group for its estimate and 8 feature blocks")
+    print(f"path D: rff_density launches {counts['rff_density']} ({len(probes)} probes, one per "
+          f"fit, and {len(blocks)} launches of the estimate with its 8 feature blocks, one per "
+          f"RFF group), qmc_box_reduce {counts['qmc_box_reduce']} (one per degraded group); "
+          f"{sec:.3f} s")
 
     eng = store.shared_engine("lscv_H")
     res_x, sec_x, counts_x, calls_x = driven(
@@ -841,10 +852,11 @@ def held(a, b, rtol: float, atol: float, what: str) -> float:
     return err
 
 
-def kernels_vs_plain(torch, rt, calls):
+def kernels_vs_plain(torch, rt, calls, calls_c):
     """Each kernel against its plain version on the inputs of every one of
-    its main-path calls, at an extra shape and at edge shapes, and against
-    float64 on a subsample."""
+    its main-path calls (and, for the pair sums, of path C's PLUGIN fits on
+    GROUP BY's joint, whose model_id axis is mostly ties), at an extra
+    shape and at edge shapes, and against float64 on a subsample."""
     ops, ref, plugin = rt["ops"], rt["ref"], rt["plugin"]
     dev = torch.device(DEV)
     rng = np.random.default_rng(7)
@@ -859,26 +871,40 @@ def kernels_vs_plain(torch, rt, calls):
                & torch.all(q_t >= 0)), "device bx_to_ql mapping")
     print(f"triangle map: {n_tri} tiles (n_tiles <= 512) round-trip on the device")
 
-    # pairwise on each main-path call: every fitted axis's Psi6(g1), Psi4(g2)
-    errs, oracle_done = [], set()
-    for args, kw in calls["pairwise_scaled_ksum"]:
-        x, g = args[0], args[1]
-        kind = kw["kind"]
-        n = x.shape[0]
-        errs.append(held(float(ops.pairwise_scaled_ksum(*args, **kw)),
-                         float(ref.pairwise_scaled_ksum(*args, **kw)),
-                         PAIR_RTOL, max(1e-5, 1e-6 * n), f"pairwise {kind} n={n}"))
-        if kind not in oracle_done:
-            oracle_done.add(kind)
-            sub = x[:4096].contiguous()
-            held(float(ops.pairwise_scaled_ksum(sub, g, kind)),
-                 oracle_pairwise(sub.cpu().numpy(), float(g), kind),
-                 PAIR_RTOL, max(1e-5, 1e-6 * 4096), f"pairwise {kind} vs float64")
+    # pairwise on each recorded call: every fitted axis's Psi6(g1), Psi4(g2),
+    # of the main path and of path C; each path's kinds against float64 on
+    # 4 096 of the axis's points, its first two calls launched twice
+    errs = []
+    for path, made in (("main path", calls["pairwise_scaled_ksum"]),
+                       ("path C", calls_c["pairwise_scaled_ksum"])):
+        oracle_done = set()
+        for args, kw in made:
+            x, g = args[0], args[1]
+            kind = kw["kind"]
+            n = x.shape[0]
+            errs.append(held(float(ops.pairwise_scaled_ksum(*args, **kw)),
+                             float(ref.pairwise_scaled_ksum(*args, **kw)),
+                             PAIR_RTOL, max(1e-5, 1e-6 * n), f"{path} pairwise {kind} n={n}"))
+            if kind not in oracle_done:
+                oracle_done.add(kind)
+                sub = x[:4096].contiguous()
+                held(float(ops.pairwise_scaled_ksum(sub, g, kind)),
+                     oracle_pairwise(sub.cpu().numpy(), float(g), kind),
+                     PAIR_RTOL, max(1e-5, 1e-6 * 4096), f"{path} pairwise {kind} vs float64")
+        for args, kw in made[:2]:
+            check(torch.equal(ops.pairwise_scaled_ksum(*args, **kw),
+                              ops.pairwise_scaled_ksum(*args, **kw)),
+                  f"{path} pairwise {kw['kind']}: two launches on the same inputs differ")
+        print(f"pairwise: {len(made)} {path} calls (n={made[0][0][0].shape[0]}) match plain, "
+              f"two launches give the same bits; {'/'.join(sorted(oracle_done))} at n=4096 "
+              f"match float64")
     out["pairwise_scaled_ksum"] = max(errs)
-    print(f"pairwise: {len(errs)} main-path calls (n={calls['pairwise_scaled_ksum'][0][0][0].shape[0]}) "
-          f"match plain, max |err| {max(errs):.3g}; k4/k6 at n=4096 match float64")
-    for n in (1, 2, 4097):
-        xs = torch.as_tensor(rng.normal(0, 1, n).astype(np.float32), device=dev)
+    print(f"pairwise: max |err| {max(errs):.3g} over {len(errs)} recorded calls")
+    # edge shapes around the tile (n = 2, below it, not a multiple of it),
+    # data offset far above g, every kind
+    tile = rt["pairwise_reduce"].TILE
+    for n in (1, 2, 3, 127, 128, 129, tile - 1, tile, tile + 1, 3 * tile + 5, 4097):
+        xs = torch.as_tensor((rng.normal(0, 1, n) + 30.0).astype(np.float32), device=dev)
         g = torch.tensor(0.4, device=dev)
         for kind in ("k4", "k6", "gauss"):
             held(float(ops.pairwise_scaled_ksum(xs, g, kind)),
@@ -956,8 +982,9 @@ def kernels_vs_plain(torch, rt, calls):
         check(k[0].shape == (qn,), f"aqp_boxes n={n} q={qn} d={d} shape")
         held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, f"aqp_boxes n={n} q={qn} d={d} count")
         held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, f"aqp_boxes n={n} q={qn} d={d} sum")
-    print(f"extra shape aqp_batch q={a_t.shape[0]}; edge shapes n=0/1/2/4097, q=0/1, d=1/2/3: "
-          "kernels match plain versions")
+    print(f"extra shape aqp_batch q={a_t.shape[0]}; edge shapes n=0/1/2/4097, q=0/1, d=1/2/3 "
+          f"(aqp), n=1/2/3/127-129/{tile - 1}-{tile + 1}/{3 * tile + 5}/4097 (pairwise, every "
+          "kind): kernels match plain versions")
     torch.cuda.synchronize()
     return out
 
@@ -1268,30 +1295,54 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
           f"within tolerance of float64; edge shapes n/m/q = 0 and 1, d=1..8, m < 512, "
           f"split tails, 0 and 16 splits match plain")
 
-    def rff_pair(args, what):
-        return held(ops.rff_density(*args).cpu(), ref.rff_density(*args).cpu(),
-                    RFF_RTOL, RFF_ATOL, what)
+    def rff_pair(name, args, what):
+        k, p = getattr(ops, name)(*args), getattr(ref, name)(*args)
+        if name == "rff_density":
+            return held(k.cpu(), p.cpu(), RFF_RTOL, RFF_ATOL, what)
+        check(tuple(k[0].shape) == (args[4], args[0].shape[0]), f"{what} blocks shape")
+        return max(held(k[0].cpu(), p[0].cpu(), RFF_RTOL, RFF_ATOL, what + " blocks"),
+                   held(k[1].cpu(), p[1].cpu(), RFF_RTOL, RFF_ATOL, what + " estimate"))
 
-    made = calls_d["rff_density"]
-    out["rff_density"] = max(rff_pair(a, f"rff_density {call_shape('rff_density', a, k)}")
-                             for a, k in made)
-    big = max(made, key=lambda c: c[0][0].shape[0] * c[0][1].shape[0])[0]
-    p, w_, b_, z_ = big
+    made = [(w, a) for w in WRAPPERS["rff_density"] for a, _ in calls_d[w]]
+    out["rff_density"] = max(rff_pair(w, a, f"{w} {call_shape(w, a, {})}") for w, a in made)
+    for w, a in made[:1] + made[-1:]:
+        k1, k2 = getattr(ops, w)(*a), getattr(ops, w)(*a)
+        same = torch.equal(k1, k2) if w == "rff_density" else (
+            torch.equal(k1[0], k2[0]) and torch.equal(k1[1], k2[1]))
+        check(same, f"{w}: two launches on the same inputs differ")
+    big = max((a for _, a in made), key=lambda a: a[0].shape[0] * a[1].shape[0])
+    p, w_, b_, z_ = big[:4]
     ps = p[:512].contiguous()
-    k = ops.rff_density(ps, w_, b_, z_)
-    want = torch.cos(ps.double() @ w_.double().T + b_.double()[None]) @ z_.double()
-    held(k.cpu(), want.cpu(), RFF_RTOL, RFF_ATOL, "rff_density vs float64")
-    for m, D, d in ((1, 16, 1), (4097, 515, 8), (0, 16, 2), (5, 0, 2)):
+    kb, ke = ops.rff_density_blocks(ps, w_, b_, z_, 8)
+    cos64 = torch.cos(ps.double() @ w_.double().T + b_.double()[None])
+    cb = w_.shape[0] // 8
+    held(ke.cpu(), (cos64 @ z_.double()).cpu(), RFF_RTOL, RFF_ATOL, "rff_density vs float64")
+    held(kb.cpu(), torch.stack([cos64[:, j * cb:(j + 1) * cb] @ z_[j * cb:(j + 1) * cb].double()
+                                for j in range(8)]).cpu(),
+         RFF_RTOL, RFF_ATOL, "rff_density blocks vs float64")
+    # with one sub-chunk per block the kernel adds the same partials in the
+    # same order for one block and for eight
+    check(torch.equal(ops.rff_density(p, w_, b_, z_), ops.rff_density_blocks(p, w_, b_, z_, 8)[1])
+          or w_.shape[0] != 8 * rt["rff_eval"].TILE or p.device.type != "cuda",
+          "rff_density: the one-block estimate differs from the 8-block launch's")
+    # edge shapes: m, D = 0 and 1, D mod B != 0, d = 1..8, blocks of one feature
+    for m, D, d, nb in [(1, 16, 1, 1), (4097, 515, 8, 8), (0, 16, 2, 1), (5, 0, 2, 1),
+                        (4097, 2050, 1, 8), (513, 64, 2, 64), (32_768 + 3, 2048, 3, 8)] + \
+            [(700 + d, 300 + d, d, 3) for d in range(1, 9)]:
         args = (t32(rng.normal(0, 1, (m, d)).astype(np.float32)),
                 t32(rng.normal(0, 3, (D, d)).astype(np.float32)),
                 t32(rng.uniform(0, 2 * np.pi, D).astype(np.float32)),
                 t32((rng.normal(0, 1, D) * 2.0 / max(D, 1)).astype(np.float32)))
         check(ops.rff_density(*args).shape == (m,), f"rff_density m={m} shape")
-        rff_pair(args, f"rff_density m={m} D={D} d={d}")
-    print(f"rff_density: {len(made)} path-D calls match plain, max |err| "
-          f"{out['rff_density']:.3g}; m=512 D={w_.shape[0]} within tolerance of float64 "
-          f"(the projection reaches {float((p @ w_.T + b_).abs().max()):.0f} rad); edge "
-          f"shapes m/D = 0 and 1, d=1/8 match plain")
+        rff_pair("rff_density", args, f"rff_density m={m} D={D} d={d}")
+        rff_pair("rff_density_blocks", args + (nb,), f"rff_density_blocks m={m} D={D} d={d} "
+                                                      f"blocks={nb}")
+    print(f"rff_density: {len(made)} path-D calls ({', '.join(sorted({w for w, _ in made}))}) "
+          f"match plain on the estimate and every block, max |err| {out['rff_density']:.3g}; "
+          f"two launches give the same bits; m=512 D={w_.shape[0]} within tolerance of float64 "
+          f"for the estimate and the 8 blocks (the projection reaches "
+          f"{float((p @ w_.T + b_).abs().max()):.0f} rad); edge shapes m/D = 0 and 1, "
+          f"D mod blocks != 0, d=1..8, 64 blocks of one feature match plain")
 
     def kde_pair(args, what):
         return held(ops.kde_eval(*args).cpu(), ref.kde_eval(*args).cpu(), KDE_RTOL, KDE_ATOL, what)
@@ -1337,11 +1388,12 @@ def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-# FLOPs per pair of the pairwise kernel (an FMA counts two): sub, scale,
-# square, -1/2 *, exp, 1/sqrt(2 pi) *, the add, and the polynomial with its
-# product with the density (k4: a subtraction and one FMA; k6: a
-# subtraction and two FMAs)
-PAIR_OPS = {"k6": 13, "k4": 11, "gauss": 7}
+# FLOPs per pair of the pairwise kernel (an FMA counts two), with the scale
+# and the constants folded into x and the block factor: sub, square, exp2,
+# and the polynomial in v with its product with the density and the sum
+# (k6: an add and three FMAs; k4: an add and two FMAs; the Gaussian: the
+# add)
+PAIR_OPS = {"k6": 10, "k4": 8, "gauss": 4}
 # SFU (MUFU) instructions per erfcf on its fast path, one ex2 and one
 # reciprocal: aqp_batch_tiles' SASS (scripts/bench_lscv_kernels.py --sass)
 # holds 4 EX2 for the 2 erfcf and 2 expf of its loop, and the RCPs of the
@@ -1357,8 +1409,7 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
     and an exp / erfc / cos as one; a sum of k products is one multiply
     and k - 1 FMAs (its first term needs no add).  SFU ops are the MUFU
     instructions the kernel issues (an exp or exp2 one, an erfcf MUFU_ERFC,
-    a reciprocal one; cosf none: its range reduction and polynomial are FMA
-    work); the caller turns them into the SFU floor at the SM clock it
+    a reciprocal one, a cos.approx one); the caller turns them into the SFU floor at the SM clock it
     reads.  Per unit of work, FLOPs / SFU ops:
       pairwise_scaled_ksum: PAIR_OPS / 1 per pair;
       aqp_batch_sums: 24 / (2 erfc + 2 exp) per (query, point): z_a, z_b
@@ -1391,8 +1442,10 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         the d products with log_norm, d FMAs), exp, add per (node, row):
         (2d^2 + 2d + 2) / 1, and per (box, node) 2d compares and an add and
         an FMA for each of the K + 1 rows: 2d + 3(K + 1) / none;
-      rff_density: the projection (a mul and d - 1 FMAs), the phase add,
-        cos and an FMA per (point, feature): 2d + 3 / none;
+      rff_density_blocks (B feature blocks and the estimate): the
+        projection (a mul and d - 1 FMAs), the phase add, cos and an FMA
+        per (point, feature): 2d + 3 / 1 (the kernel's cosine is one
+        cos.approx after its range reduction);
       kde_eval: d subs, the sum of d squares (a multiply, d - 1 FMAs), the
         scale, exp2, add per (point, row): 3d + 2 / 1."""
     mufu = 0
@@ -1444,10 +1497,11 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         nbytes = 4 * (m * d + n * d + d * d + 1 + 2 * q * d + q) + 8 * q * (k + 1)
         ops = (2 * d * d + 2 * d + 2) * m * n + (2 * d + 3 * (k + 1)) * q * m
         mufu = m * n
-    elif name == "rff_density":
+    elif name in ("rff_density", "rff_density_blocks"):
         (m, d), nf = args[0].shape, args[1].shape[0]
-        nbytes = 4 * (m * d + nf * d + 2 * nf) + 4 * m
-        ops = (2 * d + 3) * m * nf
+        n_out = 1 + (args[4] if name == "rff_density_blocks" else 0)
+        nbytes = 4 * (m * d + nf * d + 2 * nf) + 4 * m * n_out
+        ops, mufu = (2 * d + 3) * m * nf, m * nf
     elif name == "kde_eval":
         (m, d), n = args[0].shape, args[1].shape[0]
         nbytes = 4 * (m * d + n * d + 1) + 4 * m
@@ -1571,10 +1625,10 @@ def main() -> int:
     from repro_torch import synopses
     from repro_torch.core import aqp, aqp_multid, aqp_query, kde, lscv, plugin
     from repro_torch.data import aqp_store
-    from repro_torch.kernels import _build, lscv_grid, ops, pairwise_reduce, ref
+    from repro_torch.kernels import _build, lscv_grid, ops, pairwise_reduce, ref, rff_eval
     rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
           "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
-          "lscv_grid": lscv_grid,
+          "lscv_grid": lscv_grid, "rff_eval": rff_eval,
           "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses}
     t_start = time.perf_counter()
 
@@ -1593,7 +1647,7 @@ def main() -> int:
     counts["D"], calls_d, counts["D exact"], calls_dx = path_d(torch, rt, store, specs)
     counts["E"], calls_e = path_e(torch, rt, store, specs)
     print(f"phases through path E: {time.perf_counter() - t_start:.1f} s")
-    errs = kernels_vs_plain(torch, rt, calls_main)
+    errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))
     print(f"phases through the plain-version checks: {time.perf_counter() - t_start:.1f} s")
@@ -1604,8 +1658,9 @@ def main() -> int:
         made = paths[KERNEL_PATH[name]]
         wrapper = next(w for w in WRAPPERS[name] if made[w])
         first[name] = (wrapper,) + made[wrapper][0]
-    first["rff_density"] = ("rff_density",) + max(
-        calls_d["rff_density"], key=lambda c: c[0][0].shape[0] * c[0][1].shape[0])
+    first["rff_density"] = max(
+        ((w,) + c for w in WRAPPERS["rff_density"] for c in calls_d[w]),
+        key=lambda c: c[1][0].shape[0] * c[1][1].shape[0])
     times = timings(torch, rt, first, calls_main, calls_a, calls_d, calls_dx)
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

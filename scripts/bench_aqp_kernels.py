@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's GROUP BY and full-H serving on one CUDA device, at
-chip_smoke.py's store (32 768-row reservoirs fed 1 000 000 streamed rows
-from `--seed`): the warm path C query (104 GROUP BY specs over model_id),
-the warm path D exact query (the 1 024-spec mix with selector "lscv_H" and
-kde_backend "exact"), and the aqp_grouped and qmc_reduce kernel calls that
-each query makes, replayed alone.
+"""Time the port's serving paths on one CUDA device, at chip_smoke.py's
+store (32 768-row reservoirs fed 1 000 000 streamed rows from `--seed`):
+the warm path C query (104 GROUP BY specs over model_id), the warm path D
+exact query (the 1 024-spec mix with selector "lscv_H" and kde_backend
+"exact"), the warm path D query with kde_backend "auto" (RFF groups where
+the probe gate passes), and a PLUGIN refit of the main path's five axes;
+and the kernel calls that each makes (aqp_grouped, qmc_reduce, rff_eval,
+pairwise), replayed alone.
 
     python3 scripts/bench_aqp_kernels.py [--root DIR] [--label TEXT]
                                          [--reps N] [--splits]
+                                         [--paths c,d_exact,d_auto,plugin]
+                                         [--set FILE:NAME=VALUE] [--sass]
 
 `--root` times the `repro_torch` of another checkout (its kernels build
 into that checkout's own `build/`), so two commits compare in one run on
@@ -23,8 +27,19 @@ Prints one JSON line: per query the warm walls (ms, every rep) and the
 interpreter's full (generation 2) collections during them, the kernel
 replay time (median of CUDA-event windows over the query's recorded calls
 of the two kernels), and per full-H group the replay of its calls; the
-card's name, power limit and SM clock sampled after each section.  Needs a
-CUDA device; exits non-zero without one.
+card's name, power limit and SM clock sampled after each section.
+`--paths` picks the sections (default: all).  The PLUGIN section times the
+refit (CUDA-synced wall of `plugin_bandwidth` on the five axes' samples)
+and replays its ten pairwise calls; the D auto section replays each RFF
+group's rff_eval calls.  `--set` times a variant: it copies the timed
+checkout's `src/repro_torch` into a temporary directory and sets
+`constexpr NAME` in `kernels/csrc/FILE` (a .cu) or the module constant
+`NAME` in `kernels/FILE` (a .py) to VALUE there (repeatable).  `--sass`
+prints, for the pairwise and rff_eval kernels of the timed checkout, the
+instructions of each loop by opcode, all of them and those of its hot
+path, from `cuobjdump -sass`; every run prints their registers per thread
+from the ptxas logs.
+Needs a CUDA device; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -32,16 +47,21 @@ import argparse
 import collections
 import gc
 import json
-import subprocess
+import re
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
+from bench_lscv_kernels import cuobjdump_sass, smi, time_ms, variant_root
+
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_WRAPPERS = ("aqp_grouped_sums", "aqp_grouped_moments", "qmc_box_reduce",
-                   "qmc_box_reduce_split")
+                   "qmc_box_reduce_split", "rff_density", "rff_density_blocks",
+                   "pairwise_scaled_ksum")
+PATHS = ("c", "d_exact", "d_auto", "plugin")
 # engine functions timed by --splits, where the checkout's aqp_query has
 # them: compiling the specs (GROUP BY expansion), _execute (resolving each
 # entry, the groups' passes and the result rows), and inside it the
@@ -49,29 +69,120 @@ KERNEL_WRAPPERS = ("aqp_grouped_sums", "aqp_grouped_moments", "qmc_box_reduce",
 ENGINE_FUNCS = ("QueryEngine.compile", "_execute", "_StoreResolver.__call__",
                 "_StoreResolver.try_exact", "_run_group", "grouped_family_moments",
                 "batch_query_box_grouped", "moments_box", "se_from_moments",
-                "qmc_answers_and_se", "batch_query_qmc", "qmc_subsample_se")
+                "qmc_answers_and_se", "batch_query_qmc", "qmc_subsample_se",
+                "qmc_rff_answers_and_se", "batch_query_qmc_rff", "qmc_rff_se")
 # called once per entry and host-only: timed without a device sync
 PER_ENTRY = ("_StoreResolver.__call__", "_StoreResolver.try_exact")
 
 
-def smi(query: str) -> str:
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, reps: int, warm: int = 2) -> list:
-    for _ in range(warm):
-        fn()
+def sass_functions(build_dir: Path, libs) -> list:
+    """[(function, [(addr, opcode, predicated, branch target)])] from
+    cuobjdump -sass of the named libraries."""
     out = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        out.append(e0.elapsed_time(e1))
+    for _, text in cuobjdump_sass(build_dir, libs):
+        labels, pending, raw = {}, [], []
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                out.append((m.group(1), raw := []))
+                labels, pending = {}, []
+                continue
+            lab = re.match(r"\s*\.(L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if not m or not out:
+                continue
+            addr, body = int(m.group(1), 16), m.group(2).strip()
+            for lb in pending:
+                labels[lb] = addr
+            pending = []
+            pred = bool(re.match(r"@!?U?P\w+\s", body))
+            body = re.sub(r"^@!?U?P\w+\s+", "", body)
+            br = re.search(r"BRA\s+(?:`\(\.(L_x_\d+)\)|0x([0-9a-f]+))", body)
+            tgt = (br.group(1) if br.group(1) else int(br.group(2), 16)) if br else None
+            raw.append([addr, body.split()[0] if body else "?", pred, tgt, labels])
+    return [(name, [(a, op, pr, lb.get(t) if isinstance(t, str) else t)
+                    for a, op, pr, t, lb in ins]) for name, ins in out]
+
+
+def sass_loops(build_dir: Path, libs=("pairwise_reduce", "rff_eval"),
+               funcs=("pairwise_tiles", "rff_tiles")) -> dict:
+    """{kernel function: [loop]} from cuobjdump -sass: every loop (the
+    instructions from a backward branch's target to the branch) with its
+    opcode counts ("all") and those of its hot path ("hot": the basic
+    blocks reached from the loop's head inside the loop without entering a
+    cold block, one that touches local memory (STL / LDL, as cosf's
+    Payne-Hanek reduction does) or lies in a nested loop)."""
+    out = {}
+    for name, ins in sass_functions(build_dir, libs):
+        if not any(f in name for f in funcs):
+            continue
+        addrs = [a for a, _, _, _ in ins]
+        loops = sorted({(t, a) for a, _, _, t in ins if t is not None and t <= a})
+        leaders = {addrs[0]} | {t for _, _, _, t in ins if t is not None}
+        leaders |= {addrs[k + 1] for k, (_, op, _, t) in enumerate(ins[:-1])
+                    if t is not None or op in ("EXIT", "RET")}
+        blocks, cur = {}, None
+        for a, op, pr, t in ins:
+            if a in leaders:
+                cur = a
+                blocks[cur] = []
+            blocks[cur].append((a, op, pr, t))
+        starts = sorted(blocks)
+        found = []
+        for lo, hi in loops:
+            nested = [(l2, h2) for l2, h2 in loops if (l2, h2) != (lo, hi) and lo <= l2 and h2 <= hi]
+
+            def succ(b):
+                a, op, pr, t = blocks[b][-1]
+                nxt = starts.index(b) + 1
+                out_ = [t] if t is not None else []
+                if (t is None or pr) and op not in ("EXIT", "RET") and nxt < len(starts):
+                    out_.append(starts[nxt])
+                return [c for c in out_ if lo <= c <= hi]
+
+            inside = [b for b in starts if lo <= b <= hi]
+            cold = {b for b in inside
+                    if any(op in ("STL", "LDL") for _, op, _, _ in blocks[b])
+                    or any(l2 <= b <= h2 for l2, h2 in nested)}
+            grew = True
+            while grew:                   # blocks that lead only into cold ones
+                grew = False
+                for b in inside:
+                    if b != lo and b not in cold and succ(b) and all(c in cold for c in succ(b)):
+                        cold.add(b)
+                        grew = True
+            seen, todo = set(), [lo]
+            while todo:
+                b = todo.pop()
+                if b in seen or b in cold:
+                    continue
+                seen.add(b)
+                todo.extend(succ(b))
+            found.append({"range": [lo, hi],
+                          "all": dict(collections.Counter(op for a, op, _, _ in ins
+                                                          if lo <= a <= hi)),
+                          "hot": dict(collections.Counter(op for b in sorted(seen)
+                                                          for _, op, _, _ in blocks[b]))})
+        out[name] = found
+    return out
+
+
+def ptxas_registers(build_mod, names=("pairwise_reduce", "rff_eval")) -> dict:
+    """{kernel function: registers per thread} from the build's ptxas logs."""
+    out = {}
+    for name in names:
+        log = build_mod.target(name).with_suffix(".log")
+        func = None
+        for line in log.read_text().splitlines() if log.exists() else []:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                func = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and func:
+                out[func] = int(m.group(1))
     return out
 
 
@@ -166,28 +277,32 @@ def device_kernels(torch, fn, top: int = 8) -> dict:
             "top": [[k[:60], round(ms, 4), c] for k, ms, c in rows[:top]]}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", type=Path, default=REPO)
-    ap.add_argument("--label", default="")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--splits", action="store_true")
-    args = ap.parse_args()
+def rff_groups(calls) -> list:
+    """The recorded rff_eval calls of a warm query, split into its RFF
+    groups: a group opens with the call over all D features (the estimate's:
+    `rff_density_blocks`, or the PR 13 design's `rff_density` before its
+    eight block calls)."""
+    rff = [c for c in calls if c[0] in ("rff_density", "rff_density_blocks")]
+    full = max((a[1].shape[0] for _, a, _ in rff), default=0)
+    groups = []
+    for c in rff:
+        if c[1][1].shape[0] == full:
+            groups.append([])
+        groups[-1].append(c)
+    return groups
 
+
+def run(args, root: Path, paths) -> dict:
     import torch
-    if not torch.cuda.is_available():
-        print("bench_aqp_kernels: no CUDA device is available", file=sys.stderr)
-        return 1
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
-    sys.path.insert(0, str(args.root / "src"))
-    from repro_torch.core import aqp_query
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.core import aqp_query, plugin
     from repro_torch.data import aqp_store
     from repro_torch.kernels import _build, ops
 
-    res = {"label": args.label, "root": str(args.root), "card": smi("name,power.limit"),
-           "clocks_sm": []}
+    res = {"label": args.label, "root": str(args.root), "set": args.set,
+           "card": smi("name,power.limit"), "clocks_sm": []}
     t0 = time.perf_counter()
     res["build_s"] = _build.build_all()
     rng = np.random.default_rng(args.seed)
@@ -202,12 +317,27 @@ def main() -> int:
     gspecs = cs.make_group_specs(rng, stream, aqp_query)
     eng = store.shared_engine("lscv_H")
     queries = {"path_c": lambda: store.query(gspecs),
-               "path_d_exact": lambda: eng.execute(specs, kde_backend="exact")}
-    for fn in queries.values():          # fits (PLUGIN, LSCV_H) and first use
+               "path_d_exact": lambda: eng.execute(specs, kde_backend="exact"),
+               "path_d_auto": lambda: store.query(specs, selector="lscv_H")}
+    queries = {k: v for k, v in queries.items() if k[len("path_"):] in paths}
+    if "plugin" in paths:                 # the main path's first query: its PLUGIN fits
+        fit_calls = [c for c in recorded(ops, lambda: store.query(specs))
+                     if c[0] == "pairwise_scaled_ksum"]
+    for fn in queries.values():          # fits (PLUGIN, LSCV_H, RFF) and first use
         fn()
     torch.cuda.synchronize()
     res["setup_s"] = time.perf_counter() - t0
 
+    if "plugin" in paths:
+        xs = [a[0] for _, a, k in fit_calls if k.get("kind") == "k6"]
+        res["plugin_kernel_calls"] = len(fit_calls)
+        res["plugin_refit_ms"] = walls(torch, lambda: [plugin.plugin_bandwidth(x, backend="cuda")
+                                                       for x in xs], args.reps)
+        res["plugin_kernel_replay_ms"] = replay_ms(torch, ops, fit_calls, args.reps)
+        res["plugin_first_call_ms"] = replay_ms(torch, ops, fit_calls[:1], args.reps)
+        res["plugin_device"] = device_kernels(
+            torch, lambda: [getattr(ops, w)(*a, **k) for w, a, k in fit_calls])
+        res["clocks_sm"].append(smi("clocks.sm"))
     for name, fn in queries.items():
         fn()
         gen2 = gc.get_stats()[2]["collections"]
@@ -223,11 +353,47 @@ def main() -> int:
                 replay_ms(torch, ops, calls[g * per:(g + 1) * per], args.reps)
                 for g in range(3)]
             res["path_d_exact_first_call_ms"] = replay_ms(torch, ops, calls[:1], args.reps)
+        if name == "path_d_auto":
+            groups = rff_groups(calls)
+            res["path_d_auto_rff_group_calls"] = [len(g) for g in groups]
+            res["path_d_auto_rff_group_replay_ms"] = [replay_ms(torch, ops, g, args.reps)
+                                                      for g in groups]
+            res["path_d_auto_rff_first_call_ms"] = replay_ms(torch, ops, groups[0][:1],
+                                                             args.reps)
+            res["path_d_auto_rff_device"] = device_kernels(
+                torch, lambda: [getattr(ops, w)(*a, **k) for g in groups for w, a, k in g])
         res["clocks_sm"].append(smi("clocks.sm"))
         if args.splits:
             res[f"{name}_splits"] = split_walls(torch, aqp_query, fn)
             res[f"{name}_device"] = device_kernels(torch, fn)
-    print(json.dumps(res))
+    res["ptxas_registers"] = ptxas_registers(_build)
+    if args.sass:
+        res["sass_loops"] = sass_loops(_build.BUILD_DIR)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=REPO)
+    ap.add_argument("--label", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--splits", action="store_true")
+    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args()
+    paths = args.paths.split(",")
+    if not set(paths) <= set(PATHS):
+        raise SystemExit(f"--paths takes {','.join(PATHS)}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_aqp_kernels: no CUDA device is available", file=sys.stderr)
+        return 1
+    with tempfile.TemporaryDirectory() as tmp:
+        root = variant_root(args.root, args.set, Path(tmp)) if args.set else args.root
+        print(json.dumps(run(args, root, paths)))
     return 0
 
 

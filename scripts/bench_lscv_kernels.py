@@ -14,7 +14,8 @@ subsampled to the reservoir size.
 into that checkout's own `build/`), so two commits compare in one run on
 one card: run parent, change, change, parent.  `--set` times a variant: it
 copies the checkout's `src/repro_torch` into a temporary directory and sets
-`constexpr NAME` in `csrc/FILE` to VALUE there (repeatable); `--gh-tile`
+`constexpr NAME` in `kernels/csrc/FILE` (a .cu) or the module constant
+`NAME` in `kernels/FILE` (a .py) to VALUE there (repeatable); `--gh-tile`
 passes gh_fused_sum another tile side.  `--fits` also times, once each
 after a warm-up, an LSCV_h fit and an LSCV_H fit of the joint (the fits of
 paths A and B, CUDA-synced host clock).  `--sass`
@@ -53,15 +54,23 @@ def smi(query: str) -> str:
 
 
 def variant_root(root: Path, sets, tmp: Path) -> Path:
-    """A copy of root's src/repro_torch with constants replaced."""
+    """A copy of root's src/repro_torch with constants replaced: each spec
+    FILE:NAME=VALUE sets `constexpr NAME` in kernels/csrc/FILE (a .cu) or
+    the module constant NAME in kernels/FILE (a .py)."""
     shutil.copytree(root / "src" / "repro_torch", tmp / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    kernels = tmp / "src" / "repro_torch" / "kernels"
     for spec in sets:
         fname, assign = spec.split(":", 1)
         name, value = assign.split("=", 1)
-        path = tmp / "src" / "repro_torch" / "kernels" / "csrc" / fname
-        text, hits = re.subn(rf"(constexpr \w+ {re.escape(name)} = )[^;]+;",
-                             rf"\g<1>{value};", path.read_text())
+        if fname.endswith(".py"):
+            path = kernels / fname
+            pattern, repl = rf"^{re.escape(name)} = .*$", f"{name} = {value}"
+        else:
+            path = kernels / "csrc" / fname
+            pattern, repl = (rf"(constexpr \w+ {re.escape(name)} = )[^;]+;",
+                             rf"\g<1>{value};")
+        text, hits = re.subn(pattern, repl, path.read_text(), flags=re.M)
         if hits != 1:
             raise SystemExit(f"--set {spec}: {hits} matches in {fname}")
         path.write_text(text)
@@ -94,13 +103,21 @@ def time_ms(torch, fn, reps: int, warm: int = 2) -> list:
     return out
 
 
+def cuobjdump_sass(build_dir: Path, libs=None):
+    """(library, its `cuobjdump -sass` text) for each library built, or for
+    those named in libs."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib in sorted(build_dir.glob("*.so")):
+        name = lib.name.split("-")[0]
+        if libs is None or name in libs:
+            yield name, subprocess.run([tool, "-sass", str(lib)], check=True,
+                                       capture_output=True, text=True, timeout=300).stdout
+
+
 def sass_mufu(build_dir: Path) -> dict:
     """{library: {kernel function: {MUFU kind: count}}} from cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
-    for lib in sorted(build_dir.glob("*.so")):
-        text = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
-                              text=True, timeout=300).stdout
+    for lib, text in cuobjdump_sass(build_dir):
         funcs = {}
         name = None
         for line in text.splitlines():
@@ -111,7 +128,7 @@ def sass_mufu(build_dir: Path) -> dict:
             elif name and "MUFU" in line:
                 kind = re.search(r"MUFU\.(\w+)", line)
                 funcs[name][kind.group(1) if kind else "?"] += 1
-        out[lib.name.split("-")[0]] = {f: dict(c) for f, c in funcs.items()}
+        out[lib] = {f: dict(c) for f, c in funcs.items()}
     return out
 
 

@@ -17,8 +17,9 @@ once: O(n d + n G) instead of O(n d G).  Full-H synopses do not factorise:
 a group of boxes is answered by quasi-MC on one shared Halton node set over
 the group's support-clipped hull, with one density evaluation per group —
 exact (`batch_query_qmc`, eq. 6) or from a fitted RFF synopsis
-(`batch_query_qmc_rff`).  The host planning (`_qmc_plan`) is float64 numpy,
-as in the reference.
+(`batch_query_qmc_rff`; on the "cuda" backend `qmc_rff_answers_and_se`
+takes the answers and their feature-block CI from one launch).  The host
+planning (`_qmc_plan`) is float64 numpy, as in the reference.
 """
 from __future__ import annotations
 
@@ -198,17 +199,19 @@ def _qmc_indicator_terms(nodes: torch.Tensor, f: torch.Tensor,
                          n: float):
     """Per-box unscaled (count_raw, sum_raw) from densities f at the shared
     nodes: count_q = n vol(G) mean(f 1_q), sum_q = n vol(G) mean(node_t f
-    1_q).  Boxes in slabs, so the (boxes x nodes) indicator stays bounded."""
+    1_q).  f is (m,), giving (q,) each, or S density rows (S, m), giving
+    (S, q) each from one indicator per box.  Boxes in slabs, so the
+    (boxes x nodes) indicator stays bounded."""
     vol_g = torch.prod(ghi - glo)
-    empty = torch.zeros((0,), dtype=DTYPE, device=f.device)
+    empty = torch.zeros(f.shape[:-1] + (0,), dtype=DTYPE, device=f.device)
     cnt, sm = [empty], [empty]
     for start in range(0, lo.shape[0], kref.QUERY_SLAB):
         w = kref.inside_boxes(nodes, lo[start:start + kref.QUERY_SLAB],
-                         hi[start:start + kref.QUERY_SLAB]) * f[None, :]
+                         hi[start:start + kref.QUERY_SLAB]) * f[..., None, :]
         tvals = nodes.T[tgt[start:start + kref.QUERY_SLAB].long()]
-        cnt.append(n * vol_g * torch.mean(w, dim=1))
-        sm.append(n * vol_g * torch.mean(tvals * w, dim=1))
-    return torch.cat(cnt), torch.cat(sm)
+        cnt.append(n * vol_g * torch.mean(w, dim=-1))
+        sm.append(n * vol_g * torch.mean(tvals * w, dim=-1))
+    return torch.cat(cnt, dim=-1), torch.cat(sm, dim=-1)
 
 
 def _qmc_shared_terms(x: torch.Tensor, H: torch.Tensor, inp: _QmcInputs):
@@ -319,6 +322,35 @@ def qmc_rff_se(rff, x_host, H, lo: np.ndarray, hi: np.ndarray,
         ests.append(_estimates64(ops, scale, cnt_raw, sum_raw))
     e = np.stack(ests)
     return e.std(axis=0, ddof=1) / math.sqrt(n_blocks), n_blocks - 1
+
+
+def qmc_rff_answers_and_se(rff, x_host, H, lo: np.ndarray, hi: np.ndarray,
+                           tgt: np.ndarray, ops: np.ndarray, scale: float,
+                           n_source: int, n_qmc: int, n_blocks: int = 8
+                           ) -> Tuple[torch.Tensor, np.ndarray, int]:
+    """(answers, per-query SE, t dof) of an RFF group: ONE plan, ONE launch
+    of the rff_eval kernel for the density and its n_blocks feature blocks
+    (`densities_and_blocks`), the indicator terms of those n_blocks + 1
+    density rows in one batched pass, and one device-to-host copy.  The
+    answers are `batch_query_qmc_rff`'s, the SE `qmc_rff_se`'s, as a (q,)
+    float32 tensor on the host."""
+    q = np.asarray(lo).shape[0]
+    x64 = _host64(x_host)
+    plan = _qmc_plan(x64, _host64(H), lo, hi, n_qmc)
+    if plan is None:                  # zero-measure boxes: estimate is 0
+        return torch.zeros((q,), dtype=DTYPE), np.zeros((q,), np.float64), n_blocks - 1
+    inp = _QmcInputs(plan, tgt, x64.shape[1], rff.w.device)
+    f, fb = rff.densities_and_blocks(inp.nodes, n_blocks)
+    cnt_raw, sum_raw = _qmc_indicator_terms(inp.nodes, torch.cat([f[None], fb]),
+                                            inp.glo, inp.ghi, inp.clo, inp.chi,
+                                            inp.tgt, float(x64.shape[0]))
+    cnt_raw, sum_raw = torch.stack([cnt_raw, sum_raw]).cpu()
+    ans = _select(ops, scale * cnt_raw[0], scale * sum_raw[0])
+    ops = np.asarray(ops)
+    scale_b = n_source / x64.shape[0]
+    e = np.stack([_estimates64(ops, scale_b, cnt_raw[1 + j], sum_raw[1 + j])
+                  for j in range(n_blocks)])
+    return ans, e.std(axis=0, ddof=1) / math.sqrt(n_blocks), n_blocks - 1
 
 
 def _qmc_box_answers(syn: KDESynopsis, qs: Sequence, n_qmc: int = 4096

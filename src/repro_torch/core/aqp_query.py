@@ -59,7 +59,8 @@ from .aqp_ci import (DEFAULT_CI_LEVEL, moments_1d, moments_box, norm_ppf,
                      t_ppf)
 from .aqp_multid import (batch_query_box, batch_query_box_grouped,
                          batch_query_qmc, batch_query_qmc_rff,
-                         grouped_family_moments, qmc_rff_se)
+                         grouped_family_moments, qmc_rff_answers_and_se,
+                         qmc_rff_se)
 from .kde import kde_eval_H
 
 ColumnKey = Union[None, str, Tuple[str, ...]]
@@ -710,12 +711,17 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
     if rff_entries:
         n = len(rff_entries)
         ops_np, lo, hi, tgt = padded(rff_entries, _pad_count(n))
-        ans = batch_query_qmc_rff(x, syn.H, rff, lo, hi, tgt, ops_np,
-                                  plan.scale, n_qmc=n_qmc)
         # feature-block batch-means: the exact path's sample-chunk CI would
         # cost the O(n) pass this backend avoids
-        se, dof = qmc_rff_se(rff, x, syn.H, lo, hi, tgt, ops_np, syn.n_source,
-                             n_qmc)
+        if backend == "cuda":
+            # one plan and one launch: the density and its feature blocks
+            ans, se, dof = qmc_rff_answers_and_se(rff, x, syn.H, lo, hi, tgt, ops_np,
+                                                  plan.scale, syn.n_source, n_qmc)
+        else:
+            ans = batch_query_qmc_rff(x, syn.H, rff, lo, hi, tgt, ops_np,
+                                      plan.scale, n_qmc=n_qmc)
+            se, dof = qmc_rff_se(rff, x, syn.H, lo, hi, tgt, ops_np, syn.n_source,
+                                 n_qmc)
         emit(rff_entries, ans[:n], se[:n], t_ppf(p, dof), "qmc:rff")
 
     if families and backend == "cuda":

@@ -31,7 +31,8 @@ __device__ __forceinline__ float dens_diff(float za, float zb) {
 // 2^x by one SFU op (ex2.approx.ftz.f32): no denormal fix-ups, a result
 // below 2^-126 is flushed to +0, and -inf gives +0.  Used where a flushed
 // term is far below the tolerance of the sum it enters (gh_fused.cu,
-// lscv_grid.cu, qmc_reduce.cu); the build has no global -ftz.
+// lscv_grid.cu, qmc_reduce.cu, pairwise_reduce.cu); the build has no global
+// -ftz.
 __device__ __forceinline__ float ex2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));

@@ -119,7 +119,16 @@ def rff_density(points, w, b, z):
     if points.device.type == "cpu":
         return ref.rff_density(points, w, b, z)
     return _rff.rff_density(points, w, b, z, tile=_rff.TILE,
-                            p_tile=_rff.P_TILE)
+                            threads=_rff.THREADS)
+
+
+def rff_density_blocks(points, w, b, z, n_blocks):
+    """(blocks (n_blocks, m), estimate (m,)): the raw dots of the feature
+    blocks and of all the features, in one launch of the rff_eval kernel."""
+    if points.device.type == "cpu":
+        return ref.rff_density_blocks(points, w, b, z, n_blocks)
+    return _rff.rff_density_blocks(points, w, b, z, n_blocks, tile=_rff.TILE,
+                                   threads=_rff.THREADS)
 
 
 def kde_eval(points, x, h):

@@ -323,6 +323,28 @@ def rff_density(points: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return torch.cat(parts)
 
 
+def rff_density_blocks(points: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       z: torch.Tensor, n_blocks: int):
+    """(blocks, estimate): `rff_density` over each feature block
+    [k cb, (k + 1) cb), cb = D // n_blocks, as (n_blocks, m), and over all
+    D features as the sum of the blocks and then the D mod n_blocks
+    remainder features, (m,)."""
+    nf = w.shape[0]
+    n_blocks = int(n_blocks)
+    if not 1 <= n_blocks <= max(nf, 1):
+        raise ValueError(f"n_blocks={n_blocks} must lie in [1, D={nf}]")
+    cb = nf // n_blocks
+    blocks = [rff_density(points, w[k * cb:(k + 1) * cb], b[k * cb:(k + 1) * cb],
+                          z[k * cb:(k + 1) * cb]) for k in range(n_blocks)]
+    est = blocks[0]
+    for blk in blocks[1:]:
+        est = est + blk
+    if n_blocks * cb < nf:
+        est = est + rff_density(points, w[n_blocks * cb:], b[n_blocks * cb:],
+                                z[n_blocks * cb:])
+    return torch.stack(blocks), est
+
+
 def kde_eval(points: torch.Tensor, x: torch.Tensor, h) -> torch.Tensor:
     """f^(points) per eq. (3), Gaussian kernel.  points: (m, d), x: (n, d)
     -> (m,)."""

@@ -30,7 +30,9 @@ statistically, and a reference fit carried across (`to_state` /
 Confidence intervals: splitting the D features into B blocks gives B
 unbiased density estimates per point (`block_densities`, rescaled by
 D / |block|); the batch-means SE over the blocks' query answers costs
-O(m D), the order of the estimate itself (`aqp_multid.qmc_rff_se`).
+O(m D), the order of the estimate itself (`aqp_multid.qmc_rff_se`), and
+on the card one launch gives the density and all its blocks
+(`densities_and_blocks`, `aqp_multid.qmc_rff_answers_and_se`).
 """
 from __future__ import annotations
 
@@ -58,25 +60,6 @@ def _mean_cos(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         proj = x[start:start + chunk] @ w.T + b[None, :]          # (c, D)
         acc = acc + torch.sum(torch.cos(proj), dim=0)
     return acc / max(n, 1)
-
-
-def _block_densities(points: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     z: torch.Tensor, norm: float, n_blocks: int) -> torch.Tensor:
-    """Per-feature-block densities, (n_blocks, m): block k rescales its
-    partial dot by D / |block| so each block is an unbiased estimate of the
-    same density.  Each block's dot is `ops.rff_density` on that block's
-    features: the rff_eval kernel on the card, its plain version on the
-    CPU."""
-    from repro_torch.kernels import ops as kops
-
-    D = w.shape[0]
-    db = D // n_blocks
-    rescale = D / db
-    return torch.stack([
-        norm * rescale * kops.rff_density(points, w[k * db:(k + 1) * db],
-                                          b[k * db:(k + 1) * db],
-                                          z[k * db:(k + 1) * db])
-        for k in range(n_blocks)])
 
 
 @register("rff")
@@ -149,8 +132,21 @@ class RFFSynopsis(DensitySynopsis):
     def block_densities(self, points, n_blocks: int = 8) -> torch.Tensor:
         """(n_blocks, m) per-feature-block density replicates, the CI
         pass's input."""
-        return _block_densities(self._points(points), self.w, self.b, self.z,
-                                self.norm, n_blocks)
+        return self.densities_and_blocks(points, n_blocks)[1]
+
+    def densities_and_blocks(self, points, n_blocks: int = 8):
+        """(f (m,), block replicates (n_blocks, m)): `eval_batch` and
+        `block_densities` from one `ops.rff_density_blocks` call (one launch
+        of the rff_eval kernel on the card, its plain version on the CPU).
+        Block k rescales its partial dot by D / |block|, so each block is an
+        unbiased estimate of the same density; the D mod n_blocks remainder
+        features are in the density and in no block."""
+        from repro_torch.kernels import ops as kops
+
+        blocks, est = kops.rff_density_blocks(self._points(points), self.w, self.b,
+                                              self.z, n_blocks)
+        D = self.n_features
+        return self.norm * est, self.norm * (D / (D // n_blocks)) * blocks
 
     @property
     def nbytes(self) -> int:
