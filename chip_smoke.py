@@ -11,9 +11,11 @@ non-zero and prints no result line):
   2. the main path at full size: a `TelemetryStore` of 32 768 rows per sample
      fed 1 000 000 streamed rows, PLUGIN fits on the pairwise kernel, one
      `store.query` of 1 024 mixed Range / Box / Eq specs through the aqp_batch
-     and aqp_boxes kernels; answers held against a float64 closed form of the
-     same synopses and against exact counts of the stream, launch counts
-     read, and the batch repeated for bit-identical answers from the caches;
+     and aqp_boxes kernels (one launch per range or box group for its
+     estimate and CI sums, no separate moment pass); answers held against a
+     float64 closed form of the same synopses and against exact counts of the
+     stream, launch counts read, and the batch repeated for bit-identical
+     answers from the caches;
   3. path A, the same store and specs with `selector="lscv_h"`: LSCV_h fits
      (two columns and the 3-column joint, 150 grid points each) on the
      sv_precompute and lscv_grid kernels, answers on aqp_batch / aqp_boxes,
@@ -43,10 +45,13 @@ non-zero and prints no result line):
   8. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
-     subsample; two launches of every kernel but sv_matrix, aqp_batch,
-     aqp_boxes and kde_eval on the same inputs giving the same bits; PLUGIN
-     and LSCV_h against the paper's sequential oracles; the kernel's own
-     eqs. 49/50 tile mapping exhaustively;
+     subsample (aqp_batch / aqp_boxes: all five sums of every call of the
+     main path and path A, and ranges far out in both tails, with their
+     answers and CI bounds against the "torch" backend's separate passes);
+     two launches of every kernel but sv_matrix and kde_eval on the same
+     inputs giving the same bits; PLUGIN and LSCV_h against the paper's
+     sequential oracles; the kernel's own eqs. 49/50 tile mapping
+     exhaustively;
   9. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
@@ -132,10 +137,13 @@ KERNEL_PATH = {"pairwise_scaled_ksum": "plugin", "aqp_batch_sums": "plugin",
                "aqp_box_sums": "plugin", "sv_matrix": "A", "lscv_grid_sums": "A",
                "gh_fused_sum": "B", "aqp_grouped_sums": "C", "qmc_box_reduce": "D exact",
                "rff_density": "D", "kde_eval": "E"}
-# the ops wrappers that launch each kernel: the engine runs a GROUP BY
-# group's families, a full-H group's estimate with its CI chunks, and an RFF
-# group's estimate with its feature blocks through the batched wrappers
+# the ops wrappers that launch each kernel: the engine runs a range or box
+# group's estimate with its CI sums, a GROUP BY group's families, a full-H
+# group's estimate with its CI chunks, and an RFF group's estimate with its
+# feature blocks through the batched wrappers
 WRAPPERS = {name: (name,) for name in TPU_KERNELS}
+WRAPPERS["aqp_batch_sums"] = ("aqp_batch_sums", "aqp_batch_moments")
+WRAPPERS["aqp_box_sums"] = ("aqp_box_sums", "aqp_box_moments")
 WRAPPERS["aqp_grouped_sums"] = ("aqp_grouped_sums", "aqp_grouped_moments")
 WRAPPERS["qmc_box_reduce"] = ("qmc_box_reduce", "qmc_box_reduce_split")
 WRAPPERS["rff_density"] = ("rff_density", "rff_density_blocks")
@@ -193,9 +201,9 @@ def recording(ops):
 def call_shape(name: str, args, kwargs) -> str:
     if name == "pairwise_scaled_ksum":
         return f"n={args[0].shape[0]} {kwargs.get('kind', args[2] if len(args) > 2 else 'k4')}"
-    if name == "aqp_batch_sums":
+    if name in ("aqp_batch_sums", "aqp_batch_moments"):
         return f"q={args[2].shape[0]} n={args[0].shape[0]}"
-    if name == "aqp_box_sums":
+    if name in ("aqp_box_sums", "aqp_box_moments"):
         return f"q={args[2].shape[0]} n={args[0].shape[0]} d={args[0].shape[1]}"
     if name == "lscv_grid_sums":
         return f"n={args[0].shape[0]} d={args[0].shape[1]} n_h={args[2].shape[0]}"
@@ -441,28 +449,71 @@ def repeat_query(torch, ops, store, specs, res, selector: str, what: str) -> dic
     return counts
 
 
+@contextlib.contextmanager
+def moment_passes(query_mod):
+    """Count the engine's calls of the separate CI moment passes
+    (`moments_1d`, `moments_box`) while the block runs."""
+    names = ("moments_1d", "moments_box")
+    made = dict.fromkeys(names, 0)
+    originals = {name: getattr(query_mod, name) for name in names}
+
+    def counted(name):
+        def wrapper(*args, **kwargs):
+            made[name] += 1
+            return originals[name](*args, **kwargs)
+        return wrapper
+
+    for name in names:
+        setattr(query_mod, name, counted(name))
+    try:
+        yield made
+    finally:
+        for name, fn in originals.items():
+            setattr(query_mod, name, fn)
+
+
+def check_one_launch_per_group(counts, calls, passes, what: str) -> None:
+    """Each range group (one per range column) and the box group answered
+    its estimate and CI from one moments launch (the recorded `calls`, where
+    given, all of the moments wrappers), with no moment pass."""
+    check(counts["aqp_batch_sums"] == len(RANGE_COLS) and counts["aqp_box_sums"] == 1
+          and (calls is None or (len(calls["aqp_batch_moments"]) == len(RANGE_COLS)
+                                 and len(calls["aqp_box_moments"]) == 1)),
+          f"{what}: aqp_batch / aqp_boxes launches {counts['aqp_batch_sums']} + "
+          f"{counts['aqp_box_sums']}, expected {len(RANGE_COLS)} + 1 moments launches")
+    check(passes == {"moments_1d": 0, "moments_box": 0},
+          f"{what}: the engine ran the separate CI moment passes {passes}")
+
+
 def main_path(torch, rt, store, specs, stream):
     """The PLUGIN path (PR 11's main path)."""
     ops = rt["ops"]
-    res, _, counts, calls = driven(torch, ops, "main path (PLUGIN) first query, fits included",
-                                   lambda: store.query(specs))
+    with moment_passes(rt["query"]) as passes:
+        res, _, counts, calls = driven(torch, ops,
+                                       "main path (PLUGIN) first query, fits included",
+                                       lambda: store.query(specs))
     check_answers(store, specs, stream, res, "plugin", ":cuda")
     n_axes = len(RANGE_COLS) + len(JOINT)
     check(counts["pairwise_scaled_ksum"] == 2 * n_axes,
           f"pairwise launched {counts['pairwise_scaled_ksum']} times, not Psi6 and Psi4 for "
           f"each of {n_axes} axes")
-    check(counts["aqp_batch_sums"] >= len(RANGE_COLS), "aqp_batch launches")
-    check(counts["aqp_box_sums"] >= 1, "aqp_boxes launches")
-    repeat_query(torch, ops, store, specs, res, "plugin", "main path")
+    check_one_launch_per_group(counts, calls, passes, "main path")
+    with moment_passes(rt["query"]) as passes:
+        counts2 = repeat_query(torch, ops, store, specs, res, "plugin", "main path")
+    check_one_launch_per_group(counts2, None, passes, "main path repeat")
+    print(f"main path: {counts['aqp_batch_sums']} aqp_batch + {counts['aqp_box_sums']} "
+          f"aqp_boxes launches per query (estimate and CI sums), no CI moment pass")
     return counts, calls
 
 
 def path_a(torch, rt, store, specs, stream):
     """Path A: the same store and specs served from LSCV_h fits."""
     ops = rt["ops"]
-    res, _, counts, calls = driven(
-        torch, ops, "path A (lscv_h) first query, fits included",
-        lambda: store.query(specs, selector="lscv_h"))
+    with moment_passes(rt["query"]) as passes:
+        res, _, counts, calls = driven(
+            torch, ops, "path A (lscv_h) first query, fits included",
+            lambda: store.query(specs, selector="lscv_h"))
+    check_one_launch_per_group(counts, calls, passes, "path A")
     n_fits = len(RANGE_COLS) + 1
     want = {k: 0 for k in counts}
     want.update(aqp_batch_sums=len(RANGE_COLS), aqp_box_sums=1, sv_matrix=n_fits,
@@ -472,7 +523,9 @@ def path_a(torch, rt, store, specs, stream):
     hs = {c: float(store.synopsis(c, "lscv_h").h) for c in RANGE_COLS}
     hs["joint"] = float(store.joint_synopsis(JOINT, "lscv_h").h)
     print(f"path A: LSCV_h h per fit (Sigma-whitened, served as a data-unit bandwidth): {hs}")
-    counts2 = repeat_query(torch, ops, store, specs, res, "lscv_h", "path A")
+    with moment_passes(rt["query"]) as passes:
+        counts2 = repeat_query(torch, ops, store, specs, res, "lscv_h", "path A")
+    check_one_launch_per_group(counts2, None, passes, "path A repeat")
     want2 = dict(want, sv_matrix=0, lscv_grid_sums=0)
     check(counts2 == want2, f"path A repeat launches {counts2}, expected {want2}")
     return counts, calls
@@ -510,22 +563,58 @@ def select_op(agg: str, cnt, sm):
     return {"count": cnt, "sum": sm}.get(agg, sm / cnt if cnt > 1e-3 else 0.0)
 
 
+def _phi_diff64(torch, za, zb):
+    """Phi(zb) - Phi(za) in float64 from the tail the pair sits in, by erfc
+    (a difference of ndtr values cancels in the far tails even in float64,
+    and torch's ndtr takes 1 + erf)."""
+    upper = za + zb > 0
+    u = torch.where(upper, za, -zb) * math.sqrt(0.5)
+    v = torch.where(upper, zb, -za) * math.sqrt(0.5)
+    return 0.5 * (torch.special.erfc(u) - torch.special.erfc(v))
+
+
+def _five_or_two(terms, q: int, moments: bool, slab: int = 64):
+    """Sums over the sample of the (c, s) that `terms(s0, s1)` gives for each
+    slab of queries: (sum c, sum s), or with `moments` the five CI sums
+    (sum c, sum s, sum c^2, sum s^2, sum c s), as float64 host arrays."""
+    parts = []
+    for s0 in range(0, q, slab):
+        c, s = terms(s0, s0 + slab)
+        parts.append([v.sum(1).cpu().numpy()
+                      for v in ((c, s, c * c, s * s, c * s) if moments else (c, s))])
+    return tuple(np.concatenate(col) for col in zip(*parts))
+
+
+def oracle_batch_dev(torch, x, h, a, b, moments: bool = False):
+    """oracle_batch in float64 on the card, tail-stable (x (n,), a/b (q,)
+    float64 tensors, h a float): unscaled (count, sum) per range, or with
+    `moments` the five CI sums."""
+    def terms(s0, s1):
+        za = (a[s0:s1, None] - x[None]) / h
+        zb = (b[s0:s1, None] - x[None]) / h
+        c = _phi_diff64(torch, za, zb)
+        d_phi = (torch.exp(-0.5 * zb * zb) - torch.exp(-0.5 * za * za)) / math.sqrt(2 * math.pi)
+        return c, x[None] * c - h * d_phi
+    return _five_or_two(terms, a.shape[0], moments)
+
+
 def oracle_boxes_dev(torch, x, h, lo, hi, tgt, moments: bool = False):
-    """oracle_boxes in float64 on the card (x (n,d), h (d,), lo/hi (q,d)
-    float64 tensors, tgt (q,) ints): unscaled (count, sum) per box, or with
-    `moments` the five CI sums (sum c, sum s, sum c^2, sum s^2, sum c s)."""
-    from torch.special import ndtr
-    za = (lo[:, None, :] - x[None]) / h
-    zb = (hi[:, None, :] - x[None]) / h
-    d_Phi = ndtr(zb) - ndtr(za)
-    d_phi = (torch.exp(-0.5 * zb * zb) - torch.exp(-0.5 * za * za)) / math.sqrt(2 * math.pi)
-    moment = x[None] * d_Phi - h * d_phi
-    t = torch.as_tensor(np.asarray(tgt), device=x.device)
-    sel = torch.arange(x.shape[1], device=x.device)[None, None, :] == t[:, None, None]
-    c = torch.prod(d_Phi, 2)
-    s = torch.prod(torch.where(sel, moment, d_Phi), 2)
-    terms = (c, s, c * c, s * s, c * s) if moments else (c, s)
-    return tuple(v.sum(1).cpu().numpy() for v in terms)
+    """oracle_boxes in float64 on the card, tail-stable (x (n,d), h (d,),
+    lo/hi (q,d) float64 tensors, tgt (q,) ints): unscaled (count, sum) per
+    box, or with `moments` the five CI sums (sum c, sum s, sum c^2, sum s^2,
+    sum c s)."""
+    t_all = torch.as_tensor(np.asarray(tgt), device=x.device)
+    axis = torch.arange(x.shape[1], device=x.device)
+
+    def terms(s0, s1):
+        za = (lo[s0:s1, None, :] - x[None]) / h
+        zb = (hi[s0:s1, None, :] - x[None]) / h
+        d_Phi = _phi_diff64(torch, za, zb)
+        d_phi = (torch.exp(-0.5 * zb * zb) - torch.exp(-0.5 * za * za)) / math.sqrt(2 * math.pi)
+        moment = x[None] * d_Phi - h * d_phi
+        sel = axis[None, None, :] == t_all[s0:s1, None, None]
+        return torch.prod(d_Phi, 2), torch.prod(torch.where(sel, moment, d_Phi), 2)
+    return _five_or_two(terms, lo.shape[0], moments)
 
 
 def path_c(torch, rt, store, gspecs, stream):
@@ -840,7 +929,7 @@ def path_e(torch, rt, store, specs):
 def all_range_bounds(torch, calls):
     """The bounds of all main-path range groups, concatenated: the extra
     aqp_batch shape (q = 512 here) of one launch per batch."""
-    made = calls["aqp_batch_sums"]
+    made = calls["aqp_batch_moments"]
     return (torch.cat([a[2] for a, _ in made]).contiguous(),
             torch.cat([a[3] for a, _ in made]).contiguous())
 
@@ -850,6 +939,134 @@ def held(a, b, rtol: float, atol: float, what: str) -> float:
     ok, err = close(a, b, rtol, atol)
     check(ok, f"{what}: max abs error {err} beyond rtol {rtol} atol {atol}")
     return err
+
+
+def _host(v):
+    return v.cpu() if hasattr(v, "cpu") else v
+
+
+def held_five(k, p, what: str, atol: float = None) -> float:
+    """The five moment sums of a kernel call (5, q) against the same from a
+    plain version or an oracle, each at AQP_RTOL with CNT_ATOL on the sums
+    of c and c^2 and SUM_ATOL on those that hold s (or `atol` for all)."""
+    return max(held(_host(k[t]), _host(p[t]), AQP_RTOL,
+                    atol if atol is not None else (CNT_ATOL if t in (0, 2) else SUM_ATOL),
+                    f"{what} sum {t}")
+               for t in range(5))
+
+
+def range_box_vs_plain(torch, rt, calls, what: str) -> dict:
+    """All five sums of every recorded aqp_batch / aqp_boxes call of a path
+    (the engine calls the moments wrappers only) against the plain version
+    and the float64 oracle; the first call of each launched twice for the
+    same bits.  Returns {kernel: max abs error against the plain version}."""
+    ops, ref = rt["ops"], rt["ref"]
+    out = {}
+    for name, wrapper in (("aqp_batch_sums", "aqp_batch_moments"),
+                          ("aqp_box_sums", "aqp_box_moments")):
+        made = calls[wrapper]
+        check(len(made) > 0 and not calls[name],
+              f"{what}: {name} launched other than through {wrapper}")
+        errs = []
+        for args, kw in made:
+            k = getattr(ops, wrapper)(*args, **kw)
+            shape = call_shape(wrapper, args, kw)
+            errs.append(held_five(k, getattr(ref, wrapper)(*args, **kw),
+                                  f"{what} {wrapper} {shape}"))
+            if wrapper == "aqp_batch_moments":
+                x, h, a, b = args
+                five64 = oracle_batch_dev(torch, x.double(), float(h), a.double(), b.double(),
+                                          moments=True)
+            else:
+                x, h, lo, hi, tg = args
+                five64 = oracle_boxes_dev(torch, x.double(), h.double(), lo.double(),
+                                          hi.double(), tg.cpu().numpy(), moments=True)
+            held_five(k, five64, f"{what} {wrapper} {shape} vs float64")
+        args, kw = made[0]
+        check(torch.equal(getattr(ops, wrapper)(*args, **kw), getattr(ops, wrapper)(*args, **kw)),
+              f"{what} {wrapper}: two launches on the same inputs differ")
+        out[name] = max(errs)
+        print(f"{what}: {len(made)} {wrapper} calls ({call_shape(wrapper, *made[0])} first) "
+              f"match plain on all five sums, max |err| {out[name]:.3g}, and float64; two "
+              f"launches give the same bits")
+    return out
+
+
+def range_box_tails(torch, rt, calls) -> None:
+    """Ranges far out in both tails of the first main-path range group's
+    sample (the nearest point 1 to 12 bandwidths away), and the same ranges
+    on the first axis of boxes over the joint whose other axes cover every
+    row: all five sums against float64 at AQP_RTOL with an atol of 1e-30
+    (a far-tail term of 1e-36 squared underflows float32)."""
+    ops = rt["ops"]
+    x, h = calls["aqp_batch_moments"][0][0][:2]
+    hv, lo_x, hi_x = float(h), float(x.min()), float(x.max())
+    k_near = np.asarray([1.0, 2.0, 4.0, 6.0, 8.0, 10.0, 12.0])
+    width = np.asarray([0.5, 1.0, 2.0, 3.0, 1.0, 2.0, 0.5])
+    a = np.concatenate([hi_x + hv * k_near, lo_x - hv * (k_near + width)])
+    b = np.concatenate([hi_x + hv * (k_near + width), lo_x - hv * k_near])
+    a_t = torch.as_tensor(a.astype(np.float32), device=x.device)
+    b_t = torch.as_tensor(b.astype(np.float32), device=x.device)
+    k = ops.aqp_batch_moments(x, h, a_t, b_t)
+    five64 = oracle_batch_dev(torch, x.double(), hv, a_t.double(), b_t.double(), moments=True)
+    held_five(k, five64, "aqp_batch far tails vs float64", atol=1e-30)
+    xj, h_d = calls["aqp_box_moments"][0][0][:2]
+    axis0 = xj[:, 0]
+    h0, lo0, hi0 = float(h_d[0]), float(axis0.min()), float(axis0.max())
+    a0 = np.concatenate([hi0 + h0 * k_near, lo0 - h0 * (k_near + width)])
+    b0 = np.concatenate([hi0 + h0 * (k_near + width), lo0 - h0 * k_near])
+    q = a0.shape[0]
+    span_lo = (xj.min(0).values - 20.0 * h_d).cpu().numpy()
+    span_hi = (xj.max(0).values + 20.0 * h_d).cpu().numpy()
+    lo = np.tile(span_lo, (q, 1))
+    hi = np.tile(span_hi, (q, 1))
+    lo[:, 0], hi[:, 0] = a0, b0
+    tgt = np.arange(q) % xj.shape[1]
+    lo_t = torch.as_tensor(lo.astype(np.float32), device=xj.device)
+    hi_t = torch.as_tensor(hi.astype(np.float32), device=xj.device)
+    k = ops.aqp_box_moments(xj, h_d, lo_t, hi_t,
+                            torch.as_tensor(tgt.astype(np.int32), device=xj.device))
+    five64 = oracle_boxes_dev(torch, xj.double(), h_d.double(), lo_t.double(), hi_t.double(),
+                              tgt, moments=True)
+    held_five(k, five64, "aqp_boxes far tails vs float64", atol=1e-30)
+    print(f"aqp_batch / aqp_boxes: {len(a)} ranges 1-12 bandwidths past both ends of the "
+          f"sample (boxes: on the joint's first axis, targets on every axis) match float64 "
+          f"at rtol {AQP_RTOL} on all five sums (counts down to "
+          f"{float(k[0].abs().min()):.3g})")
+
+
+def ci_vs_torch_backend(torch, rt, calls) -> None:
+    """Each main-path range and box call's answers and 95 % CI bounds from
+    its one moments launch (`range_answers_and_se`, `box_answers_and_se`)
+    against the "torch" backend's separate estimate and moment passes on
+    the same inputs, COUNT / SUM / AVG in turn, at the parity tests' rtol
+    1e-4 with an atol of 1e-4 x scale."""
+    aqp, md, ci = rt["aqp"], rt["aqp_multid"], rt["aqp_ci"]
+    scale = STREAM_ROWS / CAPACITY
+    z = ci.norm_ppf(0.975)
+    worst = 0.0
+    for wrapper in ("aqp_batch_moments", "aqp_box_moments"):
+        for args, _ in calls[wrapper]:
+            q, m = args[2].shape[0], args[0].shape[0]
+            ops_np = (np.arange(q) % 3).astype(np.int32)
+            ops_t = torch.as_tensor(ops_np, device=args[0].device)
+            if wrapper == "aqp_batch_moments":
+                ans, se = ci.range_answers_and_se(*args, ops_np, scale, m)
+                ans_p = aqp.batch_query_1d(*args, ops_t, scale, backend="torch")
+                se_p = ci.se_from_moments(ops_np, ci.moments_1d(*args), scale, m)
+            else:
+                ans, se = ci.box_answers_and_se(*args, ops_np, scale, m)
+                ans_p = md.batch_query_box(*args, ops_t, scale, backend="torch")
+                se_p = ci.se_from_moments(ops_np, ci.moments_box(*args), scale, m)
+            ans, ans_p = ans.double().numpy(), ans_p.double().cpu().numpy()
+            for got, want, what in ((ans, ans_p, "answers"),
+                                    (ans - z * se, ans_p - z * se_p, "CI lo"),
+                                    (ans + z * se, ans_p + z * se_p, "CI hi")):
+                worst = max(worst, held(got, want, 1e-4, 1e-4 * scale,
+                                        f"{wrapper} {call_shape(wrapper, args, {})} {what} vs "
+                                        f"the torch backend"))
+    print(f"range / box answers and CI bounds from one moments launch match the torch "
+          f"backend's separate passes (max |err| {worst:.3g})")
 
 
 def kernels_vs_plain(torch, rt, calls, calls_c):
@@ -916,75 +1133,45 @@ def kernels_vs_plain(torch, rt, calls, calls_c):
     check(abs(h_k - h_seq) / h_seq < 1e-3, f"PLUGIN h {h_k} vs sequential {h_seq}")
     print(f"PLUGIN n=512: kernel path h {h_k!r}, sequential oracle {h_seq!r}")
 
-    # aqp_batch on each main-path range group: a column's synopsis with the
-    # group's padded bounds
-    errs = []
-    for args, kw in calls["aqp_batch_sums"]:
-        k = ops.aqp_batch_sums(*args, **kw)
-        p = ref.aqp_batch_sums(*args, **kw)
-        what = f"aqp_batch {call_shape('aqp_batch_sums', args, kw)}"
-        errs += [held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, what + " count"),
-                 held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, what + " sum")]
-    out["aqp_batch_sums"] = max(errs)
-    x, h, a, b = calls["aqp_batch_sums"][0][0]
-    k = ops.aqp_batch_sums(x[:4096].contiguous(), h, a[:64].contiguous(), b[:64].contiguous())
-    c64, s64 = oracle_batch(x[:4096].cpu().numpy(), float(h), a[:64].cpu().numpy(),
-                            b[:64].cpu().numpy())
-    held(k[0].cpu(), c64, AQP_RTOL, CNT_ATOL, "aqp_batch count vs float64")
-    held(k[1].cpu(), s64, AQP_RTOL, SUM_ATOL, "aqp_batch sum vs float64")
-    print(f"aqp_batch: {len(calls['aqp_batch_sums'])} main-path calls "
-          f"({call_shape('aqp_batch_sums', (x, h, a, b), {})}) "
-          f"match plain, max |err| {max(errs):.3g}; n=4096 q=64 within tolerance of float64")
+    # aqp_batch / aqp_boxes: all five sums of each main-path call against the
+    # plain version and float64, far tails, the CI against the "torch" pass
+    out.update(range_box_vs_plain(torch, rt, calls, "main path"))
+    range_box_tails(torch, rt, calls)
+    ci_vs_torch_backend(torch, rt, calls)
     # an extra shape: every range group's bounds against the first synopsis
+    x, h = calls["aqp_batch_moments"][0][0][:2]
     a_t, b_t = all_range_bounds(torch, calls)
-    k = ops.aqp_batch_sums(x, h, a_t, b_t)
-    p = ref.aqp_batch_sums(x, h, a_t, b_t)
-    held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, "aqp_batch q=512 count")
-    held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, "aqp_batch q=512 sum")
-    for n, qn in ((1, 1), (4097, 3), (4097, 0), (0, 5)):
+    held_five(ops.aqp_batch_moments(x, h, a_t, b_t), ref.aqp_batch_moments(x, h, a_t, b_t),
+              f"aqp_batch q={a_t.shape[0]}")
+    # edge shapes: n, q = 0 and 1, a range or a query tile and one more, d = 1..8
+    for n, qn in ((1, 1), (4097, 3), (4097, 0), (0, 5), (33, 31), (32_768 + 5, 33)):
         xs = torch.as_tensor(rng.normal(0, 2, n).astype(np.float32), device=dev)
         aa = torch.as_tensor(rng.uniform(-8, 8, qn).astype(np.float32), device=dev)
         bb = aa + 2.0
         hh = torch.tensor(0.3, device=dev)
-        k = ops.aqp_batch_sums(xs, hh, aa, bb)
-        p = ref.aqp_batch_sums(xs, hh, aa, bb)
-        check(k[0].shape == (qn,), f"aqp_batch n={n} q={qn} shape")
-        held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, f"aqp_batch n={n} q={qn} count")
-        held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, f"aqp_batch n={n} q={qn} sum")
-
-    # aqp_boxes on the main path's box group: the joint synopsis, its boxes
-    errs = []
-    for args, kw in calls["aqp_box_sums"]:
-        k = ops.aqp_box_sums(*args, **kw)
-        p = ref.aqp_box_sums(*args, **kw)
-        what = f"aqp_boxes {call_shape('aqp_box_sums', args, kw)}"
-        errs += [held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, what + " count"),
-                 held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, what + " sum")]
-    out["aqp_box_sums"] = max(errs)
-    xj, h_d, lo, hi, tg = calls["aqp_box_sums"][0][0]
-    k = ops.aqp_box_sums(xj[:4096].contiguous(), h_d, lo[:64].contiguous(),
-                         hi[:64].contiguous(), tg[:64].contiguous())
-    c64, s64 = oracle_boxes(xj[:4096].cpu().numpy(), h_d.cpu().numpy(), lo[:64].cpu().numpy(),
-                            hi[:64].cpu().numpy(), tg[:64].cpu().numpy())
-    held(k[0].cpu(), c64, AQP_RTOL, CNT_ATOL, "aqp_boxes count vs float64")
-    held(k[1].cpu(), s64, AQP_RTOL, SUM_ATOL, "aqp_boxes sum vs float64")
-    print(f"aqp_boxes: {len(calls['aqp_box_sums'])} main-path call "
-          f"({call_shape('aqp_box_sums', (xj, h_d, lo, hi, tg), {})}) match plain, "
-          f"max |err| {max(errs):.3g}; n=4096 q=64 within tolerance of float64")
-    for n, qn, d in ((1, 1, 1), (4097, 1, 1), (4097, 5, 2), (4097, 0, 3), (0, 4, 2)):
+        k = ops.aqp_batch_moments(xs, hh, aa, bb)
+        check(k.shape == (5, qn), f"aqp_batch n={n} q={qn} shape")
+        held_five(k, ref.aqp_batch_moments(xs, hh, aa, bb), f"aqp_batch n={n} q={qn}")
+        cnt, sm = ops.aqp_batch_sums(xs, hh, aa, bb)
+        check(torch.equal(cnt, k[0]) and torch.equal(sm, k[1]),
+              f"aqp_batch_sums n={n} q={qn}: not the moments launch's first two rows")
+    for n, qn, d in [(1, 1, 1), (4097, 1, 1), (4097, 5, 2), (4097, 0, 3), (0, 4, 2),
+                     (33, 31, 3)] + [(700 + d, 9, d) for d in range(1, 9)]:
         xs = torch.as_tensor(rng.normal(0, 1.5, (n, d)).astype(np.float32), device=dev)
         hh = torch.as_tensor(rng.uniform(0.2, 0.8, d).astype(np.float32), device=dev)
         ll = torch.as_tensor(rng.uniform(-3, 1, (qn, d)).astype(np.float32), device=dev)
         uu = ll + 1.5
         tt = torch.as_tensor(rng.integers(0, d, qn).astype(np.int32), device=dev)
-        k = ops.aqp_box_sums(xs, hh, ll, uu, tt)
-        p = ref.aqp_box_sums(xs, hh, ll, uu, tt)
-        check(k[0].shape == (qn,), f"aqp_boxes n={n} q={qn} d={d} shape")
-        held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, f"aqp_boxes n={n} q={qn} d={d} count")
-        held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, f"aqp_boxes n={n} q={qn} d={d} sum")
-    print(f"extra shape aqp_batch q={a_t.shape[0]}; edge shapes n=0/1/2/4097, q=0/1, d=1/2/3 "
-          f"(aqp), n=1/2/3/127-129/{tile - 1}-{tile + 1}/{3 * tile + 5}/4097 (pairwise, every "
-          "kind): kernels match plain versions")
+        k = ops.aqp_box_moments(xs, hh, ll, uu, tt)
+        check(k.shape == (5, qn), f"aqp_boxes n={n} q={qn} d={d} shape")
+        held_five(k, ref.aqp_box_moments(xs, hh, ll, uu, tt), f"aqp_boxes n={n} q={qn} d={d}")
+        cnt, sm = ops.aqp_box_sums(xs, hh, ll, uu, tt)
+        check(torch.equal(cnt, k[0]) and torch.equal(sm, k[1]),
+              f"aqp_box_sums n={n} q={qn} d={d}: not the moments launch's first two rows")
+    print(f"extra shape aqp_batch q={a_t.shape[0]}; edge shapes n=0/1/33/4097/32773, "
+          f"q=0/1/3/31/33, d=1..8 (aqp, five sums; the two-sum wrappers are the moments "
+          f"launch's first rows), n=1/2/3/127-129/{tile - 1}-{tile + 1}/{3 * tile + 5}/4097 "
+          f"(pairwise, every kind): kernels match plain versions")
     torch.cuda.synchronize()
     return out
 
@@ -1031,23 +1218,15 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d):
     path B and the first 1-D call of path D (gh_fused_sum), at edge shapes
     (n not a multiple of a tile, d = 1..8 for gh_fused_sum), and against
     float64; two launches of lscv_grid_sums and gh_fused_sum on the same
-    inputs give the same bits; path A's aqp_batch / aqp_boxes calls against
-    theirs; LSCV_h at n = 512 on the card against the paper's sequential
-    float64 oracle."""
+    inputs give the same bits; all five sums of path A's aqp_batch /
+    aqp_boxes calls against theirs and float64; LSCV_h at n = 512 on the
+    card against the paper's sequential float64 oracle."""
     ops, ref, lscv = rt["ops"], rt["ref"], rt["lscv"]
     dev = torch.device(DEV)
     rng = np.random.default_rng(11)
     out = {}
 
-    for name in ("aqp_batch_sums", "aqp_box_sums"):
-        for args, kw in calls_a[name]:
-            k = getattr(ops, name)(*args, **kw)
-            p = getattr(ref, name)(*args, **kw)
-            what = f"path A {name} {call_shape(name, args, kw)}"
-            held(k[0].cpu(), p[0].cpu(), AQP_RTOL, CNT_ATOL, what + " count")
-            held(k[1].cpu(), p[1].cpu(), AQP_RTOL, SUM_ATOL, what + " sum")
-    print(f"path A: {len(calls_a['aqp_batch_sums'])} aqp_batch and "
-          f"{len(calls_a['aqp_box_sums'])} aqp_boxes calls (LSCV_h bandwidths) match plain")
+    range_box_vs_plain(torch, rt, calls_a, "path A (LSCV_h bandwidths)")
 
     errs = []
     for args, kw in calls_a["sv_matrix"]:
@@ -1394,10 +1573,9 @@ def time_ms(torch, fn, reps: int = 15, warm: int = 3) -> float:
 # (k6: an add and three FMAs; k4: an add and two FMAs; the Gaussian: the
 # add)
 PAIR_OPS = {"k6": 10, "k4": 8, "gauss": 4}
-# SFU (MUFU) instructions per erfcf on its fast path, one ex2 and one
-# reciprocal: aqp_batch_tiles' SASS (scripts/bench_lscv_kernels.py --sass)
-# holds 4 EX2 for the 2 erfcf and 2 expf of its loop, and the RCPs of the
-# erfcf and their slow paths
+# SFU (MUFU) instructions per erfc: common.cuh's erfc_gauss takes one ex2
+# and one reciprocal, and its ex2 is also the exponential of the density of
+# eq. 10, so a first moment's density difference takes none of its own
 MUFU_ERFC = 2
 
 
@@ -1412,13 +1590,15 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
     a reciprocal one, a cos.approx one); the caller turns them into the SFU floor at the SM clock it
     reads.  Per unit of work, FLOPs / SFU ops:
       pairwise_scaled_ksum: PAIR_OPS / 1 per pair;
-      aqp_batch_sums: 24 / (2 erfc + 2 exp) per (query, point): z_a, z_b
-        (sub, mul each), the Phi difference (add, 2 mul, 2 erfc, sub, mul),
-        the count add, the density difference (2 x square, mul, exp; sub,
-        mul) and the moment (FMA, mul, add);
-      aqp_box_sums: 13 / 2 erfc per (query, row, axis) (z_a, z_b, the Phi
-        difference, two products) and 14 / 2 exp per (query, row) (count
-        add; the target's density difference, FMA, mul, product, add);
+      aqp_batch_moments: 30 / 2 erfc per (query, point): z_a, z_b (sub,
+        mul each), the Phi difference (add, 2 mul, 2 erfc, sub, mul), the
+        count add, the density difference (2 x square, mul, exp; sub, mul),
+        the moment (FMA, mul, add) and the three FMAs of c^2, s^2, c s; the
+        density's two exponentials are the erfcs' own (erfc_gauss), so they
+        take no SFU op of their own;
+      aqp_box_moments: 13 / 2 erfc per (query, row, axis) (z_a, z_b, the Phi
+        difference, two products) and 20 per (query, row) (count add; the
+        target's density difference, FMA, mul, product, add; three FMAs);
       sv_matrix: d subs, the quadratic form (d rows of d - a products each
         and the sum of d products: d + 1 multiplies, d(d-1)/2 + d - 1 FMAs)
         per pair: d^2 + 3d - 1 / none;
@@ -1431,12 +1611,13 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
       aqp_grouped_moments (F families over W window tables in one call):
         per (row, window of a table) the Phi difference, 11 / 2 erfc (z_a,
         z_b: sub, mul each; the tail select's add, 2 mul, 2 erfc, sub, mul),
-        and 11 / 2 exp more for its first moment where a family with the
-        group axis as target uses the table; per (row, family, kept axis)
-        the same 11 / 2 erfc and the product's mul; per (row, family) with
-        the target on a kept axis its first moment, 11 / 2 exp; per (row,
-        family, category) 10 (two products, two adds, three FMAs for the
-        squares and the cross product: 7 instructions);
+        and 11 more for its first moment where a family with the group axis
+        as target uses the table; per (row, family, kept axis) the same
+        11 / 2 erfc and the product's mul; per (row, family) with the
+        target on a kept axis its first moment, 11; per (row, family,
+        category) 10 (two products, two adds, three FMAs for the squares
+        and the cross product: 7 instructions); the first moments'
+        exponentials are the erfcs' own;
       qmc_box_reduce_split (K row chunks): d subs, the quadratic form (d
         sums of d products, d multiplies and d^2 - d FMAs, then the sum of
         the d products with log_norm, d FMAs), exp, add per (node, row):
@@ -1455,17 +1636,17 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         nbytes = 4 * n + 4 + 4
         pairs = n * (n - 1) // 2
         ops, mufu = PAIR_OPS[kwargs["kind"]] * pairs, pairs
-    elif name == "aqp_batch_sums":
+    elif name == "aqp_batch_moments":
         x, _h, a, _b = args
         n, q = x.shape[0], a.shape[0]
-        nbytes = 4 * n + 4 + 8 * q + 8 * q
-        ops, mufu = 24 * n * q, (2 * MUFU_ERFC + 2) * n * q
-    elif name == "aqp_box_sums":
+        nbytes = 4 * n + 4 + 8 * q + 20 * q
+        ops, mufu = 30 * n * q, 2 * MUFU_ERFC * n * q
+    elif name == "aqp_box_moments":
         x, _h, lo, _hi, _t = args
         (n, d), q = x.shape, lo.shape[0]
-        nbytes = 4 * n * d + 4 * d + 8 * q * d + 4 * q + 8 * q
-        ops = (13 * d + 14) * n * q
-        mufu = (2 * MUFU_ERFC * d + 2) * n * q
+        nbytes = 4 * n * d + 4 * d + 8 * q * d + 4 * q + 20 * q
+        ops = (13 * d + 20) * n * q
+        mufu = 2 * MUFU_ERFC * d * n * q
     elif name == "sv_matrix":
         n, d = args[0].shape
         nbytes = 4 * n * d + 4 * d * d + 4 * n * n
@@ -1490,8 +1671,7 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         kept_tgt = sum(g != t for _, g, t in fams)
         ops = (n * G * (11 * len(tables) + 11 * len(self_tables))
                + n * F * (d - 1) * 12 + n * kept_tgt * 11 + n * F * G * 10)
-        mufu = (n * G * (2 * MUFU_ERFC * len(tables) + 2 * len(self_tables))
-                + n * F * (d - 1) * 2 * MUFU_ERFC + n * kept_tgt * 2)
+        mufu = n * G * 2 * MUFU_ERFC * len(tables) + n * F * (d - 1) * 2 * MUFU_ERFC
     elif name == "qmc_box_reduce_split":
         (m, d), n, q, k = args[0].shape, args[1].shape[0], args[4].shape[0], args[7]
         nbytes = 4 * (m * d + n * d + d * d + 1 + 2 * q * d + q) + 8 * q * (k + 1)
@@ -1575,13 +1755,13 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx):
               f"plain {p1:.4f} / {p2:.4f} ms (median of {reps}), bound {b:.4f} ms ({by}), "
               f"SFU floor {sfu:.4f} ms ({mufu} MUFU at {mhz:.0f} MHz); no single PyTorch "
               f"call computes it (library_ms null)")
-    x, h = main_calls["aqp_batch_sums"][0][0][:2]
+    x, h = main_calls["aqp_batch_moments"][0][0][:2]
     a, b = all_range_bounds(torch, main_calls)
-    k1 = time_ms(torch, lambda: ops.aqp_batch_sums(x, h, a, b))
-    k2 = time_ms(torch, lambda: ops.aqp_batch_sums(x, h, a, b))
-    print(f"time aqp_batch_sums extra shape ({call_shape('aqp_batch_sums', (x, h, a, b), {})}, "
-          f"all range groups in one launch): kernel {k1:.4f} / {k2:.4f} ms, "
-          f"bound {bound_ms('aqp_batch_sums', (x, h, a, b), {})[0]:.4f} ms")
+    k1 = time_ms(torch, lambda: ops.aqp_batch_moments(x, h, a, b))
+    k2 = time_ms(torch, lambda: ops.aqp_batch_moments(x, h, a, b))
+    print(f"time aqp_batch_sums extra shape ({call_shape('aqp_batch_moments', (x, h, a, b), {})}"
+          f", all range groups in one launch): kernel {k1:.4f} / {k2:.4f} ms, "
+          f"bound {bound_ms('aqp_batch_moments', (x, h, a, b), {})[0]:.4f} ms")
     x, m = calls_a["sv_matrix"][-1][0][:2]
     k1 = time_ms(torch, lambda: ops.sv_matrix(x, m))
     k2 = time_ms(torch, lambda: ops.sv_matrix(x, m))
@@ -1623,11 +1803,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import synopses
-    from repro_torch.core import aqp, aqp_multid, aqp_query, kde, lscv, plugin
+    from repro_torch.core import aqp, aqp_ci, aqp_multid, aqp_query, kde, lscv, plugin
     from repro_torch.data import aqp_store
     from repro_torch.kernels import _build, lscv_grid, ops, pairwise_reduce, ref, rff_eval
     rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
           "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
+          "aqp_ci": aqp_ci,
           "lscv_grid": lscv_grid, "rff_eval": rff_eval,
           "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses}
     t_start = time.perf_counter()

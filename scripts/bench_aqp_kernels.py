@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Time the port's serving paths on one CUDA device, at chip_smoke.py's
 store (32 768-row reservoirs fed 1 000 000 streamed rows from `--seed`):
-the warm path C query (104 GROUP BY specs over model_id), the warm path D
-exact query (the 1 024-spec mix with selector "lscv_H" and kde_backend
-"exact"), the warm path D query with kde_backend "auto" (RFF groups where
-the probe gate passes), and a PLUGIN refit of the main path's five axes;
-and the kernel calls that each makes (aqp_grouped, qmc_reduce, rff_eval,
-pairwise), replayed alone.
+the warm main-path query (the 1 024-spec mix with selector "plugin"), the
+same with "lscv_h" (path A), the warm path C query (104 GROUP BY specs over
+model_id), the warm path D exact query (the 1 024-spec mix with selector
+"lscv_H" and kde_backend "exact"), the warm path D query with kde_backend
+"auto" (RFF groups where the probe gate passes), and a PLUGIN refit of the
+main path's five axes; and the kernel calls that each makes (aqp_batch,
+aqp_boxes, aqp_grouped, qmc_reduce, rff_eval, pairwise), replayed alone.
 
     python3 scripts/bench_aqp_kernels.py [--root DIR] [--label TEXT]
                                          [--reps N] [--splits]
-                                         [--paths c,d_exact,d_auto,plugin]
+                                         [--paths plugin_warm,a_warm,c,...]
                                          [--set FILE:NAME=VALUE] [--sass]
 
 `--root` times the `repro_torch` of another checkout (its kernels build
@@ -21,21 +22,26 @@ public API (`TelemetryStore.query`, `shared_engine`), so both sides answer
 the same queries; the fits are made once, before any timing.  `--splits`
 adds one more run of each query with CUDA-synced host wall time per engine
 function (those of `core/aqp_query.py`'s imports that the checkout has),
-and device kernel time by name from `torch.profiler`.
+and device kernel time by name and the count of device kernels and copies
+per query from `torch.profiler`.
 
 Prints one JSON line: per query the warm walls (ms, every rep) and the
 interpreter's full (generation 2) collections during them, the kernel
 replay time (median of CUDA-event windows over the query's recorded calls
-of the two kernels), and per full-H group the replay of its calls; the
+of the kernels), and per full-H group the replay of its calls; the
 card's name, power limit and SM clock sampled after each section.
-`--paths` picks the sections (default: all).  The PLUGIN section times the
+`--paths` picks the sections (default: all).  The plugin_warm and a_warm
+sections replay their range and box groups' aqp_batch / aqp_boxes calls and
+give their device time by kernel and the wrappers' host time (the calls
+issued without a device sync).  The PLUGIN section times the
 refit (CUDA-synced wall of `plugin_bandwidth` on the five axes' samples)
 and replays its ten pairwise calls; the D auto section replays each RFF
 group's rff_eval calls.  `--set` times a variant: it copies the timed
 checkout's `src/repro_torch` into a temporary directory and sets
 `constexpr NAME` in `kernels/csrc/FILE` (a .cu) or the module constant
 `NAME` in `kernels/FILE` (a .py) to VALUE there (repeatable).  `--sass`
-prints, for the pairwise and rff_eval kernels of the timed checkout, the
+prints, for the pairwise, rff_eval, aqp_batch and aqp_boxes kernels of the
+timed checkout, the
 instructions of each loop by opcode, all of them and those of its hot
 path, from `cuobjdump -sass`; every run prints their registers per thread
 from the ptxas logs.
@@ -58,16 +64,20 @@ import numpy as np
 from bench_lscv_kernels import cuobjdump_sass, smi, time_ms, variant_root
 
 REPO = Path(__file__).resolve().parents[1]
-KERNEL_WRAPPERS = ("aqp_grouped_sums", "aqp_grouped_moments", "qmc_box_reduce",
-                   "qmc_box_reduce_split", "rff_density", "rff_density_blocks",
-                   "pairwise_scaled_ksum")
-PATHS = ("c", "d_exact", "d_auto", "plugin")
+KERNEL_WRAPPERS = ("aqp_batch_sums", "aqp_batch_moments", "aqp_box_sums",
+                   "aqp_box_moments", "aqp_grouped_sums", "aqp_grouped_moments",
+                   "qmc_box_reduce", "qmc_box_reduce_split", "rff_density",
+                   "rff_density_blocks", "pairwise_scaled_ksum")
+PATHS = ("plugin_warm", "a_warm", "c", "d_exact", "d_auto", "plugin")
 # engine functions timed by --splits, where the checkout's aqp_query has
 # them: compiling the specs (GROUP BY expansion), _execute (resolving each
 # entry, the groups' passes and the result rows), and inside it the
-# per-entry resolution and each group's pass with its parts
+# per-entry resolution and each group's pass with its parts (a range or box
+# group's estimate and CI moment passes, or its one-launch helper)
 ENGINE_FUNCS = ("QueryEngine.compile", "_execute", "_StoreResolver.__call__",
-                "_StoreResolver.try_exact", "_run_group", "grouped_family_moments",
+                "_StoreResolver.try_exact", "_run_group", "batch_query_1d",
+                "batch_query_box", "moments_1d", "range_answers_and_se",
+                "box_answers_and_se", "grouped_family_moments",
                 "batch_query_box_grouped", "moments_box", "se_from_moments",
                 "qmc_answers_and_se", "batch_query_qmc", "qmc_subsample_se",
                 "qmc_rff_answers_and_se", "batch_query_qmc_rff", "qmc_rff_se")
@@ -107,8 +117,10 @@ def sass_functions(build_dir: Path, libs) -> list:
                     for a, op, pr, t, lb in ins]) for name, ins in out]
 
 
-def sass_loops(build_dir: Path, libs=("pairwise_reduce", "rff_eval"),
-               funcs=("pairwise_tiles", "rff_tiles")) -> dict:
+def sass_loops(build_dir: Path,
+               libs=("pairwise_reduce", "rff_eval", "aqp_batch", "aqp_boxes"),
+               funcs=("pairwise_tiles", "rff_tiles", "aqp_batch_tiles", "aqp_box_tiles")
+               ) -> dict:
     """{kernel function: [loop]} from cuobjdump -sass: every loop (the
     instructions from a backward branch's target to the branch) with its
     opcode counts ("all") and those of its hot path ("hot": the basic
@@ -170,7 +182,8 @@ def sass_loops(build_dir: Path, libs=("pairwise_reduce", "rff_eval"),
     return out
 
 
-def ptxas_registers(build_mod, names=("pairwise_reduce", "rff_eval")) -> dict:
+def ptxas_registers(build_mod, names=("pairwise_reduce", "rff_eval", "aqp_batch",
+                                      "aqp_boxes")) -> dict:
     """{kernel function: registers per thread} from the build's ptxas logs."""
     out = {}
     for name in names:
@@ -224,6 +237,21 @@ def replay_ms(torch, ops, calls, reps: int) -> float:
         torch, lambda: [getattr(ops, w)(*a, **k) for w, a, k in calls], reps)))
 
 
+def host_ms(torch, ops, calls, reps: int) -> float:
+    """Median host time (ms) of issuing the recorded calls once, without a
+    device sync inside the window (the wrappers' own work: checks,
+    allocation, the launch), each run after the device has drained."""
+    out = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w, a, k in calls:
+            getattr(ops, w)(*a, **k)
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(out[2:]))
+
+
 def split_walls(torch, query_mod, fn) -> dict:
     """{engine function: host ms inside it} over one run of fn, nested
     calls counted in each enclosing function too; CUDA-synced on entry and
@@ -262,7 +290,8 @@ def split_walls(torch, query_mod, fn) -> dict:
 
 
 def device_kernels(torch, fn, top: int = 8) -> dict:
-    """Device time by kernel name (torch.profiler) over one run of fn."""
+    """Device time by kernel name (torch.profiler) over one run of fn, and
+    the count of device kernels and of copies / fills it ran."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -273,7 +302,9 @@ def device_kernels(torch, fn, top: int = 8) -> dict:
         if dev_us and "CUDA" in str(getattr(ev, "device_type", "")):
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
+    copies = sum(c for k, _, c in rows if k.startswith(("Memcpy", "Memset")))
     return {"device_ms_total": round(sum(r[1] for r in rows), 4),
+            "kernels": sum(c for _, _, c in rows) - copies, "copies": copies,
             "top": [[k[:60], round(ms, 4), c] for k, ms, c in rows[:top]]}
 
 
@@ -316,7 +347,9 @@ def run(args, root: Path, paths) -> dict:
     specs = cs.make_specs(rng, stream, aqp_query)
     gspecs = cs.make_group_specs(rng, stream, aqp_query)
     eng = store.shared_engine("lscv_H")
-    queries = {"path_c": lambda: store.query(gspecs),
+    queries = {"path_plugin_warm": lambda: store.query(specs),
+               "path_a_warm": lambda: store.query(specs, selector="lscv_h"),
+               "path_c": lambda: store.query(gspecs),
                "path_d_exact": lambda: eng.execute(specs, kde_backend="exact"),
                "path_d_auto": lambda: store.query(specs, selector="lscv_H")}
     queries = {k: v for k, v in queries.items() if k[len("path_"):] in paths}
@@ -353,6 +386,14 @@ def run(args, root: Path, paths) -> dict:
                 replay_ms(torch, ops, calls[g * per:(g + 1) * per], args.reps)
                 for g in range(3)]
             res["path_d_exact_first_call_ms"] = replay_ms(torch, ops, calls[:1], args.reps)
+        if name in ("path_plugin_warm", "path_a_warm"):
+            aqp = [c for c in calls if c[0].startswith(("aqp_batch", "aqp_box"))]
+            res[f"{name}_aqp_calls"] = [f"{w} {tuple(a[2].shape)}" for w, a, _ in aqp]
+            res[f"{name}_aqp_replay_ms"] = replay_ms(torch, ops, aqp, args.reps)
+            res[f"{name}_aqp_host_ms"] = host_ms(torch, ops, aqp, args.reps)
+            res[f"{name}_aqp_device"] = device_kernels(
+                torch, lambda: [getattr(ops, w)(*a, **k) for w, a, k in aqp])
+            res[f"{name}_query_device"] = device_kernels(torch, fn)
         if name == "path_d_auto":
             groups = rff_groups(calls)
             res["path_d_auto_rff_group_calls"] = [len(g) for g in groups]

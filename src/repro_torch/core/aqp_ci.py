@@ -4,9 +4,13 @@ Counterpart: `repro/core/aqp_ci.py`.
 range1d / box: the estimate is scale * sum_i t_i over the m retained sample
 points, t_i the per-point closed-form term; the sample is an iid draw from
 the stream, so Var(est) = scale^2 * m * Var(t), and the sample variance of t
-gives a normal-theory CI.  AVG = SUM/COUNT uses the delta method.  The
-moment passes are plain tensor code on the device, separate from the
-estimate passes (as in the reference: neither is a kernel there).
+gives a normal-theory CI.  AVG = SUM/COUNT uses the delta method.  On the
+"torch" backend the moment passes (`moments_1d`, `moments_box`: the plain
+versions of the kernels' five sums) run separately from the estimate
+passes, as in the reference; on the "cuda" backend a range or box group's
+estimate and CI come from one launch of the aqp_batch / aqp_boxes kernel,
+which sums the second moments beside the estimate's terms
+(`range_answers_and_se`, `box_answers_and_se`).
 
 qmc: no closed form under a full bandwidth matrix; the CI comes from
 subsample (batch-means) variance over K equal chunks of the retained
@@ -33,9 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import DTYPE
+from repro_torch.kernels import ref as kref
 
-from . import gaussian as G
-from .aqp import AVG_MIN_COUNT, OP_COUNT, OP_SUM, Q_CHUNK
+from .aqp import AVG_MIN_COUNT, OP_COUNT, OP_SUM
 from .aqp_multid import (_estimates64, _host64, _qmc_kernel_split_terms,
                          _qmc_plan, _qmc_shared_terms, _QmcInputs, _select)
 
@@ -105,50 +109,52 @@ def t_ppf(p: float, dof: int) -> float:
 #
 # Per-query sums over the m sample points of the unscaled closed-form terms:
 # (sum c, sum s, sum c^2, sum s^2, sum c*s) with c_i the COUNT term and s_i
-# the SUM term — the per-point math of the aqp_batch / aqp_boxes kernels
-# and their plain versions in kernels/ref.py.
-
-def _five(c: torch.Tensor, s: torch.Tensor):
-    return (torch.sum(c, dim=1), torch.sum(s, dim=1), torch.sum(c * c, dim=1),
-            torch.sum(s * s, dim=1), torch.sum(c * s, dim=1))
-
-
-def _cat(parts, like: torch.Tensor):
-    if not parts:
-        z = torch.zeros((0,), dtype=like.dtype, device=like.device)
-        return tuple(z.clone() for _ in range(5))
-    return tuple(torch.cat(col) for col in zip(*parts))
-
+# the SUM term — what the aqp_batch / aqp_boxes kernels sum beside their
+# estimates, here by their plain versions in kernels/ref.py.
 
 def moments_1d(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor):
     """x: (m,) sample; a/b: (q,).  Returns five (q,) tensors."""
-    parts = []
-    for s0 in range(0, a.shape[0], Q_CHUNK):
-        za = (a[s0:s0 + Q_CHUNK, None] - x[None, :]) / h
-        zb = (b[s0:s0 + Q_CHUNK, None] - x[None, :]) / h
-        c = G.phi_diff(za, zb)
-        s = x[None, :] * c - h * G.dens_diff(za, zb)
-        parts.append(_five(c, s))
-    return _cat(parts, x)
+    return tuple(kref.aqp_batch_moments(x, h, a, b))
 
 
 def moments_box(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
                 hi: torch.Tensor, tgt: torch.Tensor):
     """x: (m,d) rows; lo/hi: (q,d); tgt: (q,).  Returns five (q,) tensors."""
-    axis = torch.arange(x.shape[1], device=x.device)
-    parts = []
-    for s0 in range(0, lo.shape[0], Q_CHUNK):
-        za = (lo[s0:s0 + Q_CHUNK, None, :] - x[None]) / h_diag
-        zb = (hi[s0:s0 + Q_CHUNK, None, :] - x[None]) / h_diag
-        d_Phi = G.phi_diff(za, zb)                            # (qs, m, d)
-        moment = x[None] * d_Phi - h_diag * G.dens_diff(za, zb)
-        c = torch.prod(d_Phi, dim=2)
-        t = tgt[s0:s0 + Q_CHUNK].to(axis.dtype)
-        factors = torch.where(axis[None, None, :] == t[:, None, None],
-                              moment, d_Phi)
-        parts.append(_five(c, torch.prod(factors, dim=2)))
-    return _cat(parts, x)
+    return tuple(kref.aqp_box_moments(x, h_diag, lo, hi, tgt))
+
+
+def _answers_and_se(five: torch.Tensor, ops: np.ndarray, scale: float,
+                    m: int) -> Tuple[torch.Tensor, np.ndarray]:
+    """(answers, per-query SE) from a (5, q) moment-sum tensor, read back
+    in one device-to-host copy; the answers are a (q,) float32 host
+    tensor."""
+    five = five.cpu()
+    return (_select(ops, scale * five[0], scale * five[1]),
+            se_from_moments(ops, five, scale, m))
+
+
+def range_answers_and_se(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
+                         b: torch.Tensor, ops: np.ndarray, scale: float,
+                         m: int) -> Tuple[torch.Tensor, np.ndarray]:
+    """(answers, per-query SE) of a range group on the aqp_batch kernel: ONE
+    launch gives the estimate's sums and the CI's (`batch_query_1d` and
+    `moments_1d` of the "torch" backend in one pass), read back in one
+    copy (the plain version for a sample on the CPU)."""
+    from repro_torch.kernels import ops as kops
+    return _answers_and_se(kops.aqp_batch_moments(x, h, a, b), ops, scale, m)
+
+
+def box_answers_and_se(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, tgt: torch.Tensor, ops: np.ndarray,
+                       scale: float, m: int) -> Tuple[torch.Tensor, np.ndarray]:
+    """(answers, per-query SE) of a box group on the aqp_boxes kernel: ONE
+    launch gives the estimate's sums and the CI's (`batch_query_box` and
+    `moments_box` of the "torch" backend in one pass), read back in one
+    copy (the plain version for a sample on the CPU)."""
+    from repro_torch.kernels import ops as kops
+    return _answers_and_se(kops.aqp_box_moments(x, h_diag, lo, hi, tgt), ops, scale,
+                           m)
 
 
 def se_from_moments(ops: np.ndarray, moments, scale: float,

@@ -54,9 +54,9 @@ from repro_torch.device import resolve_backend
 
 from .aqp import (OP_CODES, OP_COUNT, OP_SUM, KDESynopsis, _select_op,
                   batch_query_1d, canonical_selector)
-from .aqp_ci import (DEFAULT_CI_LEVEL, moments_1d, moments_box, norm_ppf,
-                     qmc_answers_and_se, qmc_subsample_se, se_from_moments,
-                     t_ppf)
+from .aqp_ci import (DEFAULT_CI_LEVEL, box_answers_and_se, moments_1d,
+                     moments_box, norm_ppf, qmc_answers_and_se, qmc_subsample_se,
+                     range_answers_and_se, se_from_moments, t_ppf)
 from .aqp_multid import (batch_query_box, batch_query_box_grouped,
                          batch_query_qmc, batch_query_qmc_rff,
                          grouped_family_moments, qmc_rff_answers_and_se,
@@ -599,10 +599,11 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
                ) -> List[Tuple[float, str, float, float, int]]:
     """Answer one resolved group in batched passes; returns one
     (estimate, path label, ci_lo, ci_hi, n_effective) per entry, in entry
-    order.  The CI comes from a separate pass (moments, or batch-means on
-    the full-H paths), except on the "cuda" backend, where a full-H group's
-    batch-means chunks and the GROUP BY families' moment sums come from
-    the estimate's own launch.
+    order.  On the "torch" backend the CI comes from a separate pass
+    (moments, or batch-means on the full-H paths); on the "cuda" backend
+    every group's CI sums come from the estimate's own launch: a range or
+    box group's moment sums, a full-H group's batch-means chunks, the GROUP
+    BY families' moment sums and an RFF group's feature blocks.
 
     GROUP BY families — entries expanded from one query that differ only on
     the group column's code window — are peeled off onto the factored
@@ -691,20 +692,30 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
         elif plan.kind == "range1d":
             a, b = on_dev(lo[:, 0]), on_dev(hi[:, 0])
             path = "range1d" + suffix
-            ans = batch_query_1d(syn.x, syn.h, a, b, on_dev(ops_np, np.int32),
-                                 plan.scale, backend=backend)
-            se = se_from_moments(ops_np, moments_1d(syn.x, syn.h, a, b),
-                                 plan.scale, n_eff)
+            if backend == "cuda":
+                # one launch: the estimate's sums and the CI's
+                ans, se = range_answers_and_se(syn.x, syn.h, a, b, ops_np, plan.scale,
+                                               n_eff)
+            else:
+                ans = batch_query_1d(syn.x, syn.h, a, b, on_dev(ops_np, np.int32),
+                                     plan.scale, backend=backend)
+                se = se_from_moments(ops_np, moments_1d(syn.x, syn.h, a, b),
+                                     plan.scale, n_eff)
             q_ci = norm_ppf(p)
         else:
             lo_t, hi_t, tgt_t = on_dev(lo), on_dev(hi), on_dev(tgt, np.int32)
             path = "box" + suffix
             h_diag = syn.h_diag()
-            ans = batch_query_box(x, h_diag, lo_t, hi_t, tgt_t,
-                                  on_dev(ops_np, np.int32), plan.scale,
-                                  backend=backend)
-            se = se_from_moments(ops_np, moments_box(x, h_diag, lo_t, hi_t, tgt_t),
-                                 plan.scale, n_eff)
+            if backend == "cuda":
+                # one launch: the estimate's sums and the CI's
+                ans, se = box_answers_and_se(x, h_diag, lo_t, hi_t, tgt_t, ops_np,
+                                             plan.scale, n_eff)
+            else:
+                ans = batch_query_box(x, h_diag, lo_t, hi_t, tgt_t,
+                                      on_dev(ops_np, np.int32), plan.scale,
+                                      backend=backend)
+                se = se_from_moments(ops_np, moments_box(x, h_diag, lo_t, hi_t, tgt_t),
+                                     plan.scale, n_eff)
             q_ci = norm_ppf(p)
         emit(rest, ans[:n], se[:n], q_ci, path)
 

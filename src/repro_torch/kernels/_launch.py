@@ -5,6 +5,7 @@ from __future__ import annotations
 import ctypes
 import numbers
 import threading
+from functools import lru_cache
 from typing import Optional, Sequence
 
 import torch
@@ -67,6 +68,24 @@ def scalar_arg(value, name: str, device: torch.device) -> torch.Tensor:
         raise TypeError(f"{name} must be a number or a one-element tensor, "
                         f"got {type(value).__name__}")
     return torch.tensor(float(value), dtype=torch.float32, device=device)
+
+
+@lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def point_range(n: int, q_tiles: int, sms: int, blocks_per_sm: int, waves: int,
+                tile: int) -> int:
+    """Sample points per block of a kernel whose grid is `q_tiles` query tiles
+    times point ranges of equal cost: a multiple of 32 in [32, tile], the
+    fewest that keep the grid within `waves` waves of the `blocks_per_sm`
+    blocks that each of the `sms` SMs keeps resident (a block more would
+    open a wave that runs nearly empty)."""
+    ranges = max(1, waves * sms * max(blocks_per_sm, 1) // max(q_tiles, 1))
+    pts = -(-(-(-n // ranges)) // 32) * 32
+    return max(32, min(pts, tile // 32 * 32))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

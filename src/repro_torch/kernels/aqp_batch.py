@@ -1,59 +1,84 @@
 """Launcher of the batched range-query kernel (`csrc/aqp_batch.cu`): the
-unscaled eq. 9-10 sums of a query batch over a 1-D sample.
+unscaled eq. 9-10 sums of a query batch over a 1-D sample and the three
+second-moment sums of their CI, in one launch.
 Counterpart: `repro/kernels/aqp_batch.py` (`aqp_batch_sums`).
 """
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from . import _build
-from ._launch import (GRID_Y_MAX, SMEM_MAX, LaunchCounter, check_tensor,
-                      check_tile, ptr, raise_on, stream)
+from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, point_range, ptr,
+                      raise_on, sm_count, stream)
 
-TILE = 512          # sample points per block (one shared-memory chunk)
-Q_TILE = 128        # queries per block, one per thread
+TILE = 4096         # most sample points per block (a range, split over 32 lanes)
+Q_TILE = 32         # queries per block: kRows (4) per warp x kWarps (8)
+WAVES = 2           # waves of resident blocks the point ranges aim at
 
 
 launches = LaunchCounter("aqp_batch_sums")
 
 
+@lru_cache(maxsize=None)
 def _fn():
-    fn = _build.load("aqp_batch").aqp_batch_sums_launch
+    fn = _build.load("aqp_batch").aqp_batch_moments_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def aqp_batch_sums(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
-                   b: torch.Tensor, tile: int, q_tile: int):
-    """(count_raw, sum_raw), each (q,) float32.  x: (n,), h: one element,
-    a/b: (q,), all float32 CUDA.  n == 0 or q == 0 gives zeros and launches
-    nothing."""
+@lru_cache(maxsize=None)
+def blocks_per_sm(index: int) -> int:
+    """Blocks of the kernel that one SM of device `index` holds at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        raise_on(_build.load("aqp_batch").aqp_batch_blocks_per_sm(ctypes.byref(out)),
+                 "aqp_batch_sums occupancy")
+    return out.value
+
+
+def aqp_batch_moments(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, tile: int) -> torch.Tensor:
+    """(5, q) float32: per query the sums over the sample of c (eq. 9's term)
+    and s (eq. 10's) as (sum c, sum s, sum c^2, sum s^2, sum c s).  x: (n,),
+    h: one element, a/b: (q,), all float32 on one CUDA device; tile: the
+    most points per block, a multiple of 32.  n == 0 or q == 0 gives zeros
+    and launches nothing."""
     check_tensor(x, "x", torch.float32, (None,))
     check_tensor(h.reshape(1), "h", torch.float32, (1,), x.device)
     check_tensor(a, "a", torch.float32, (None,), x.device)
     check_tensor(b, "b", torch.float32, (a.shape[0],), x.device)
-    n, q = x.shape[0], a.shape[0]
-    cnt = torch.zeros((q,), dtype=torch.float32, device=x.device)
-    sm = torch.zeros((q,), dtype=torch.float32, device=x.device)
-    if n == 0 or q == 0:
-        return cnt, sm
     tile = int(tile)
-    if not 1 <= tile or tile * 4 > SMEM_MAX:
-        raise ValueError(f"tile={tile} must be in [1, {SMEM_MAX // 4}]")
-    qk = min(check_tile(q_tile, "q_tile"), -(-q // 32) * 32)
-    n_chunks = -(-n // tile)
-    if n_chunks > GRID_Y_MAX:
-        raise ValueError(f"n={n} needs {n_chunks} chunks of {tile}; raise the tile")
-    partials = torch.empty((n_chunks, 2, q), dtype=torch.float32, device=x.device)
+    if tile < 32 or tile % 32:
+        raise ValueError(f"tile={tile} must be a positive multiple of 32")
+    n, q = x.shape[0], a.shape[0]
+    if n == 0 or q == 0:
+        return torch.zeros((5, q), dtype=torch.float32, device=x.device)
+    index = x.device.index or 0
+    pts = point_range(n, -(-q // Q_TILE), sm_count(index), blocks_per_sm(index), WAVES,
+                      tile)
+    n_ranges = -(-n // pts)
+    if n_ranges > GRID_Y_MAX:
+        raise ValueError(f"n={n} needs {n_ranges} ranges of {pts}; raise the tile")
+    # one allocation: the (5, q) sums, then their (5, q, ranges) partials
+    buf = torch.empty((5 * q * (1 + n_ranges),), dtype=torch.float32, device=x.device)
+    out = buf[:5 * q].view(5, q)
     with torch.cuda.device(x.device):
-        err = _fn()(ptr(x), n, ptr(h.reshape(1)), ptr(a), ptr(b), q, tile, qk,
-                    ptr(partials), ptr(cnt), ptr(sm), stream(x.device))
+        err = _fn()(ptr(x), n, ptr(h.reshape(1)), ptr(a), ptr(b), q, pts,
+                    ptr(buf[5 * q:]), ptr(out), stream(x.device))
     raise_on(err, "aqp_batch_sums")
     launches.inc()
-    return cnt, sm
+    return out
+
+
+def aqp_batch_sums(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, tile: int):
+    """(count_raw, sum_raw), each (q,) float32: the first two rows of
+    `aqp_batch_moments`'s launch."""
+    five = aqp_batch_moments(x, h, a, b, tile=tile)
+    return five[0], five[1]

@@ -1,42 +1,59 @@
 """Launcher of the batched box-query kernel (`csrc/aqp_boxes.cu`): the
 unscaled eq. 11 sums of a box batch over a joint sample with diagonal
-bandwidth.  Counterpart: `repro/kernels/aqp_boxes.py` (`aqp_box_sums`).
+bandwidth and the three second-moment sums of their CI, in one launch.
+Counterpart: `repro/kernels/aqp_boxes.py` (`aqp_box_sums`).
 """
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
 from . import _build
-from ._launch import (GRID_Y_MAX, SMEM_MAX, LaunchCounter, check_tensor,
-                      check_tile, ptr, raise_on, stream)
+from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, point_range, ptr,
+                      raise_on, sm_count, stream)
 
-TILE = 256          # sample rows per block (one shared-memory chunk)
-Q_TILE = 128        # queries per block, one per thread
+TILE = 4096         # most sample rows per block (a range, split over 32 lanes)
+Q_TILE = 32         # boxes per block: kRows (4) per warp x kWarps (8)
+WAVES = 2           # waves of resident blocks the row ranges aim at
 MAX_D = 8           # the kernel is instantiated for d = 1..8
 
 
 launches = LaunchCounter("aqp_box_sums")
 
 
+@lru_cache(maxsize=None)
 def _fn():
-    fn = _build.load("aqp_boxes").aqp_box_sums_launch
+    fn = _build.load("aqp_boxes").aqp_box_moments_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def aqp_box_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
-                 hi: torch.Tensor, tgt: torch.Tensor, tile: int, q_tile: int):
-    """(count_raw, sum_raw), each (q,) float32.  x: (n, d) float32, h_diag:
-    (d,) float32, lo/hi: (q, d) float32, tgt: (q,) int32 in [0, d), all on
-    one CUDA device; 1 <= d <= 8.  n == 0 or q == 0 gives zeros and launches
-    nothing."""
+@lru_cache(maxsize=None)
+def blocks_per_sm(index: int, d: int) -> int:
+    """Blocks of the kernel for d axes that one SM of device `index` holds
+    at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        raise_on(_build.load("aqp_boxes").aqp_box_blocks_per_sm(d, ctypes.byref(out)),
+                 "aqp_box_sums occupancy")
+    return out.value
+
+
+def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, tgt: torch.Tensor, tile: int) -> torch.Tensor:
+    """(5, q) float32: per box the sums over the sample rows of c (eq. 11's
+    product) and s (the product with the SUM factor on the target axis) as
+    (sum c, sum s, sum c^2, sum s^2, sum c s).  x: (n, d) float32, h_diag:
+    (d,) float32, lo/hi: (q, d) float32, tgt: (q,) int32 in [0, d) (another
+    target gives NaN in the rows that hold s), all on one CUDA device;
+    1 <= d <= 8; tile: the most rows per block, a multiple of 32.  n == 0 or
+    q == 0 gives zeros and launches nothing."""
     check_tensor(x, "x", torch.float32, (None, None))
     n, d = x.shape
     if not 1 <= d <= MAX_D:
@@ -46,22 +63,31 @@ def aqp_box_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     q = lo.shape[0]
     check_tensor(hi, "hi", torch.float32, (q, d), x.device)
     check_tensor(tgt, "tgt", torch.int32, (q,), x.device)
-    cnt = torch.zeros((q,), dtype=torch.float32, device=x.device)
-    sm = torch.zeros((q,), dtype=torch.float32, device=x.device)
-    if n == 0 or q == 0:
-        return cnt, sm
     tile = int(tile)
-    if not 1 <= tile or tile * d * 4 > SMEM_MAX:
-        raise ValueError(f"tile={tile} must be in [1, {SMEM_MAX // (4 * d)}] "
-                         f"for d={d}")
-    qk = min(check_tile(q_tile, "q_tile"), -(-q // 32) * 32)
-    n_chunks = -(-n // tile)
-    if n_chunks > GRID_Y_MAX:
-        raise ValueError(f"n={n} needs {n_chunks} chunks of {tile}; raise the tile")
-    partials = torch.empty((n_chunks, 2, q), dtype=torch.float32, device=x.device)
+    if tile < 32 or tile % 32:
+        raise ValueError(f"tile={tile} must be a positive multiple of 32")
+    if n == 0 or q == 0:
+        return torch.zeros((5, q), dtype=torch.float32, device=x.device)
+    index = x.device.index or 0
+    rows = point_range(n, -(-q // Q_TILE), sm_count(index), blocks_per_sm(index, d),
+                       WAVES, tile)
+    n_ranges = -(-n // rows)
+    if n_ranges > GRID_Y_MAX:
+        raise ValueError(f"n={n} needs {n_ranges} ranges of {rows}; raise the tile")
+    # one allocation: the (5, q) sums, then their (5, q, ranges) partials
+    buf = torch.empty((5 * q * (1 + n_ranges),), dtype=torch.float32, device=x.device)
+    out = buf[:5 * q].view(5, q)
     with torch.cuda.device(x.device):
-        err = _fn()(ptr(x), n, d, ptr(h_diag), ptr(lo), ptr(hi), ptr(tgt), q,
-                    tile, qk, ptr(partials), ptr(cnt), ptr(sm), stream(x.device))
+        err = _fn()(ptr(x), n, d, ptr(h_diag), ptr(lo), ptr(hi), ptr(tgt), q, rows,
+                    ptr(buf[5 * q:]), ptr(out), stream(x.device))
     raise_on(err, "aqp_box_sums")
     launches.inc()
-    return cnt, sm
+    return out
+
+
+def aqp_box_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor, tgt: torch.Tensor, tile: int):
+    """(count_raw, sum_raw), each (q,) float32: the first two rows of
+    `aqp_box_moments`'s launch."""
+    five = aqp_box_moments(x, h_diag, lo, hi, tgt, tile=tile)
+    return five[0], five[1]

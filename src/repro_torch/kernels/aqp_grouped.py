@@ -15,7 +15,7 @@ import torch
 
 from . import _build
 from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, ptr, raise_on,
-                      stream)
+                      sm_count, stream)
 
 TILE = 1024         # most sample rows per block (walked in SUB-row chunks)
 SUB = 32            # rows per shared-memory sub-chunk (kSub in the source)
@@ -39,11 +39,6 @@ def _fn():
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def family_tiles(win: Sequence[int], g_axis: Sequence[int], tgt: Sequence[int]):
@@ -128,7 +123,7 @@ def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     k = int(tile)
     if k < SUB:
         raise ValueError(f"tile={k} must be at least {SUB}")
-    rows = range_rows(n, n_tiles * -(-Gmax // G_TILE), _sm_count(x.device.index or 0), k)
+    rows = range_rows(n, n_tiles * -(-Gmax // G_TILE), sm_count(x.device.index or 0), k)
     # pinned, so the copy does not wait for the card's earlier work
     table = host.to(x.device, non_blocking=True)
     n_tab = 5 * n_tiles

@@ -15,9 +15,10 @@
 // pallas_call _kernel); the moment sums replace the separate CI pass over the
 // families' fanned-out boxes (repro/core/aqp_ci.py, moments_box).
 //
-// Bound on the H100: operations.  Per row, the window terms cost two erfcf
-// (and two expf for gmom) per window, once for every family that shares the
-// window table; the family terms two erfcf per (family, kept axis); and each
+// Bound on the H100: operations.  Per row, the window terms cost two erfc
+// per window (gmom's density difference comes from their exponentials), once
+// for every family that shares the window table; the family terms two erfc
+// per (family, kept axis); and each
 // (family, category) 7 FP32 instructions: two products and the five sums.
 // At n = 32768 with 104 families over 64 shared windows the last dominate
 // (1.5e9 instructions against 0.4 MB of input).  One family per launch, as
@@ -36,8 +37,8 @@
 // Each block writes one partial per (family, sum, category); a second
 // kernel adds a value's partials in range order, so a repeat query gives
 // the same bits (no float atomics).  Phi differences come from the tail
-// (erfcf, common.cuh), not as an erf difference, which cancels in the far
-// tails.
+// (common.cuh, phi_dens_diff), not as an erf difference, which cancels in the
+// far tails.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -156,8 +157,9 @@ grouped_tiles(const float* __restrict__ x, int n, const float* __restrict__ h,
         const float xg = s_x[r * D + g_axis];
         const float za = (s_wlo[g] - xg) * ihg;
         const float zb = (s_whi[g] - xg) * ihg;
-        gp = phi_diff(za, zb);
-        if (is_self) gm = xg * gp - hg * dens_diff(za, zb);
+        float d_phi;
+        phi_dens_diff(za, zb, gp, d_phi);
+        if (is_self) gm = xg * gp - hg * d_phi;
       }
       s_gp[e] = gp;
       s_gm[e] = gm;
@@ -176,9 +178,10 @@ grouped_tiles(const float* __restrict__ x, int n, const float* __restrict__ h,
           const float xv = s_x[r * D + j];
           const float za = (s_lo[i * D + j] - xv) * ih[j];
           const float zb = (s_hi[i * D + j] - xv) * ih[j];
-          const float dP = phi_diff(za, zb);
+          float dP, d_phi;
+          phi_dens_diff(za, zb, dP, d_phi);
           pc *= dP;
-          ps *= (j == t) ? xv * dP - h[j] * dens_diff(za, zb) : dP;
+          ps *= (j == t) ? xv * dP - h[j] * d_phi : dP;
         }
       }
       s_fam[e] = make_float2(pc, ps);

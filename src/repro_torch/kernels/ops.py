@@ -39,14 +39,29 @@ def pairwise_scaled_ksum(x, g, kind="k4"):
 def aqp_batch_sums(x, h, a, b):
     if x.device.type == "cpu":
         return ref.aqp_batch_sums(x, h, a, b)
-    return _ab.aqp_batch_sums(x, h, a, b, tile=_ab.TILE, q_tile=_ab.Q_TILE)
+    return _ab.aqp_batch_sums(x, h, a, b, tile=_ab.TILE)
+
+
+def aqp_batch_moments(x, h, a, b):
+    """The five moment sums (5, q) of a range batch in one launch of the
+    aqp_batch kernel: rows 0-1 the estimate's, all five the CI's."""
+    if x.device.type == "cpu":
+        return ref.aqp_batch_moments(x, h, a, b)
+    return _ab.aqp_batch_moments(x, h, a, b, tile=_ab.TILE)
 
 
 def aqp_box_sums(x, h_diag, lo, hi, tgt):
     if x.device.type == "cpu":
         return ref.aqp_box_sums(x, h_diag, lo, hi, tgt)
-    return _abx.aqp_box_sums(x, h_diag, lo, hi, tgt, tile=_abx.TILE,
-                             q_tile=_abx.Q_TILE)
+    return _abx.aqp_box_sums(x, h_diag, lo, hi, tgt, tile=_abx.TILE)
+
+
+def aqp_box_moments(x, h_diag, lo, hi, tgt):
+    """The five moment sums (5, q) of a box batch in one launch of the
+    aqp_boxes kernel: rows 0-1 the estimate's, all five the CI's."""
+    if x.device.type == "cpu":
+        return ref.aqp_box_moments(x, h_diag, lo, hi, tgt)
+    return _abx.aqp_box_moments(x, h_diag, lo, hi, tgt, tile=_abx.TILE)
 
 
 def sv_matrix(x, m, tile=None, algorithm="mxu"):

@@ -14,7 +14,7 @@ import torch
 
 from . import _build
 from ._launch import (GRID_Y_MAX, SMEM_MAX, LaunchCounter, check_tensor,
-                      ptr, raise_on, scalar_arg, stream)
+                      ptr, raise_on, scalar_arg, sm_count, stream)
 
 TILE = 512          # sample rows per chunk (shared memory)
 M_TILE = 512        # nodes per density block: 128 threads x 4 nodes each
@@ -38,11 +38,6 @@ def _fn():
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def box_slices(q: int, m: int, sms: int) -> int:
@@ -99,7 +94,7 @@ def qmc_box_reduce_split(nodes: torch.Tensor, x: torch.Tensor,
     if chunks > GRID_Y_MAX:
         raise ValueError(f"n={n} needs {chunks} chunks of {k}; raise the tile")
     ln = scalar_arg(log_norm, "log_norm", x.device)
-    slices = box_slices(q, m, _sm_count(x.device.index or 0))
+    slices = box_slices(q, m, sm_count(x.device.index or 0))
     n_out = splits + 1
     n_pad = -(-n_out // 4) * 4
     # one scratch buffer: the density partials, the nodes' densities (16-byte

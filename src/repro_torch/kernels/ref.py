@@ -45,49 +45,82 @@ def pairwise_scaled_ksum(x: torch.Tensor, g: torch.Tensor, kind: str
     return acc
 
 
+def _batch_terms(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor):
+    """Per (query, point) terms (c, s), each (q, n): eq. 9's Phi difference
+    and eq. 10's x Phi difference - h phi difference."""
+    h = h.reshape(())
+    inv_h = 1.0 / h
+    za = (a[:, None] - x[None, :]) * inv_h
+    zb = (b[:, None] - x[None, :]) * inv_h
+    d_Phi = G.phi_diff(za, zb)
+    return d_Phi, x[None, :] * d_Phi - h * G.dens_diff(za, zb)
+
+
+def _box_terms(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor, tgt: torch.Tensor):
+    """Per (box, row) terms (c, s), each (q, n): eq. 11's product, and the
+    product with the SUM factor on the target axis, taken by a select, not
+    by a division of the product by its Phi difference."""
+    inv_h = 1.0 / h_diag
+    axis = torch.arange(x.shape[1], device=x.device)
+    za = (lo[:, None, :] - x[None]) * inv_h
+    zb = (hi[:, None, :] - x[None]) * inv_h
+    d_Phi = G.phi_diff(za, zb)                                # (q, n, d)
+    moment = x[None] * d_Phi - h_diag * G.dens_diff(za, zb)
+    factors = torch.where(axis[None, None, :] == tgt.to(axis.dtype)[:, None, None],
+                          moment, d_Phi)
+    return torch.prod(d_Phi, dim=2), torch.prod(factors, dim=2)
+
+
+def _slab_sums(terms, q: int, like: torch.Tensor, five: bool) -> torch.Tensor:
+    """(2, q) sums of c and s, or with `five` (5, q) sums (c, s, c^2, s^2,
+    c s), over the (c, s) of each QUERY_SLAB-query slab `terms(s0, s1)`."""
+    out = torch.zeros((5 if five else 2, q), dtype=like.dtype, device=like.device)
+    for s0 in range(0, q, QUERY_SLAB):
+        c, s = terms(s0, s0 + QUERY_SLAB)
+        parts = (c, s, c * c, s * s, c * s) if five else (c, s)
+        out[:, s0:s0 + QUERY_SLAB] = torch.stack([torch.sum(v, dim=1) for v in parts])
+    return out
+
+
+def aqp_batch_moments(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """(5, q): the range terms' sums (c, s, c^2, s^2, c s) over the sample,
+    eqs. 9-10 and the three second-moment sums of their CI.  x: (n,), h:
+    scalar, a/b: (q,)."""
+    return _slab_sums(lambda s0, s1: _batch_terms(x, h, a[s0:s1], b[s0:s1]),
+                      a.shape[0], x, five=True)
+
+
 def aqp_batch_sums(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor):
     """Unscaled closed-form integrals of eqs. 9-10 for a query batch.
     x: (n,), h: scalar, a/b: (q,) -> (count_raw, sum_raw), each (q,)."""
-    h = h.reshape(())
-    inv_h = 1.0 / h
-    cnt, sm = [], []
-    for start in range(0, a.shape[0], QUERY_SLAB):
-        za = (a[start:start + QUERY_SLAB, None] - x[None, :]) * inv_h
-        zb = (b[start:start + QUERY_SLAB, None] - x[None, :]) * inv_h
-        d_Phi = G.phi_diff(za, zb)
-        cnt.append(torch.sum(d_Phi, dim=1))
-        sm.append(torch.sum(x[None, :] * d_Phi - h * G.dens_diff(za, zb),
-                            dim=1))
-    if not cnt:
-        z = torch.zeros((0,), dtype=x.dtype, device=x.device)
-        return z, z.clone()
-    return torch.cat(cnt), torch.cat(sm)
+    two = _slab_sums(lambda s0, s1: _batch_terms(x, h, a[s0:s1], b[s0:s1]),
+                     a.shape[0], x, five=False)
+    return two[0], two[1]
+
+
+def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """(5, q): the box terms' sums (c, s, c^2, s^2, c s) over the sample,
+    eq. 11 and the three second-moment sums of its CI.  x: (n, d), h_diag:
+    (d,), lo/hi: (q, d), tgt: (q,) int32."""
+    return _slab_sums(lambda s0, s1: _box_terms(x, h_diag, lo[s0:s1], hi[s0:s1],
+                                                tgt[s0:s1]),
+                      lo.shape[0], x, five=True)
 
 
 def aqp_box_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
                  hi: torch.Tensor, tgt: torch.Tensor):
     """Unscaled eq. 11 box integrals for a query batch (product kernel,
     diagonal bandwidth).  x: (n,d), h_diag: (d,), lo/hi: (q,d), tgt: (q,)
-    int32 -> (count_raw, sum_raw), each (q,).  The SUM factor on the target
-    axis is a select, not a division by its Phi difference."""
-    inv_h = 1.0 / h_diag
-    axis = torch.arange(x.shape[1], device=x.device)
-    cnt, sm = [], []
-    for start in range(0, lo.shape[0], QUERY_SLAB):
-        za = (lo[start:start + QUERY_SLAB, None, :] - x[None]) * inv_h
-        zb = (hi[start:start + QUERY_SLAB, None, :] - x[None]) * inv_h
-        d_Phi = G.phi_diff(za, zb)                            # (qs, n, d)
-        moment = x[None] * d_Phi - h_diag * G.dens_diff(za, zb)
-        t = tgt[start:start + QUERY_SLAB].to(axis.dtype)
-        factors = torch.where(axis[None, None, :] == t[:, None, None],
-                              moment, d_Phi)
-        cnt.append(torch.sum(torch.prod(d_Phi, dim=2), dim=1))
-        sm.append(torch.sum(torch.prod(factors, dim=2), dim=1))
-    if not cnt:
-        z = torch.zeros((0,), dtype=x.dtype, device=x.device)
-        return z, z.clone()
-    return torch.cat(cnt), torch.cat(sm)
+    int32 -> (count_raw, sum_raw), each (q,)."""
+    two = _slab_sums(lambda s0, s1: _box_terms(x, h_diag, lo[s0:s1], hi[s0:s1],
+                                               tgt[s0:s1]),
+                     lo.shape[0], x, five=False)
+    return two[0], two[1]
 
 
 # --- LSCV: quadratic forms S_ij = (x_i - x_j)^T M (x_i - x_j) ---------------

@@ -348,10 +348,12 @@ def test_group_by_repeat_is_bit_identical_and_launches_nothing_on_cpu(gstores):
 
 def test_group_by_on_cuda_runs_one_grouped_pass_and_no_moment_pass(gstores, monkeypatch):
     """On the "cuda" backend (CPU tensors: the plain versions) the families of
-    a group take their estimates and CIs from one batched grouped pass: no
-    family runs the CI moment pass, which only the plain box group keeps."""
+    a group take their estimates and CIs from one batched grouped pass and
+    the plain box group from one aqp_box_moments pass: nothing runs the CI
+    moment pass."""
     _, port, want = gstores
-    calls = {"moments_box": 0, "aqp_grouped_moments": 0, "aqp_grouped_sums": 0}
+    calls = {"moments_box": 0, "aqp_grouped_moments": 0, "aqp_grouped_sums": 0,
+             "aqp_box_moments": 0}
 
     def spy(mod, name):
         orig = getattr(mod, name)
@@ -364,8 +366,10 @@ def test_group_by_on_cuda_runs_one_grouped_pass_and_no_moment_pass(gstores, monk
     spy(tq, "moments_box")
     spy(ops, "aqp_grouped_moments")
     spy(ops, "aqp_grouped_sums")
+    spy(ops, "aqp_box_moments")
     got = port.query(_gspecs(tq), backend="cuda")
-    assert calls == {"moments_box": 1, "aqp_grouped_moments": 1, "aqp_grouped_sums": 0}
+    assert calls == {"moments_box": 0, "aqp_grouped_moments": 1, "aqp_grouped_sums": 0,
+                     "aqp_box_moments": 1}
     assert [g.estimate for g in got] == [g.estimate for g in port.query(_gspecs(tq),
                                                                           backend="cuda")]
     assert len(got) == len(want)

@@ -267,25 +267,35 @@ def test_redesigned_launchers_refuse_cpu_tensors(call):
 
 
 @pytest.mark.parametrize("fname", ["gh_fused.cu", "lscv_grid.cu", "qmc_reduce.cu",
-                                   "pairwise_reduce.cu", "rff_eval.cu"])
+                                   "pairwise_reduce.cu", "rff_eval.cu", "aqp_batch.cu",
+                                   "aqp_boxes.cu"])
 def test_redesigned_sources_carry_their_note_and_no_switch(fname):
     text = (CSRC / fname).read_text()
     assert "Replaces the TPU kernel repro/kernels/" in text
     assert "Bound on the H100" in text and "What the design does about it" in text
-    if fname != "rff_eval.cu":           # the RFF kernel has no exponential
-        assert "ex2_ftz(" in text and "exp2f(" not in text
-    else:                                # one route for the cosine: no cosf beside it
+    if fname == "rff_eval.cu":           # one route for the cosine: no cosf beside it
         assert re.search(r"(?<!\w)cosf\(", text) is None and "__cosf(" in text
+    elif fname in ("aqp_batch.cu", "aqp_boxes.cu"):
+        # erfc and the density's exponential from one ex2 (common.cuh's
+        # erfc_gauss), never erfcf or an exponential of their own
+        assert "phi_dens_diff(" in text
+        assert re.search(r"(?<!\w)(erfcf|expf|exp2f|__expf)\(", text) is None
+    else:
+        assert "ex2_ftz(" in text and "exp2f(" not in text
     assert "getenv" not in text and "#ifdef" not in text and "#ifndef" not in text
 
 
 def test_ftz_stays_local_to_the_two_kernels():
     """ex2.approx.ftz only where a flushed term is far below the tolerance
-    of its sum: the two LSCV kernels, the quasi-MC density pass and
-    PLUGIN's pairwise sums."""
+    of its sum: the two LSCV kernels, the quasi-MC density pass, PLUGIN's
+    pairwise sums, and (through common.cuh's erfc_gauss, which flushes only
+    terms below 1.2e-38) the range, box and GROUP BY kernels."""
     assert not any("ftz" in f for f in _build.NVCC_FLAGS)
-    users = sorted(p.name for p in CSRC.glob("*.cu") if "ex2_ftz(" in p.read_text())
-    assert users == ["gh_fused.cu", "lscv_grid.cu", "pairwise_reduce.cu", "qmc_reduce.cu"]
+    helpers = ("ex2_ftz(", "erfc_gauss(", "phi_dens_diff(")
+    users = sorted(p.name for p in CSRC.glob("*.cu")
+                   if any(h in p.read_text() for h in helpers))
+    assert users == ["aqp_batch.cu", "aqp_boxes.cu", "aqp_grouped.cu", "gh_fused.cu",
+                     "lscv_grid.cu", "pairwise_reduce.cu", "qmc_reduce.cu"]
 
 
 def test_cpu_wrappers_still_take_the_plain_versions(rng):
