@@ -48,16 +48,17 @@ non-zero and prints no result line):
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
      main path and path A, and ranges far out in both tails, with their
      answers and CI bounds against the "torch" backend's separate passes);
-     two launches of every kernel but sv_matrix and kde_eval on the same
-     inputs giving the same bits; PLUGIN and LSCV_h against the paper's
-     sequential oracles; the kernel's own eqs. 49/50 tile mapping
-     exhaustively;
+     two launches of every kernel but sv_matrix on the same inputs giving
+     the same bits; kde_eval also on data far from 0 against float64;
+     PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
+     own eqs. 49/50 tile mapping exhaustively;
   9. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
-     joint's d = 3 call of path D exact), beside the bound and the SFU floor
-     at the SM clock read after the kernel's windows.
+     joint's d = 3 call of path D exact, for kde_eval also the joint's grid
+     and a 513-point trapezoid grid), beside the bound and the SFU floor at
+     the SM clock read after the kernel's windows.
 
 It prints a {"kernels": [...]} JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -881,10 +882,12 @@ def path_d(torch, rt, store, specs):
     return counts, calls, counts_x, calls_x
 
 
-def path_e(torch, rt, store, specs):
-    """Path E: kde_eval on a 1-D sample and on the joint, and the
-    trapezoid forms of eqs. 9-10 against the closed forms."""
-    ops, kde, aqp = rt["ops"], rt["kde"], rt["aqp"]
+def path_e_inputs(torch, rt, store, specs):
+    """Path E's inputs and its run: kde_eval at N_E_POINTS grid points on a
+    1-D sample (d = 1) and on the joint (d = 3), and count_1d_numeric /
+    sum_1d_numeric (513-point trapezoid grids) on N_E_RANGES ranges;
+    returns (run, x1, h1, grid1, jsyn, ranges), run() giving (f1, fj, num)."""
+    kde, aqp = rt["kde"], rt["aqp"]
     syn = store.synopsis("loss")                     # PLUGIN, cached by the main path
     jsyn = store.joint_synopsis(JOINT, "lscv_h")     # scalar h, cached by path A
     x1, h1 = syn.x, syn.h
@@ -905,6 +908,15 @@ def path_e(torch, rt, store, specs):
                for a, b in ranges]
         return f1, fj, num
 
+    return run, x1, h1, grid1, jsyn, ranges
+
+
+def path_e(torch, rt, store, specs):
+    """Path E: kde_eval on a 1-D sample and on the joint, and the
+    trapezoid forms of eqs. 9-10 against the closed forms."""
+    ops, aqp = rt["ops"], rt["aqp"]
+    run, x1, h1, grid1, jsyn, ranges = path_e_inputs(torch, rt, store, specs)
+    hv = float(h1)
     (f1, fj, num), sec, counts, calls = driven(torch, ops, "path E (kde_eval)", run)
     want = {k: 0 for k in counts}
     want["kde_eval"] = 2 + 2 * len(ranges)
@@ -1529,6 +1541,10 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
     made = calls_e["kde_eval"]
     out["kde_eval"] = max(kde_pair(a, f"kde_eval {call_shape('kde_eval', a, k)}")
                           for a, k in made)
+    for args, kw in made[:3]:                  # the grids at d = 1 and 3, a trapezoid grid
+        check(torch.equal(ops.kde_eval(*args), ops.kde_eval(*args)),
+              f"kde_eval {call_shape('kde_eval', args, kw)}: two launches on the same "
+              f"inputs differ")
     for pts, x, h in (made[0][0], made[1][0]):
         ps = pts[:256].contiguous()
         k = ops.kde_eval(ps, x, h)
@@ -1538,15 +1554,26 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
         want = ((2 * math.pi) ** (-d / 2) * h64 ** (-d)
                 * torch.exp(-0.5 * torch.sum(diff * diff, -1)).mean(1))
         held(k.cpu(), want.cpu(), KDE_RTOL, KDE_ATOL, f"kde_eval d={d} vs float64")
-    for m, n, d in ((1, 1, 1), (4097, 3000, 16), (0, 10, 2)):
+    # data far from 0 (|x| / h near 1e4): the folded exponent's rounding
+    # follows |x - o| / h about the warp's first point o, not |x| / h
+    for d in (1, 3):
+        xs = rng.normal(2000.0, 1.0, (4097, d)).astype(np.float32)
+        ps = (2000.0 + np.sort(rng.normal(0.0, 1.5, (1024, d)), axis=0)).astype(np.float32)
+        k = ops.kde_eval(t32(ps), t32(xs), 0.2)
+        diff = (ps.astype(np.float64)[:, None, :] - xs.astype(np.float64)[None]) / 0.2
+        want = ((2 * math.pi) ** (-d / 2) * 0.2 ** (-d)
+                * np.exp(-0.5 * np.sum(diff * diff, -1)).mean(1))
+        held(k.cpu(), want, KDE_RTOL, KDE_ATOL, f"kde_eval d={d} |x|/h=1e4 vs float64")
+    for m, n, d in ((1, 1, 1), (4097, 3000, 16), (513, 4097, 16), (0, 10, 2)):
         args = (t32(rng.normal(0, 1, (m, d)).astype(np.float32)),
                 t32(rng.normal(0, 1, (n, d)).astype(np.float32)), 0.6)
         check(ops.kde_eval(*args).shape == (m,), f"kde_eval m={m} shape")
         kde_pair(args, f"kde_eval m={m} n={n} d={d}")
     print(f"kde_eval: all {len(made)} path-E calls (two grids, {len(made) - 2} trapezoid "
-          f"grids) match plain, max |err| {out['kde_eval']:.3g}; 256 points against "
-          f"the full sample within tolerance of float64 (d=1, 3); edge shapes m=0/1, n=1, "
-          f"d=16 match plain")
+          f"grids) match plain, max |err| {out['kde_eval']:.3g}; two launches give the same "
+          f"bits (both grids, a trapezoid grid); 256 points against the full sample, and "
+          f"1024 points on data at |x|/h = 1e4, within tolerance of float64 (d=1, 3); edge "
+          f"shapes m=0/1/513, n=1, d=16 match plain")
     torch.cuda.synchronize()
     return out
 
@@ -1627,8 +1654,9 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         projection (a mul and d - 1 FMAs), the phase add, cos and an FMA
         per (point, feature): 2d + 3 / 1 (the kernel's cosine is one
         cos.approx after its range reduction);
-      kde_eval: d subs, the sum of d squares (a multiply, d - 1 FMAs), the
-        scale, exp2, add per (point, row): 3d + 2 / 1."""
+      kde_eval: d subs, the sum of d squares (a multiply, d - 1 FMAs), exp2,
+        add per (point, row): 3d + 1 / 1 (the scale is folded into the
+        points and rows as they are loaded)."""
     mufu = 0
     if name == "pairwise_scaled_ksum":
         x = args[0]
@@ -1685,7 +1713,7 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
     elif name == "kde_eval":
         (m, d), n = args[0].shape, args[1].shape[0]
         nbytes = 4 * (m * d + n * d + 1) + 4 * m
-        ops, mufu = (3 * d + 2) * m * n, m * n
+        ops, mufu = (3 * d + 1) * m * n, m * n
     else:
         raise KeyError(f"bound_ms: no count of {name}'s work")
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1707,7 +1735,7 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx):
+def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx, calls_e):
     """Kernel and plain version on the inputs of each kernel's first call
     on its path (`first`: name -> (wrapper, args, kwargs)), in the order plain,
     kernel, kernel, plain, with the SM clock read just after the kernel's
@@ -1789,6 +1817,17 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx):
           f"the joint's call on path D exact): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
           f"{p2:.4f} ms (median of 5), bound {b:.4f} ms ({by}), SFU floor "
           f"{sfu_floor_ms(mufu, mhz):.4f} ms at {mhz:.0f} MHz")
+    for what, (args, kw) in (("the joint's grid", calls_e["kde_eval"][1]),
+                             ("the first trapezoid grid", calls_e["kde_eval"][2])):
+        p1 = time_ms(torch, lambda: ref.kde_eval(*args, **kw))
+        k1 = time_ms(torch, lambda: ops.kde_eval(*args, **kw))
+        k2 = time_ms(torch, lambda: ops.kde_eval(*args, **kw))
+        mhz = sm_clock_mhz()
+        p2 = time_ms(torch, lambda: ref.kde_eval(*args, **kw))
+        b, by, mufu = bound_ms("kde_eval", args, kw)
+        print(f"time kde_eval other shape ({call_shape('kde_eval', args, kw)}, {what} on path "
+              f"E): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, bound "
+              f"{b:.4f} ms ({by}), SFU floor {sfu_floor_ms(mufu, mhz):.4f} ms at {mhz:.0f} MHz")
     return out
 
 
@@ -1842,7 +1881,7 @@ def main() -> int:
     first["rff_density"] = max(
         ((w,) + c for w in WRAPPERS["rff_density"] for c in calls_d[w]),
         key=lambda c: c[1][0].shape[0] * c[1][1].shape[0])
-    times = timings(torch, rt, first, calls_main, calls_a, calls_d, calls_dx)
+    times = timings(torch, rt, first, calls_main, calls_a, calls_d, calls_dx, calls_e)
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         k_ms, p_ms, b_ms, by, sfu, mhz = times[name]

@@ -5,9 +5,10 @@ the warm main-path query (the 1 024-spec mix with selector "plugin"), the
 same with "lscv_h" (path A), the warm path C query (104 GROUP BY specs over
 model_id), the warm path D exact query (the 1 024-spec mix with selector
 "lscv_H" and kde_backend "exact"), the warm path D query with kde_backend
-"auto" (RFF groups where the probe gate passes), and a PLUGIN refit of the
-main path's five axes; and the kernel calls that each makes (aqp_batch,
-aqp_boxes, aqp_grouped, qmc_reduce, rff_eval, pairwise), replayed alone.
+"auto" (RFF groups where the probe gate passes), a PLUGIN refit of the
+main path's five axes, and path E (chip_smoke's 130 kde_eval calls); and the
+kernel calls that each makes (aqp_batch, aqp_boxes, aqp_grouped, qmc_reduce,
+rff_eval, pairwise, kde_eval), replayed alone.
 
     python3 scripts/bench_aqp_kernels.py [--root DIR] [--label TEXT]
                                          [--reps N] [--splits]
@@ -36,12 +37,17 @@ give their device time by kernel and the wrappers' host time (the calls
 issued without a device sync).  The PLUGIN section times the
 refit (CUDA-synced wall of `plugin_bandwidth` on the five axes' samples)
 and replays its ten pairwise calls; the D auto section replays each RFF
-group's rff_eval calls.  `--set` times a variant: it copies the timed
+group's rff_eval calls.  The E section (`--paths e`) replays path E's calls
+by shape (the 4 096-point grids at d = 1 and d = 3, the 513-point
+trapezoid grids) with, per call, the wall, the host work issued unsynced,
+device ms and device kernels from torch.profiler, the bound and the SFU
+floor at the SM clock read after the shape; and the walls of the whole
+run.  `--set` times a variant: it copies the timed
 checkout's `src/repro_torch` into a temporary directory and sets
 `constexpr NAME` in `kernels/csrc/FILE` (a .cu) or the module constant
 `NAME` in `kernels/FILE` (a .py) to VALUE there (repeatable).  `--sass`
-prints, for the pairwise, rff_eval, aqp_batch and aqp_boxes kernels of the
-timed checkout, the
+prints, for the pairwise, rff_eval, aqp_batch, aqp_boxes and kde_eval kernels
+of the timed checkout, the
 instructions of each loop by opcode, all of them and those of its hot
 path, from `cuobjdump -sass`; every run prints their registers per thread
 from the ptxas logs.
@@ -67,8 +73,8 @@ REPO = Path(__file__).resolve().parents[1]
 KERNEL_WRAPPERS = ("aqp_batch_sums", "aqp_batch_moments", "aqp_box_sums",
                    "aqp_box_moments", "aqp_grouped_sums", "aqp_grouped_moments",
                    "qmc_box_reduce", "qmc_box_reduce_split", "rff_density",
-                   "rff_density_blocks", "pairwise_scaled_ksum")
-PATHS = ("plugin_warm", "a_warm", "c", "d_exact", "d_auto", "plugin")
+                   "rff_density_blocks", "pairwise_scaled_ksum", "kde_eval")
+PATHS = ("plugin_warm", "a_warm", "c", "d_exact", "d_auto", "plugin", "e")
 # engine functions timed by --splits, where the checkout's aqp_query has
 # them: compiling the specs (GROUP BY expansion), _execute (resolving each
 # entry, the groups' passes and the result rows), and inside it the
@@ -118,8 +124,9 @@ def sass_functions(build_dir: Path, libs) -> list:
 
 
 def sass_loops(build_dir: Path,
-               libs=("pairwise_reduce", "rff_eval", "aqp_batch", "aqp_boxes"),
-               funcs=("pairwise_tiles", "rff_tiles", "aqp_batch_tiles", "aqp_box_tiles")
+               libs=("pairwise_reduce", "rff_eval", "aqp_batch", "aqp_boxes", "kde_eval"),
+               funcs=("pairwise_tiles", "rff_tiles", "aqp_batch_tiles", "aqp_box_tiles",
+                      "kde_tiles")
                ) -> dict:
     """{kernel function: [loop]} from cuobjdump -sass: every loop (the
     instructions from a backward branch's target to the branch) with its
@@ -183,7 +190,7 @@ def sass_loops(build_dir: Path,
 
 
 def ptxas_registers(build_mod, names=("pairwise_reduce", "rff_eval", "aqp_batch",
-                                      "aqp_boxes")) -> dict:
+                                      "aqp_boxes", "kde_eval")) -> dict:
     """{kernel function: registers per thread} from the build's ptxas logs."""
     out = {}
     for name in names:
@@ -323,12 +330,42 @@ def rff_groups(calls) -> list:
     return groups
 
 
+def path_e_section(torch, cs, ops, e_run, reps: int) -> dict:
+    """Path E (chip_smoke's 130 kde_eval calls) by shape: the 4 096-point
+    grids at d = 1 and d = 3 and the 128 trapezoid grids of 513 points.  Per
+    call: the replay's wall (median of CUDA-event windows over the shape's
+    calls), the host work issued unsynced, device ms and device kernels and
+    copies from torch.profiler, and the SFU floor (one MUFU a pair, the SM
+    clock read after the shape's windows); and the walls of the whole run."""
+    calls = recorded(ops, e_run)
+    out = {"e_calls": len(calls), "e_run_ms": walls(torch, e_run, reps)}
+    shapes = collections.defaultdict(list)
+    for c in calls:
+        shapes[f"m{c[1][0].shape[0]}_d{c[1][1].shape[-1]}"].append(c)
+    for key, group in shapes.items():
+        k = len(group)
+        replay = lambda g=group: [getattr(ops, w)(*a, **kw) for w, a, kw in g]  # noqa: E731
+        dev = device_kernels(torch, replay)
+        mhz = float(smi("clocks.sm").split()[0])
+        _, a, kw = group[0]
+        b, by, mufu = cs.bound_ms("kde_eval", a, kw)
+        out[f"e_{key}"] = {
+            "calls": k, "n": a[1].shape[0],
+            "wall_ms": replay_ms(torch, ops, group, reps) / k,
+            "host_ms": host_ms(torch, ops, group, reps) / k,
+            "device_ms": dev["device_ms_total"] / k,
+            "device_kernels": dev["kernels"] / k, "copies": dev["copies"] / k,
+            "top": dev["top"], "bound_ms": b, "bound_by": by,
+            "sfu_floor_ms": cs.sfu_floor_ms(mufu, mhz), "sm_clock_mhz": mhz}
+    return out
+
+
 def run(args, root: Path, paths) -> dict:
     import torch
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     sys.path.insert(0, str(root / "src"))
-    from repro_torch.core import aqp_query, plugin
+    from repro_torch.core import aqp, aqp_query, kde, plugin
     from repro_torch.data import aqp_store
     from repro_torch.kernels import _build, ops
 
@@ -353,6 +390,9 @@ def run(args, root: Path, paths) -> dict:
                "path_d_exact": lambda: eng.execute(specs, kde_backend="exact"),
                "path_d_auto": lambda: store.query(specs, selector="lscv_H")}
     queries = {k: v for k, v in queries.items() if k[len("path_"):] in paths}
+    if "e" in paths:                      # path E's synopses: PLUGIN (loss), LSCV_h (joint)
+        e_run = cs.path_e_inputs(torch, {"kde": kde, "aqp": aqp}, store, specs)[0]
+        e_run()
     if "plugin" in paths:                 # the main path's first query: its PLUGIN fits
         fit_calls = [c for c in recorded(ops, lambda: store.query(specs))
                      if c[0] == "pairwise_scaled_ksum"]
@@ -407,6 +447,9 @@ def run(args, root: Path, paths) -> dict:
         if args.splits:
             res[f"{name}_splits"] = split_walls(torch, aqp_query, fn)
             res[f"{name}_device"] = device_kernels(torch, fn)
+    if "e" in paths:
+        res.update(path_e_section(torch, cs, ops, e_run, args.reps))
+        res["clocks_sm"].append(smi("clocks.sm"))
     res["ptxas_registers"] = ptxas_registers(_build)
     if args.sass:
         res["sass_loops"] = sass_loops(_build.BUILD_DIR)

@@ -23,7 +23,8 @@ prints, for every kernel function of every library built, its SFU (MUFU)
 instructions by kind from `cuobjdump -sass`.
 
 Prints one JSON line: kernel times (median of CUDA-event windows), the
-sums, the share of lscv_grid's (tile, h) pairs whose every term flushes to
+sums (lscv_grid's 150 also as a sha256 of their bytes, to compare two
+checkouts' bits), the share of lscv_grid's (tile, h) pairs whose every term flushes to
 0, the card's name, power limit and SM clock sampled after each window.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import re
 import shutil
@@ -182,6 +184,7 @@ def main() -> int:
         res["clocks_sm"].append(smi("clocks.sm"))
         sums = ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk)
         res["lscv_grid_sums_first_last"] = [float(sums[0]), float(sums[-1])]
+        res["lscv_grid_sums_sha256"] = hashlib.sha256(sums.cpu().numpy().tobytes()).hexdigest()
         # (tile, h) pairs whose every term flushes: min over the tile's strict
         # upper triangle of S times -log2(e) / (4 h^2) below -126
         tile = 64

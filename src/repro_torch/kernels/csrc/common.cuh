@@ -18,8 +18,8 @@ constexpr float kErfcK = 3.0f;                 // erfc_gauss's q = (t - K) / (t 
 // 2^x by one SFU op (ex2.approx.ftz.f32): no denormal fix-ups, a result
 // below 2^-126 is flushed to +0, and -inf gives +0.  Used where a flushed
 // term is far below the tolerance of the sum it enters (gh_fused.cu,
-// lscv_grid.cu, qmc_reduce.cu, pairwise_reduce.cu, and through erfc_gauss
-// aqp_batch.cu, aqp_boxes.cu and aqp_grouped.cu); the build has no global
+// lscv_grid.cu, qmc_reduce.cu, pairwise_reduce.cu, kde_eval.cu, and through
+// erfc_gauss aqp_batch.cu, aqp_boxes.cu and aqp_grouped.cu); the build has no global
 // -ftz.
 __device__ __forceinline__ float ex2_ftz(float x) {
   float y;

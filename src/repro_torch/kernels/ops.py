@@ -154,8 +154,7 @@ def kde_eval(points, x, h):
         points = points[:, None]
     if x.device.type == "cpu":
         return ref.kde_eval(points, x, h)
-    return _kde.kde_eval(points.contiguous(), x.contiguous(), h, tile=_kde.TILE,
-                         p_tile=_kde.P_TILE)
+    return _kde.kde_eval(points.contiguous(), x.contiguous(), h, tile=_kde.TILE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -343,9 +343,9 @@ def test_fullh_and_grouped_launchers_refuse_what_the_kernel_does_not_take(call):
             rff_eval.rff_density(x, x, torch.zeros(8),
                                  torch.zeros(8), tile=256, threads=256)
         elif call == "kde_cpu":
-            kde_eval.kde_eval(x, x, 0.5, tile=1024, p_tile=256)
+            kde_eval.kde_eval(x, x, 0.5, tile=kde_eval.TILE)
         else:
-            kde_eval.kde_eval(x, torch.zeros(0, 2), 0.5, tile=1024, p_tile=256)
+            kde_eval.kde_eval(x, torch.zeros(0, 2), 0.5, tile=kde_eval.TILE)
 
 
 # --- on the card -----------------------------------------------------------------------

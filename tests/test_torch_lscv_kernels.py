@@ -268,7 +268,7 @@ def test_redesigned_launchers_refuse_cpu_tensors(call):
 
 @pytest.mark.parametrize("fname", ["gh_fused.cu", "lscv_grid.cu", "qmc_reduce.cu",
                                    "pairwise_reduce.cu", "rff_eval.cu", "aqp_batch.cu",
-                                   "aqp_boxes.cu"])
+                                   "aqp_boxes.cu", "kde_eval.cu"])
 def test_redesigned_sources_carry_their_note_and_no_switch(fname):
     text = (CSRC / fname).read_text()
     assert "Replaces the TPU kernel repro/kernels/" in text
@@ -288,14 +288,15 @@ def test_redesigned_sources_carry_their_note_and_no_switch(fname):
 def test_ftz_stays_local_to_the_two_kernels():
     """ex2.approx.ftz only where a flushed term is far below the tolerance
     of its sum: the two LSCV kernels, the quasi-MC density pass, PLUGIN's
-    pairwise sums, and (through common.cuh's erfc_gauss, which flushes only
-    terms below 1.2e-38) the range, box and GROUP BY kernels."""
+    pairwise sums, the direct KDE sums, and (through common.cuh's
+    erfc_gauss, which flushes only terms below 1.2e-38) the range, box and
+    GROUP BY kernels."""
     assert not any("ftz" in f for f in _build.NVCC_FLAGS)
     helpers = ("ex2_ftz(", "erfc_gauss(", "phi_dens_diff(")
     users = sorted(p.name for p in CSRC.glob("*.cu")
                    if any(h in p.read_text() for h in helpers))
     assert users == ["aqp_batch.cu", "aqp_boxes.cu", "aqp_grouped.cu", "gh_fused.cu",
-                     "lscv_grid.cu", "pairwise_reduce.cu", "qmc_reduce.cu"]
+                     "kde_eval.cu", "lscv_grid.cu", "pairwise_reduce.cu", "qmc_reduce.cu"]
 
 
 def test_cpu_wrappers_still_take_the_plain_versions(rng):
