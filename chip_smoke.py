@@ -42,7 +42,22 @@ non-zero and prints no result line):
   7. path E, `kde_eval` at 4 096 points on a 1-D sample and on the joint,
      and the trapezoid forms of eqs. 9-10 on 64 ranges against the closed
      forms (kde_eval launches);
-  8. every kernel against its plain PyTorch version on the card, on the
+  8. path F, progressive serving: a second store fed the same stream in the
+     same batches, laid out as launch/serve.py's (four-tier reservoirs of
+     4 096 to 32 768 rows on loss, latency_ms and the joint, a count-min
+     sketch on model_id); the 1 024 specs through `store.query(specs,
+     mode="progressive")`, four PLUGIN rounds, each fitting its tier on the
+     pairwise kernel and answering on one aqp_batch launch per range group
+     and one aqp_boxes launch; every round held against float64 closed
+     forms of its tier's synopses, n_effective equal to the tier size, the
+     median CI width never widening, the Eq specs on "exact:cm" with the
+     stream's exact answers inside their intervals, the final round
+     bit-identical to `store.query(specs)`; launches per round, the rounds'
+     CUDA-synced walls (first run and warm repeats) and device ms
+     (torch.profiler); every path-F launch of the three kernels held
+     against its plain version, and their times, bounds and grids at the
+     tier shapes;
+  9. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -52,7 +67,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
-  9. kernel and plain-version times (CUDA events, median of warm runs) on
+ 10. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
@@ -60,8 +75,10 @@ non-zero and prints no result line):
      and a 513-point trapezoid grid), beside the bound and the SFU floor at
      the SM clock read after the kernel's windows.
 
-It prints a {"kernels": [...]} JSON line, the card's name and power limit,
-and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
+It prints a {"path_f": {...}} line (the rounds' walls, device ms and CI
+widths), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
+a {"kernels": [...]} JSON line, the card's name and power limit, and last
+{"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device, and when run without the repository around it.
 """
 from __future__ import annotations
@@ -379,11 +396,14 @@ def driven(torch, ops, what: str, fn):
     return out, sec, counts, calls
 
 
-def check_answers(store, specs, stream, res, selector: str, suffix: str) -> np.ndarray:
+def check_answers(store, specs, stream, res, selector: str, suffix: str,
+                  tier=None, eq_path: str = "exact") -> np.ndarray:
     """Every answer finite and inside its CI, each spec on its path; the
     first 32 specs of each range column and 48 boxes held against a float64
-    closed form of the same synopses; Eq answers equal to exact counts of
-    the stream."""
+    closed form of the same synopses (of `tier`, for a tiered store's
+    round); Eq answers equal to exact counts of the stream, or on a
+    count-min path (`eq_path` "exact:cm") the exact answer inside the
+    interval of the sketch's over-count bound."""
     check(len(res) == len(specs), "one result per spec")
     est = np.asarray([r.estimate for r in res])
     lo = np.asarray([r.ci_lo for r in res])
@@ -393,10 +413,10 @@ def check_answers(store, specs, stream, res, selector: str, suffix: str) -> np.n
     paths = [r.path for r in res]
     check(set(paths[:N_RANGE]) == {"range1d" + suffix}, f"range paths {set(paths[:N_RANGE])}")
     check(set(paths[N_RANGE:N_RANGE + N_BOX]) == {"box" + suffix}, "box paths")
-    check(set(paths[N_RANGE + N_BOX:]) == {"exact"}, "Eq paths")
+    check(set(paths[N_RANGE + N_BOX:]) == {eq_path}, f"Eq paths {set(paths[N_RANGE + N_BOX:])}")
 
     for col in RANGE_COLS:
-        syn = store.synopsis(col, selector)
+        syn = store.synopsis(col, selector, tier=tier)
         idx = [i for i in range(N_RANGE) if specs[i].predicates[0].column == col][:32]
         a = [specs[i].predicates[0].a for i in idx]
         b = [specs[i].predicates[0].b for i in idx]
@@ -409,7 +429,7 @@ def check_answers(store, specs, stream, res, selector: str, suffix: str) -> np.n
                                                       sm / cnt if cnt > 1e-3 else 0.0))
         ok, err = close(est[idx], want, 1e-4, 1e-3)
         check(ok, f"{selector}: range1d{suffix} answers on {col} vs float64 (max err {err})")
-    syn = store.joint_synopsis(JOINT, selector)
+    syn = store.joint_synopsis(JOINT, selector, tier=tier)
     idx = list(range(N_RANGE, N_RANGE + 48))
     boxes = [specs[i].predicates[0] for i in idx]
     tgt = [0 if specs[i].target is None else JOINT.index(specs[i].target) for i in idx]
@@ -429,7 +449,11 @@ def check_answers(store, specs, stream, res, selector: str, suffix: str) -> np.n
         cnt = int(np.sum(codes == np.float32(v)))
         want = {"count": float(cnt), "sum": float(v * cnt)}.get(
             specs[i].aggregate, v if cnt else 0.0)
-        check(est[i] == want, f"exact answer {est[i]} != {want}")
+        if eq_path == "exact":
+            check(est[i] == want, f"exact answer {est[i]} != {want}")
+        else:
+            check(lo[i] <= want <= hi[i],
+                  f"{eq_path} spec {i}: exact answer {want} outside [{lo[i]}, {hi[i]}]")
     return est
 
 
@@ -936,6 +960,252 @@ def path_e(torch, rt, store, specs):
           f"{len(ranges)} count_1d_numeric / sum_1d_numeric match the closed forms "
           f"(max |err| {err:.3g}); {sec * 1e3:.1f} ms")
     return counts, calls
+
+
+# --- path F (progressive serving over tiered reservoirs) ------------------------
+
+N_TIERS = 4
+TIER_SIZES = [CAPACITY >> (N_TIERS - 1 - t) for t in range(N_TIERS)]
+F_KERNELS = {"pairwise_scaled_ksum": "pairwise_scaled_ksum",
+             "aqp_batch_sums": "aqp_batch_moments", "aqp_box_sums": "aqp_box_moments"}
+F_REPEATS = 5          # warm progressive runs timed per round
+
+
+def build_tiered_store(args, rt, stream):
+    """Path F's store, launch/serve.py's layout: four-tier ladders on loss,
+    latency_ms and the joint, a count-min sketch on model_id; fed the same
+    stream in the same batches as the first store."""
+    t0 = time.perf_counter()
+    store = rt["store"].TelemetryStore(capacity=CAPACITY, seed=args.seed)
+    check(store.device.type == DEV, f"tiered store landed on {store.device}")
+    for key in RANGE_COLS + (JOINT,):
+        store.track_tiered(key, n_tiers=N_TIERS)
+    store.track_categorical("model_id", kind="cm")
+    for s in range(0, STREAM_ROWS, BATCH_ROWS):
+        store.add_batch({k: v[s:s + BATCH_ROWS] for k, v in stream.items()})
+    ladders = [store.columns[c] for c in RANGE_COLS] + [store.joints[JOINT]]
+    check(all(r.tier_sizes() == TIER_SIZES and r.n_seen == STREAM_ROWS for r in ladders),
+          f"path F: tier sizes {[r.tier_sizes() for r in ladders]}, expected {TIER_SIZES}")
+    sketch = store.categoricals["model_id"]
+    check(sketch.exact_for(store.columns["model_id"].n_seen) and not sketch.off_grid,
+          f"path F: the count-min sketch does not cover the stream {sketch.stats()}")
+    sec = time.perf_counter() - t0
+    print(f"path F store: {STREAM_ROWS} rows in {BATCH_ROWS}-row batches, tiers {TIER_SIZES} "
+          f"on {list(RANGE_COLS)} and the joint, count-min model_id "
+          f"({sketch.depth} x {sketch.width}, err_bound {sketch.err_bound()}), set-up "
+          f"{sec:.2f} s")
+    return store, sec
+
+
+def progressive_run(torch, ops, store, specs, calls=None):
+    """One `store.query(specs, mode="progressive")` pass, a CUDA-synced wall
+    per round: [(tier, results, wall s, launches, {wrapper: (first, end)}
+    index span of the recorded `calls`)]."""
+    out = []
+    gen = store.query(specs, mode="progressive")
+    while True:
+        before = ops.launch_counts()
+        marks = {w: len(v) for w, v in calls.items()} if calls is not None else {}
+        t0 = time.perf_counter()
+        item = next(gen, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if item is None:
+            return out
+        now = ops.launch_counts()
+        spans = {w: (m, len(calls[w])) for w, m in marks.items()}
+        out.append((item[0], item[1], wall, {k: now[k] - before[k] for k in now}, spans))
+
+
+def device_ms(torch, fn) -> tuple:
+    """(device ms, device kernels) of one run of fn from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us and "CUDA" in str(getattr(ev, "device_type", "")):
+            total += us / 1e3
+            kernels += ev.count
+    return total, kernels
+
+
+def grid_note(rt, wrapper: str, args) -> str:
+    """The grid the launcher opens for a call, beside the blocks one wave of
+    the card holds."""
+    mods = {"pairwise_scaled_ksum": rt["pairwise_reduce"], "aqp_batch_moments": rt["aqp_batch"],
+            "aqp_box_moments": rt["aqp_boxes"]}
+    mod = mods[wrapper]
+    x = args[0]
+    index = x.device.index or 0
+    sms = rt["launch"].sm_count(index)
+    n = x.shape[0]
+    if wrapper == "pairwise_scaled_ksum":
+        k = mod.tile_for(n, mod.TILE)
+        return f"{mod.n_tri_tiles(-(-n // k))} blocks of tile {k} on {sms} SMs"
+    q_tiles = -(-args[2].shape[0] // mod.Q_TILE)
+    bps = (mod.blocks_per_sm(index) if wrapper == "aqp_batch_moments"
+           else mod.blocks_per_sm(index, x.shape[1]))
+    pts = rt["launch"].point_range(n, q_tiles, sms, bps, mod.WAVES, mod.TILE)
+    blocks = q_tiles * -(-n // pts)
+    return (f"{blocks} blocks ({q_tiles} query tiles x ranges of {pts} points), "
+            f"{sms * bps} resident a wave")
+
+
+def path_f(torch, rt, args, stream, specs):
+    """Path F: the 1 024 specs answered progressively over a second store of
+    four-tier reservoirs, four PLUGIN rounds (tiers of 4 096 to 32 768 rows)
+    on the pairwise, aqp_batch and aqp_boxes kernels, Eq specs on the
+    count-min sketch."""
+    ops, ref = rt["ops"], rt["ref"]
+    store, setup_s = build_tiered_store(args, rt, stream)
+    n_axes = len(RANGE_COLS) + len(JOINT)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moment_passes(rt["query"]) as passes, recording(ops) as calls:
+        rounds = progressive_run(torch, ops, store, specs, calls)
+    sec = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"path F (progressive, {N_TIERS} tiers) first run, fits included: {sec * 1e3:.1f} ms; "
+          f"launches {counts}")
+    for kernel, wrappers in WRAPPERS.items():
+        made = sum(len(calls[w]) for w in wrappers)
+        check(made == counts[kernel],
+              f"path F: {kernel}: {made} wrapper calls but {counts[kernel]} launches")
+    check(passes == {"moments_1d": 0, "moments_box": 0},
+          f"path F: the engine ran the separate CI moment passes {passes}")
+    check([t for t, *_ in rounds] == list(range(N_TIERS)),
+          f"path F: rounds {[t for t, *_ in rounds]}, expected {list(range(N_TIERS))}")
+    want = {k: 0 for k in counts}
+    want.update(pairwise_scaled_ksum=2 * n_axes, aqp_batch_sums=len(RANGE_COLS), aqp_box_sums=1)
+    medians = []
+    for t, res, wall, c, spans in rounds:
+        check(c == want, f"path F round {t}: launches {c}, expected {want} (each tier fitted "
+                         f"once, one launch per range or box group)")
+        n_t = TIER_SIZES[t]
+        for wrapper in F_KERNELS.values():
+            first, end = spans[wrapper]
+            check(all(a[0].shape[0] == n_t for a, _ in calls[wrapper][first:end]),
+                  f"path F round {t}: {wrapper} not at the tier's n = {n_t}")
+        check_answers(store, specs, stream, res, "plugin", ":cuda",
+                      tier=t if t < N_TIERS - 1 else None, eq_path="exact:cm")
+        kde = res[:N_RANGE + N_BOX]
+        check({r.n_effective for r in kde} == {n_t}
+              and {r.n_effective for r in res[N_RANGE + N_BOX:]} == {STREAM_ROWS},
+              f"path F round {t}: n_effective {sorted({r.n_effective for r in res})}, "
+              f"expected {n_t} on the tiered groups")
+        widths = np.asarray([r.ci_width for r in kde])
+        medians.append(float(np.median(widths)))
+        per_group = {str(col): float(np.median(widths[idx]))
+                     for col, idx in group_slices(specs).items()}
+        print(f"path F round {t} (n = {n_t}): {wall * 1e3:.1f} ms with its fits, launches "
+              f"{ {k: v for k, v in c.items() if v} }; median CI width {medians[-1]:.6g} "
+              f"(per group {per_group})")
+    check(all(a >= b for a, b in zip(medians, medians[1:])),
+          f"path F: the median CI width widened between rounds: {medians}")
+    eq = rounds[-1][1][N_RANGE + N_BOX:]
+    over = max(r.estimate - float(np.sum(stream["model_id"] == np.float32(r.query.predicates[0].value)))
+               for r in eq if r.query.aggregate == "count")
+    print(f"path F: {len(eq)} Eq specs on exact:cm in every round, the stream's exact answers "
+          f"inside their intervals; COUNT estimates over the truth by {over:.0f} rows at most "
+          f"(err_bound {store.categoricals['model_id'].err_bound()})")
+
+    final = rounds[-1][1]
+    res_x, _, counts_x, _ = driven(torch, ops, "path F execute (cached fits)",
+                                   lambda: store.query(specs))
+
+    def key(r):
+        return (r.estimate, r.ci_lo, r.ci_hi, r.path, r.synopsis_version, r.n_effective)
+    check([key(r) for r in final] == [key(r) for r in res_x],
+          "path F: the final round is not bit-identical to store.query(specs)")
+    want_x = dict(want, pairwise_scaled_ksum=0)
+    check(counts_x == want_x, f"path F execute launches {counts_x}, expected {want_x}")
+    print("path F: the final round is bit-identical to store.query(specs) (estimates, CI "
+          "bounds, paths, versions)")
+
+    walls = [[] for _ in range(N_TIERS)]
+    for _ in range(F_REPEATS):
+        again = progressive_run(torch, ops, store, specs)
+        for (t, res, wall, c, _), (_, first_res, *_) in zip(again, rounds):
+            check([key(r) for r in res] == [key(r) for r in first_res]
+                  and c["pairwise_scaled_ksum"] == 0,
+                  f"path F repeat round {t}: not bit-identical, or refitted")
+            walls[t].append(wall)
+    gen = store.query(specs, mode="progressive")
+    dev = [device_ms(torch, lambda: next(gen)) for _ in range(N_TIERS)]
+    summary = {"setup_s": setup_s, "first_run_ms": sec * 1e3,
+               "first_ms": [r[2] * 1e3 for r in rounds],
+               "repeat_ms": [float(np.median(w)) * 1e3 for w in walls],
+               "device_ms": [d[0] for d in dev], "device_kernels": [d[1] for d in dev],
+               "median_ci_width": medians}
+    for t in range(N_TIERS):
+        print(f"path F round {t} (n = {TIER_SIZES[t]}): first {summary['first_ms'][t]:.1f} ms, "
+              f"repeat {summary['repeat_ms'][t]:.1f} ms (median of {F_REPEATS} CUDA-synced "
+              f"walls, {' / '.join(f'{w * 1e3:.1f}' for w in walls[t])}); device "
+              f"{dev[t][0]:.4f} ms in {dev[t][1]} kernels and copies (torch.profiler)")
+
+    # every path-F launch of the three kernels against its plain version
+    errs = []
+    for a, kw in calls["pairwise_scaled_ksum"]:
+        n = a[0].shape[0]
+        errs.append(held(float(ops.pairwise_scaled_ksum(*a, **kw)),
+                         float(ref.pairwise_scaled_ksum(*a, **kw)),
+                         PAIR_RTOL, max(1e-5, 1e-6 * n), f"path F pairwise {kw['kind']} n={n}"))
+    a, kw = calls["pairwise_scaled_ksum"][0]
+    check(torch.equal(ops.pairwise_scaled_ksum(*a, **kw), ops.pairwise_scaled_ksum(*a, **kw)),
+          "path F pairwise: two launches on the same inputs differ")
+    f_errs = {"pairwise_scaled_ksum": max(errs)}
+    print(f"path F pairwise: {len(errs)} calls (n = {sorted({a[0].shape[0] for a, _ in calls['pairwise_scaled_ksum']})}) "
+          f"match plain, max |err| {max(errs):.3g}")
+    f_errs.update(range_box_vs_plain(torch, rt, calls, "path F"))
+    torch.cuda.synchronize()
+    return counts, calls, rounds, summary, f_errs
+
+
+def path_f_timings(torch, rt, rounds, calls, f_errs, counts) -> list:
+    """The path-F kernels on the inputs of their first call in each tier
+    round below the top (PLUGIN's K6 sum for the pairwise kernel): kernel
+    and plain version by CUDA events, device ms a launch from torch.profiler,
+    bound, SFU floor and the launcher's grid; the n = 4 096 rows for the
+    JSON line."""
+    ops, ref = rt["ops"], rt["ref"]
+    out = []
+    for name, wrapper in F_KERNELS.items():
+        for t, _, _, _, spans in rounds[:-1]:
+            first, end = spans[wrapper]
+            made = calls[wrapper][first:end]
+            args, kw = next(((a, k) for a, k in made if k.get("kind", "k6") == "k6"), made[0])
+
+            def kern():
+                return getattr(ops, wrapper)(*args, **kw)
+
+            def plain():
+                return getattr(ref, wrapper)(*args, **kw)
+            p1 = time_ms(torch, plain)
+            k1 = time_ms(torch, kern)
+            k2 = time_ms(torch, kern)
+            mhz = sm_clock_mhz()
+            p2 = time_ms(torch, plain)
+            reps = 20
+            dev, _ = device_ms(torch, lambda: [kern() for _ in range(reps)])
+            b, by, mufu = bound_ms(wrapper, args, kw)
+            sfu = sfu_floor_ms(mufu, mhz)
+            grid = grid_note(rt, wrapper, args)
+            print(f"time path F {name} ({call_shape(wrapper, args, kw)}, tier {t}): kernel "
+                  f"{k1:.4f} / {k2:.4f} ms (median of 15), device {dev / reps:.5f} ms a launch "
+                  f"(torch.profiler, {reps} launches), plain {p1:.4f} / {p2:.4f} ms, bound "
+                  f"{b:.5f} ms ({by}), SFU floor {sfu:.5f} ms at {mhz:.0f} MHz; {grid}")
+            if t == 0:
+                out.append({"name": name, "shape": call_shape(wrapper, args, kw),
+                            "launches": counts[name], "launches_at_n": rounds[0][3][name],
+                            "max_abs_err": f_errs[name],
+                            "ms": min(k1, k2), "device_ms": dev / reps,
+                            "plain_ms": min(p1, p2), "bound_ms": b, "bound_by": by,
+                            "sfu_floor_ms": sfu, "sm_clock_mhz": mhz, "grid": grid})
+    return out
 
 
 def all_range_bounds(torch, calls):
@@ -1844,11 +2114,12 @@ def main() -> int:
     from repro_torch import synopses
     from repro_torch.core import aqp, aqp_ci, aqp_multid, aqp_query, kde, lscv, plugin
     from repro_torch.data import aqp_store
-    from repro_torch.kernels import _build, lscv_grid, ops, pairwise_reduce, ref, rff_eval
+    from repro_torch.kernels import (_build, _launch, aqp_batch, aqp_boxes, lscv_grid, ops,
+                                     pairwise_reduce, ref, rff_eval)
     rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
           "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
-          "aqp_ci": aqp_ci,
-          "lscv_grid": lscv_grid, "rff_eval": rff_eval,
+          "aqp_ci": aqp_ci, "aqp_batch": aqp_batch, "aqp_boxes": aqp_boxes,
+          "launch": _launch, "lscv_grid": lscv_grid, "rff_eval": rff_eval,
           "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses}
     t_start = time.perf_counter()
 
@@ -1867,12 +2138,18 @@ def main() -> int:
     counts["D"], calls_d, counts["D exact"], calls_dx = path_d(torch, rt, store, specs)
     counts["E"], calls_e = path_e(torch, rt, store, specs)
     print(f"phases through path E: {time.perf_counter() - t_start:.1f} s")
+    t_f = time.perf_counter()
+    counts["F"], calls_f, rounds_f, summary_f, errs_f = path_f(torch, rt, args, stream, specs)
+    f_kernels = path_f_timings(torch, rt, rounds_f, calls_f, errs_f, counts["F"])
+    print(f"path F: {time.perf_counter() - t_f:.1f} s in all ({summary_f['setup_s']:.2f} s "
+          f"set-up); through path F: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"path_f": summary_f}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))
     print(f"phases through the plain-version checks: {time.perf_counter() - t_start:.1f} s")
     paths = {"plugin": calls_main, "A": calls_a, "B": calls_b, "C": calls_c, "D": calls_d,
-             "D exact": calls_dx, "E": calls_e}
+             "D exact": calls_dx, "E": calls_e, "F": calls_f}
     first = {}
     for name in TPU_KERNELS:
         made = paths[KERNEL_PATH[name]]
@@ -1891,6 +2168,7 @@ def main() -> int:
                         "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                         "sfu_floor_ms": sfu, "sm_clock_mhz": mhz})
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"path_f_kernels": f_kernels}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

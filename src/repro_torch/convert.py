@@ -11,8 +11,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.aqp import KDESynopsis
-from repro_torch.data.aqp_store import (CategoricalSketch, MultiReservoir,
-                                        Reservoir, TelemetryStore)
+from repro_torch.data.aqp_store import (_SKETCH_KINDS, MultiReservoir, Reservoir,
+                                        TelemetryStore, TieredReservoir)
 from repro_torch.device import DTYPE, DeviceLike, resolve_device
 from repro_torch.synopses import RFFSynopsis, get_backend
 
@@ -54,15 +54,17 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
 
     Carries reservoir buffers with `n_seen`, `n_filled`, version and RNG
     state (so later `add_batch` calls sample as the reference would), joints
-    with their backfill flags, exact categorical sketches, cached synopses
-    with a bandwidth (plugin, silverman, lscv_h) or a full bandwidth matrix
-    (lscv_H), and cached density synopses (RFF: w, b, z, norm, seed,
-    degraded, probe_rel_err).  The reference fits on its plain path, so its
+    with their backfill flags, tiered columns and joints (every tier and
+    stratum with its RNG state), exact and count-min sketches (the stored
+    hash parameters and table), cached synopses with a bandwidth (plugin,
+    silverman, lscv_h) or a full bandwidth matrix (lscv_H), and cached
+    density synopses (RFF: w, b, z, norm, seed, degraded, probe_rel_err).  The reference fits on its plain path, so its
     cached entries serve the port's plain backend ("torch"); a "cuda" query
     refits on the kernels.  `meta["metrics"]` and `meta["plans"]` are
     skipped: the port has no metrics registry yet, and plans rebuild from the
-    synopses on first use.  Tiered reservoirs and count-min sketches raise
-    NotImplementedError.
+    synopses on first use.  A tier's cached synopsis keeps its tier-suffixed
+    column key, which is where the port's tiered resolution looks
+    (`_tier_key`).
     """
     if int(meta.get("format", -1)) != STATE_FORMAT:
         raise ValueError(f"unsupported store-state format "
@@ -70,33 +72,30 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
     store = TelemetryStore(capacity=int(meta["capacity"]),
                            seed=int(meta["seed"]), device=device)
     cap = store.capacity
+
+    def subtree(prefix: str) -> Dict[str, np.ndarray]:
+        return {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix)}
+
     with store._write_lock:
         for name, m in meta["columns"].items():
             if m.get("kind") == "tiered":
-                raise NotImplementedError(
-                    f"column {name!r} is a tiered reservoir, not ported yet "
-                    f"(ROADMAP queue 1.7)")
+                store.columns[name] = TieredReservoir.from_state(
+                    subtree(f"columns/{name}/"), m)
+                continue
             res = Reservoir(cap, seed=store._col_seed(name))
             res.load_state(arrays[f"columns/{name}/buf"], m)
             store.columns[name] = res
         for i, m in enumerate(meta["joints"]):
             cols = tuple(m["columns"])
             if m.get("kind") == "tiered":
-                raise NotImplementedError(
-                    f"joint {cols!r} is a tiered reservoir, not ported yet "
-                    f"(ROADMAP queue 1.7)")
+                store.joints[cols] = TieredReservoir.from_state(subtree(f"joints/{i}/"), m)
+                continue
             res = MultiReservoir(cols, cap, seed=store._col_seed("|".join(cols)))
             res.load_state(arrays[f"joints/{i}/buf"], m)
             store.joints[cols] = res
         for name, m in meta["categoricals"].items():
-            if m["kind"] != "exact":
-                raise NotImplementedError(
-                    f"sketch {name!r} of kind {m['kind']!r} is not ported yet "
-                    f"(ROADMAP queue 1.7)")
-            prefix = f"categoricals/{name}/"
-            sketch = CategoricalSketch.from_state(
-                {k[len(prefix):]: v for k, v in arrays.items()
-                 if k.startswith(prefix)}, m)
+            sketch = _SKETCH_KINDS[str(m["kind"])].from_state(
+                subtree(f"categoricals/{name}/"), m)
             res = store.columns.get(name)
             if res is not None and sketch.n_rows > res.n_seen:
                 raise ValueError(
@@ -107,10 +106,8 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
         col = tuple(ent["column"]) if ent["is_tuple"] else ent["column"]
         syn_meta = ent.get("synopsis")
         if syn_meta is not None:
-            prefix = f"cache/{i}/"
             syn = get_backend(str(syn_meta["backend"])).from_state(
-                {k[len(prefix):]: v for k, v in arrays.items()
-                 if k.startswith(prefix)}, syn_meta, device=store.device)
+                subtree(f"cache/{i}/"), syn_meta, device=store.device)
             syn.n_source = int(ent["n_source"])
             syn.selector = str(ent["syn_selector"])
         else:

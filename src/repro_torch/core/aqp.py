@@ -15,12 +15,13 @@ product (eq. 11).  Selectors "plugin", "silverman", "lscv_h" (one scalar
 h, broadcast to every axis) and "lscv_H" (a full bandwidth matrix) are
 ported.  A full-H synopsis answers boxes by deterministic quasi-MC on
 Halton nodes (`box_qmc_terms`); `count_1d_numeric` / `sum_1d_numeric` are
-the trapezoid cross-checks of eqs. 9-10 through `kde_eval`.
+the trapezoid cross-checks of eqs. 9-10 through `kde_eval`.  `Query` and
+`QueryBatch` are the legacy 1-D surface over the engine.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -266,6 +267,35 @@ class KDESynopsis:
             return self._scale() * sum_box_H(x, self.H, lo, hi, target=t)
         return self._scale() * sum_box_diag(x, self.h_diag(), lo, hi, t)
 
+    def avg_box(self, lo, hi, target: Optional[int] = None) -> torch.Tensor:
+        return _avg_or_zero(self.count_box(lo, hi), self.sum_box(lo, hi, target))
+
+    def merge(self, other: "KDESynopsis", max_sample: int = 4096,
+              seed: int = 0) -> "KDESynopsis":
+        """Union the retained samples and refit the bandwidth on the union,
+        on this synopsis's device.  Above `max_sample` rows the union is
+        subsampled as `fit` does, with a seeded torch.Generator: not the
+        reference's jax.random rows."""
+        merged = torch.cat([self.x, other.x], dim=0)
+        out = KDESynopsis.fit(merged, selector=self.selector, max_sample=max_sample,
+                              seed=seed, device=self.x.device)
+        out.n_source = self.n_source + other.n_source
+        return out
+
+    def query_batch(self, queries: Sequence["Query"],
+                    backend: Optional[str] = None) -> np.ndarray:
+        """Answer COUNT / SUM / AVG range queries (`Query`, or its field
+        tuples) in one batched pass."""
+        queries = [q if isinstance(q, Query) else Query(*q) for q in queries]
+        return run_legacy_queries(queries, self, backend=backend)
+
+    def query_box_batch(self, queries, backend: Optional[str] = None) -> np.ndarray:
+        """Answer COUNT / SUM / AVG box queries (`BoxQuery`, or its field
+        tuples, eq. 11) in one batched pass."""
+        from .aqp_multid import BoxQuery, run_legacy_boxes
+        queries = [q if isinstance(q, BoxQuery) else BoxQuery(*q) for q in queries]
+        return run_legacy_boxes(queries, self, backend=backend)
+
 
 # --- batched closed forms -----------------------------------------------------
 
@@ -302,3 +332,64 @@ def batch_query_1d(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
     else:
         cnt_raw, sum_raw = kref.aqp_batch_sums(x, h, a, b)
     return _select_op(ops, scale * cnt_raw, scale * sum_raw)
+
+
+# --- the legacy 1-D surface -----------------------------------------------------
+#
+# `Query` / `QueryBatch` predate the declarative engine; `QueryBatch.run` is a
+# deprecated shim that compiles to AqpQuery specs (`core/aqp_query.py`).
+
+@dataclass(frozen=True)
+class Query:
+    """One aggregate range query: OP(column) WHERE a <= column <= b."""
+    op: str                        # "count" | "sum" | "avg"
+    a: float
+    b: float
+    column: Optional[str] = None   # None when run against a single synopsis
+
+    def __post_init__(self):
+        if self.op not in OP_CODES:
+            raise ValueError(f"unknown op {self.op!r}; expected one of {sorted(OP_CODES)}")
+
+
+@dataclass
+class QueryBatch:
+    """A heterogeneous batch of legacy queries, grouped by column.  The
+    reference's `plan` (device arrays for its old jitted pass) has no
+    counterpart: the engine plans."""
+    queries: Sequence[Query]
+    _groups: Dict[Optional[str], List[int]] = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.queries = [q if isinstance(q, Query) else Query(*q) for q in self.queries]
+        groups: Dict[Optional[str], List[int]] = {}
+        for i, q in enumerate(self.queries):
+            groups.setdefault(q.column, []).append(i)
+        self._groups = groups
+
+    def __len__(self) -> int:
+        return len(self.queries)
+
+    @property
+    def columns(self) -> List[Optional[str]]:
+        return list(self._groups)
+
+    def run(self, synopses, backend: Optional[str] = None) -> np.ndarray:
+        """Deprecated: compiles to AqpQuery specs and executes them through
+        the engine; answers in submission order."""
+        import warnings
+
+        warnings.warn(
+            "QueryBatch.run is deprecated; build AqpQuery specs and execute "
+            "them through repro_torch.core.aqp_query.QueryEngine (or "
+            "TelemetryStore.query)", DeprecationWarning, stacklevel=2)
+        return run_legacy_queries(self.queries, synopses, backend=backend)
+
+
+def run_legacy_queries(queries: Sequence[Query], synopses,
+                       backend: Optional[str] = None) -> np.ndarray:
+    """Execute legacy `Query` objects through the engine against a synopsis
+    or a {column: synopsis} mapping (the body of `QueryBatch.run` and
+    `KDESynopsis.query_batch`)."""
+    from .aqp_query import execute_specs, from_query
+    return execute_specs([from_query(q) for q in queries], synopses, backend=backend)

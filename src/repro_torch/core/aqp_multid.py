@@ -19,13 +19,15 @@ the group's support-clipped hull, with one density evaluation per group —
 exact (`batch_query_qmc`, eq. 6) or from a fitted RFF synopsis
 (`batch_query_qmc_rff`; on the "cuda" backend `qmc_rff_answers_and_se`
 takes the answers and their feature-block CI from one launch).  The host
-planning (`_qmc_plan`) is float64 numpy, as in the reference.
+planning (`_qmc_plan`) is float64 numpy, as in the reference.  `BoxQuery`
+and `BoxQueryBatch` are the legacy box surface over the engine.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
 from functools import lru_cache
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,6 +53,109 @@ def batch_query_box(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     else:
         cnt_raw, sum_raw = kref.aqp_box_sums(x, h_diag, lo, hi, tgt)
     return _select_op(ops, scale * cnt_raw, scale * sum_raw)
+
+
+# --- the legacy box surface ---------------------------------------------------
+#
+# `BoxQuery` / `BoxQueryBatch` predate the declarative engine;
+# `BoxQueryBatch.run` is a deprecated shim that compiles to AqpQuery specs.
+
+ColumnsKey = Optional[Tuple[str, ...]]
+
+
+@dataclass(frozen=True)
+class BoxQuery:
+    """One aggregate over an axis-aligned box: OP WHERE lo_j <= X_j <= hi_j.
+    `columns` names the joint synopsis (None against a single synopsis);
+    `target` picks the SUM / AVG axis, a column name (needs `columns`) or an
+    axis index, default axis 0."""
+    op: str                                   # "count" | "sum" | "avg"
+    lo: Tuple[float, ...]
+    hi: Tuple[float, ...]
+    columns: Optional[Tuple[str, ...]] = None
+    target: Optional[Union[int, str]] = None
+
+    def __post_init__(self):
+        if self.op not in OP_CODES:
+            raise ValueError(f"unknown op {self.op!r}; expected one of {sorted(OP_CODES)}")
+        object.__setattr__(self, "lo", tuple(float(v) for v in np.ravel(self.lo)))
+        object.__setattr__(self, "hi", tuple(float(v) for v in np.ravel(self.hi)))
+        if len(self.lo) != len(self.hi):
+            raise ValueError(f"lo/hi dimensionality mismatch: "
+                             f"{len(self.lo)} vs {len(self.hi)}")
+        if self.columns is not None:
+            object.__setattr__(self, "columns", tuple(self.columns))
+            if len(self.columns) != len(self.lo):
+                raise ValueError(f"box has {len(self.lo)} axes but names "
+                                 f"{len(self.columns)} columns")
+        self.target_index()      # validate eagerly: planning must not fail late
+
+    @property
+    def d(self) -> int:
+        return len(self.lo)
+
+    def target_index(self) -> int:
+        """`target` as an axis index (0 when unset)."""
+        if self.target is None:
+            return 0
+        if isinstance(self.target, str):
+            if self.columns is None or self.target not in self.columns:
+                raise ValueError(f"target column {self.target!r} not among "
+                                 f"box columns {self.columns}")
+            return self.columns.index(self.target)
+        t = int(self.target)
+        if not 0 <= t < self.d:
+            raise ValueError(f"target axis {t} out of range for d={self.d}")
+        return t
+
+
+@dataclass
+class BoxQueryBatch:
+    """A heterogeneous batch of legacy box queries, grouped by column tuple
+    (each group one box dimensionality).  The reference's `plan` has no
+    counterpart: the engine plans."""
+    queries: Sequence[BoxQuery]
+    _groups: Dict[ColumnsKey, List[int]] = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.queries = [q if isinstance(q, BoxQuery) else BoxQuery(*q)
+                        for q in self.queries]
+        groups: Dict[ColumnsKey, List[int]] = {}
+        for i, q in enumerate(self.queries):
+            groups.setdefault(q.columns, []).append(i)
+        for key, idx in groups.items():
+            dims = {self.queries[i].d for i in idx}
+            if len(dims) > 1:
+                raise ValueError(f"queries for synopsis {key} mix box "
+                                 f"dimensionalities {sorted(dims)}")
+        self._groups = groups
+
+    def __len__(self) -> int:
+        return len(self.queries)
+
+    @property
+    def column_groups(self) -> List[ColumnsKey]:
+        return list(self._groups)
+
+    def run(self, synopses, backend: Optional[str] = None) -> np.ndarray:
+        """Deprecated: compiles to AqpQuery specs and executes them through
+        the engine; answers in submission order."""
+        import warnings
+
+        warnings.warn(
+            "BoxQueryBatch.run is deprecated; build AqpQuery specs and "
+            "execute them through repro_torch.core.aqp_query.QueryEngine (or "
+            "TelemetryStore.query)", DeprecationWarning, stacklevel=2)
+        return run_legacy_boxes(self.queries, synopses, backend=backend)
+
+
+def run_legacy_boxes(queries: Sequence[BoxQuery], synopses,
+                     backend: Optional[str] = None) -> np.ndarray:
+    """Execute legacy `BoxQuery` objects through the engine against a
+    synopsis or a {columns: synopsis} mapping (the body of
+    `BoxQueryBatch.run` and `KDESynopsis.query_box_batch`)."""
+    from .aqp_query import execute_specs, from_box_query
+    return execute_specs([from_box_query(q) for q in queries], synopses, backend=backend)
 
 
 # --- grouped GROUP BY evaluation (shared box terms factored out) ------------

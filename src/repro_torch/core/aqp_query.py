@@ -12,6 +12,8 @@ Counterpart: `repro/core/aqp_query.py`.
       path         synopsis               pass
       -----------  ---------------------  ---------------------------------
       exact        categorical sketch     per-code counts, zero-width CI
+      exact:cm     count-min sketch       bounded-error counts, the CI of the
+                                          over-count bound
       range1d      1-D sample, scalar h   closed forms (`batch_query_1d`;
                                           the aqp_batch kernel on ":cuda")
       box          rows, diagonal h       eq. 11 (`batch_query_box`; the
@@ -38,8 +40,11 @@ and the RFF feature count from environment knobs; here they are the module
 constants KDE_CROSSOVER and DEFAULT_RFF_FEATURES, with QueryEngine keywords
 `kde_crossover` and `rff_features`.
 
-Not ported yet, and raising NotImplementedError when asked for: progressive
-execution over tiered reservoirs (ROADMAP queue 1.7).
+Tiered reservoirs: a `tier` budget resolves each group against one tier of
+a `TieredReservoir` (its own synopsis, plan and cache entries), and
+`QueryEngine.progressive` answers tier by tier up to the full sample, whose
+round is bit-identical to `execute`.  `execute_specs` and the legacy
+`Query` / `BoxQuery` bridges run against bare synopses or a mapping of them.
 """
 from __future__ import annotations
 
@@ -97,6 +102,30 @@ def _rff_cache_key(col, n_features: int):
     if isinstance(col, tuple):
         return col + (f"#rff{n_features}",)
     return f"{col}#rff{n_features}"
+
+
+# --- tier addressing (TieredReservoir, repro_torch.data.aqp_store) ----------
+
+def _effective_tier(res, tier: Optional[int]) -> Optional[int]:
+    """Normalize a tier request against a reservoir: None, any request
+    against a plain reservoir, and a request for the top tier of a
+    `TieredReservoir` all mean the full sample (None), so full-accuracy
+    requests share cache keys and plans with untiered execution."""
+    n_tiers = getattr(res, "n_tiers", None)
+    if tier is None or n_tiers is None:
+        return None
+    t = max(0, min(int(tier), n_tiers - 1))
+    return None if t >= n_tiers - 1 else t
+
+
+def _tier_key(col, tier: Optional[int]):
+    """A synopsis-cache column key suffixed with the tier, so a tier's
+    synopsis sits beside the full sample's entry."""
+    if tier is None:
+        return col
+    if isinstance(col, tuple):
+        return col + (f"#tier{tier}",)
+    return f"{col}#tier{tier}"
 
 
 # --- predicate terms --------------------------------------------------------
@@ -441,22 +470,37 @@ class PlanCache:
     def put(self, key, version: int, plan: _GroupPlan) -> None:
         self._entries[key] = (version, plan)
 
+    def entries(self) -> List[Tuple[object, int]]:
+        """[(key, version)] of every live entry."""
+        return [(key, version) for key, (version, _plan) in self._entries.items()]
+
+    def stats(self) -> Dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._entries)}
+
 
 class _StoreResolver:
     """Maps a compiled query to (group key, plan, version) against a
     TelemetryStore: single columns use the per-column reservoirs, multi-column
     boxes match a tracked joint (exact tuple first, then by column set,
     reordering the box to the joint's axis order).  Fits run on `backend`;
-    RFF density synopses have `rff_features` features."""
+    RFF density synopses have `rff_features` features.
+
+    `tier` (a `TieredReservoir` tier, None for the full sample) rides in the
+    group key (column, selector, tier), so a coarse round and a full round
+    over one column resolve to their own plans and synopses; plans are
+    cached under (group key, backend)."""
 
     def __init__(self, store, selector: str, backend: str,
                  plans: Optional[PlanCache] = None,
-                 rff_features: int = DEFAULT_RFF_FEATURES):
+                 rff_features: int = DEFAULT_RFF_FEATURES,
+                 tier: Optional[int] = None):
         self.store = store
         self.selector = selector
         self.backend = backend
         self.plans = plans
         self.rff_features = rff_features
+        self.tier = tier
 
     def key_for(self, c: _Compiled):
         """(group key, reordered compiled, reservoir version) — no fitting."""
@@ -470,7 +514,7 @@ class _StoreResolver:
             if res is None:
                 raise KeyError(f"unknown column {col!r}; "
                                f"have {sorted(self.store.columns)}")
-            return (col, sel), c, res.version
+            return (col, sel, _effective_tier(res, self.tier)), c, res.version
         cols = c.cols
         joints = self.store.joints
         if cols not in joints:
@@ -483,7 +527,7 @@ class _StoreResolver:
                                f"call track_joint({cols!r}) before add_batch "
                                f"(have {sorted(joints)})")
         res = joints[cols]
-        return (cols, sel), c, res.version
+        return (cols, sel, _effective_tier(res, self.tier)), c, res.version
 
     def plan_for(self, key, version: int) -> _GroupPlan:
         """Fit-or-fetch the group's plan for the given reservoir version;
@@ -492,11 +536,11 @@ class _StoreResolver:
             plan = self.plans.get((key, self.backend), version)
             if plan is not None:
                 return plan
-        col, sel = key
+        col, sel, tier = key
         if isinstance(col, tuple):
-            syn = self.store.joint_synopsis(col, sel, backend=self.backend)
+            syn = self.store.joint_synopsis(col, sel, backend=self.backend, tier=tier)
         else:
-            syn = self.store.synopsis(col, sel, backend=self.backend)
+            syn = self.store.synopsis(col, sel, backend=self.backend, tier=tier)
         plan = _make_plan(syn)
         if self.plans is not None:
             self.plans.put((key, self.backend), version, plan)
@@ -518,11 +562,11 @@ class _StoreResolver:
         this returns None for it ever after."""
         from repro_torch.synopses import RFFSynopsis
 
-        col, sel = key
+        col, sel, tier = key
         syn = plan.syn
         if syn.H is None:
             return None
-        ckey = _rff_cache_key(col, self.rff_features)
+        ckey = _rff_cache_key(_tier_key(col, tier), self.rff_features)
         cache = self.store.cache
         hit = cache.get(ckey, sel, version, backend=self.backend)
         if hit is not None:
@@ -546,8 +590,12 @@ class _StoreResolver:
 
     def try_exact(self, c: _Compiled):
         """Sketch answer for an all-Eq single-column query when the column's
-        categorical sketch covers its whole stream: (estimate, version,
-        path, ci_lo, ci_hi, n_effective), or None for the KDE path."""
+        sketch covers its whole stream: (estimate, version, path, ci_lo,
+        ci_hi, n_effective), or None for the KDE path.  A `CategoricalSketch`
+        answers on "exact" with a zero-width CI; a `CountMinSketch` on
+        "exact:cm" with the CI of its deterministic over-count bound
+        (one-sided for COUNT, asymmetric for SUM), or None when its window
+        is too wide to enumerate or the stream went off its grid."""
         if not c.all_eq or c.cols is None or len(c.cols) != 1:
             return None
         col = c.cols[0]
@@ -555,14 +603,78 @@ class _StoreResolver:
         res = self.store.columns.get(col)
         if sketch is None or res is None or not sketch.exact_for(res.n_seen):
             return None
-        cnt, sm = sketch.range_terms(c.lo[0], c.hi[0])
+        terms = sketch.range_terms(c.lo[0], c.hi[0])
+        if terms is None:
+            return None
+        cnt, sm = terms
         if c.op == OP_COUNT:
             est = float(cnt)
         elif c.op == OP_SUM:
             est = float(sm)
         else:
             est = float(sm / cnt) if cnt > 0 else 0.0
-        return est, res.version, sketch.path, est, est, int(sketch.n_rows)
+        n_eff = int(sketch.n_rows)
+        range_err = getattr(sketch, "range_err", None)
+        if range_err is None:
+            return est, res.version, sketch.path, est, est, n_eff
+        err = range_err(c.lo[0], c.hi[0])
+        if err is None:
+            return None
+        cnt_err, sum_pos, sum_neg = err
+        if c.op == OP_COUNT:
+            ci_lo, ci_hi = max(0.0, est - cnt_err), est
+        elif c.op == OP_SUM:
+            # over-counted positive codes inflate the sum, negative ones
+            # deflate it
+            ci_lo, ci_hi = sm - sum_pos, sm + sum_neg
+        elif cnt <= 0:
+            ci_lo, ci_hi = -float("inf"), float("inf")
+        else:
+            nums = (sm - sum_pos, sm + sum_neg)
+            dens = [d for d in (float(cnt), float(max(0, cnt - cnt_err))) if d > 0]
+            ratios = [n / d for n in nums for d in dens]
+            ci_lo, ci_hi = min(ratios), max(ratios)
+        return est, res.version, sketch.path, ci_lo, ci_hi, n_eff
+
+
+class _MappingResolver:
+    """Resolution against a bare synopsis or a {column(s): synopsis}
+    mapping, the legacy context (no store, no versions), on `backend`."""
+
+    def __init__(self, synopses, backend: str):
+        self.synopses = synopses
+        self.backend = backend
+        self._plans: Dict[int, _GroupPlan] = {}   # keyed on synopsis identity
+
+    def _plan(self, syn: KDESynopsis) -> _GroupPlan:
+        plan = self._plans.get(id(syn))
+        if plan is None:
+            plan = self._plans[id(syn)] = _make_plan(syn)
+        return plan
+
+    def __call__(self, c: _Compiled):
+        d = len(c.lo)
+        if isinstance(self.synopses, KDESynopsis):
+            if c.cols is not None:
+                noun = "column" if d == 1 else "columns"
+                raise ValueError(f"queries name columns but a single synopsis "
+                                 f"was given; pass a {{{noun}: synopsis}} "
+                                 f"mapping")
+            return None, c, self._plan(self.synopses), 0
+        if c.cols is None:
+            if d == 1:
+                raise ValueError("queries must name a column when running "
+                                 "against a synopsis mapping")
+            raise ValueError("queries must name their columns when running "
+                             "against a synopsis mapping")
+        key = c.cols[0] if len(c.cols) == 1 else c.cols
+        if key not in self.synopses:
+            have = sorted(self.synopses, key=str)
+            if len(c.cols) == 1:
+                raise KeyError(f"no synopsis for column {key!r}; have {have}")
+            raise KeyError(f"no joint synopsis for columns {key!r}; "
+                           f"have {have}")
+        return key, c, self._plan(self.synopses[key]), 0
 
 
 # --- execution --------------------------------------------------------------
@@ -771,17 +883,20 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
     return [out[id(c)] for c in entries]
 
 
-def _execute(compiled: Sequence[_Compiled], n_out: int,
-             resolver: _StoreResolver, backend: str, n_qmc: int = 4096,
-             ci_level: float = DEFAULT_CI_LEVEL, kde_backend: str = "auto",
+def _execute(compiled: Sequence[_Compiled], n_out: int, resolver, backend: str,
+             n_qmc: int = 4096, ci_level: float = DEFAULT_CI_LEVEL,
+             kde_backend: str = "auto",
              kde_crossover: int = KDE_CROSSOVER) -> List[AqpResult]:
-    """Answer compiled queries: exact categorical sketches first, then group
-    the rest by resolved synopsis, answer each group in batched passes on
-    its path and scatter back to submission order."""
+    """Answer compiled queries: sketches first (when the resolver offers
+    them), then group the rest by resolved synopsis, answer each group in
+    batched passes on its path and scatter back to submission order.  The
+    mapping resolver has neither sketches nor an RFF fit cache."""
     results: List[Optional[AqpResult]] = [None] * n_out
+    try_exact = getattr(resolver, "try_exact", None)
+    density_for = getattr(resolver, "density_for", None)
     remaining: List[_Compiled] = []
     for c in compiled:
-        hit = resolver.try_exact(c)
+        hit = try_exact(c) if try_exact is not None else None
         if hit is not None:
             est, version, path, ci_lo, ci_hi, n_eff = hit
             results[c.slot] = AqpResult(
@@ -806,10 +921,11 @@ def _execute(compiled: Sequence[_Compiled], n_out: int,
         if plan.kind == "qmc":
             # fit-or-fetch the RFF synopsis only when some entry wants it
             n_rows = int(plan.x_rows.shape[0])
-            if any(_resolve_kde_backend(c.kde_backend, kde_backend, n_rows,
-                                        kde_crossover) == "rff"
-                   for c in entries):
-                rff = resolver.density_for(key, g["version"], plan)
+            if density_for is not None and any(
+                    _resolve_kde_backend(c.kde_backend, kde_backend, n_rows,
+                                         kde_crossover) == "rff"
+                    for c in entries):
+                rff = density_for(key, g["version"], plan)
         answered = _run_group(key, plan, entries, backend, n_qmc,
                               ci_level=ci_level, kde_backend=kde_backend,
                               rff=rff, kde_crossover=kde_crossover)
@@ -879,20 +995,24 @@ class QueryEngine:
         return compiled
 
     def resolver(self, selector: Optional[str] = None,
-                 backend: Optional[str] = None) -> _StoreResolver:
-        """Store resolver wired to this engine's version-keyed plan cache."""
+                 backend: Optional[str] = None,
+                 tier: Optional[int] = None) -> _StoreResolver:
+        """Store resolver wired to this engine's version-keyed plan cache;
+        `tier` budgets resolution to one tier of a `TieredReservoir` (None:
+        the full sample; plain reservoirs ignore it)."""
         return _StoreResolver(self.store, selector or self.selector,
                               backend or self.backend, plans=self.plans,
-                              rff_features=self.rff_features)
+                              rff_features=self.rff_features, tier=tier)
 
     def run_compiled(self, compiled: Sequence[_Compiled],
                      selector: Optional[str] = None,
                      backend: Optional[str] = None,
+                     tier: Optional[int] = None,
                      kde_backend: Optional[str] = None) -> List[AqpResult]:
         """Execute pre-compiled units (slots must be 0..n-1)."""
         backend = resolve_backend(backend or self.backend, self.store.device)
         return _execute(compiled, len(compiled),
-                        self.resolver(selector, backend), backend,
+                        self.resolver(selector, backend, tier=tier), backend,
                         n_qmc=self.n_qmc, ci_level=self.ci_level,
                         kde_backend=kde_backend or self.kde_backend,
                         kde_crossover=self.kde_crossover)
@@ -900,20 +1020,46 @@ class QueryEngine:
     def execute(self, queries: Union[AqpQuery, Sequence[AqpQuery]],
                 selector: Optional[str] = None,
                 backend: Optional[str] = None, mode: str = "batch",
-                kde_backend: Optional[str] = None) -> List[AqpResult]:
+                kde_backend: Optional[str] = None):
         """Answer a batch of AqpQuery specs; one AqpResult per query (one per
-        group value for GROUP BY queries).  `kde_backend` overrides the
-        engine's density backend for this batch ("auto" | "exact" | "rff",
-        full-H path only).  Only mode="batch" is ported."""
+        group value for GROUP BY queries).  `mode="progressive"` returns the
+        `progressive` generator of (tier, results) rounds instead.
+        `kde_backend` overrides the engine's density backend for this batch
+        ("auto" | "exact" | "rff", full-H path only)."""
         if mode == "progressive":
-            raise NotImplementedError(
-                "progressive execution over tiered reservoirs is not ported "
-                "yet (ROADMAP queue 1.7)")
+            return self.progressive(queries, selector=selector, backend=backend,
+                                    kde_backend=kde_backend)
         if mode != "batch":
             raise ValueError(f"unknown mode {mode!r}; "
                              f"expected 'batch' or 'progressive'")
         return self.run_compiled(self.compile(queries), selector=selector,
                                  backend=backend, kde_backend=kde_backend)
+
+    def progressive(self, queries: Union[AqpQuery, Sequence[AqpQuery]],
+                    selector: Optional[str] = None,
+                    backend: Optional[str] = None,
+                    kde_backend: Optional[str] = None):
+        """Anytime execution over `TieredReservoir` tiers: yields (tier,
+        List[AqpResult]) rounds from the smallest tier up.  The last round
+        runs on the full sample and is bit-identical to `execute`; a store
+        without tiered reservoirs gives that one round only."""
+        compiled = self.compile(queries)
+        res = self.resolver(selector, backend)
+        n_tiers = 1
+        for c in compiled:
+            key, _c2, _version = res.key_for(c)
+            col = key[0]
+            reg = self.store.joints if isinstance(col, tuple) else self.store.columns
+            n_tiers = max(n_tiers, getattr(reg.get(col), "n_tiers", 1))
+        for t in range(n_tiers):
+            tier = t if t < n_tiers - 1 else None
+            yield t, self.run_compiled(compiled, selector=selector, backend=backend,
+                                       tier=tier, kde_backend=kde_backend)
+
+    def answers(self, queries, **kw) -> np.ndarray:
+        """`execute`, reduced to the estimates (submission order)."""
+        return np.asarray([r.estimate for r in self.execute(queries, **kw)],
+                          np.float64)
 
     def _group_values(self, q: AqpQuery) -> List[Optional[float]]:
         if q.group_by is None:
@@ -926,6 +1072,12 @@ class QueryEngine:
             raise KeyError(f"unknown group_by column {gb.column!r}; "
                            f"have {sorted(self.store.columns)}")
         codes = np.unique(np.round(res.sample().astype(np.float64)))
+        strata = getattr(res, "codes", None)
+        if callable(strata):
+            # a stratified TieredReservoir: codes whose last uniform
+            # representative was displaced keep their result row
+            codes = np.unique(np.concatenate(
+                [codes, np.round(np.asarray(strata(), np.float64))]))
         if codes.size == 0:
             raise ValueError(f"group_by column {gb.column!r} has no data")
         if codes.size > self.max_groups:
@@ -934,3 +1086,38 @@ class QueryEngine:
                 f"(max_groups={self.max_groups}); pass "
                 f"GroupBy({gb.column!r}, values=...) to pin the categories")
         return [float(v) for v in codes]
+
+
+# --- legacy bridges (Query / BoxQuery and their batch shims) ------------------
+
+def from_query(q) -> AqpQuery:
+    """Compile a legacy 1-D `Query` to an AqpQuery spec."""
+    return AqpQuery(q.op, (Range(q.column, q.a, q.b),))
+
+
+def from_box_query(q) -> AqpQuery:
+    """Compile a legacy `BoxQuery` to an AqpQuery spec."""
+    target = None if q.op == "count" else q.target_index()
+    return AqpQuery(q.op, (Box(q.columns, q.lo, q.hi),), target=target)
+
+
+def execute_specs(specs: Sequence[AqpQuery], synopses,
+                  backend: Optional[str] = None, n_qmc: int = 4096) -> np.ndarray:
+    """Execute AqpQuery specs against a bare synopsis or a {column(s):
+    synopsis} mapping; estimates in submission order.  `backend` None takes
+    the default of the synopses' device.  GROUP BY and per-query selectors
+    need a store, so specs carrying them are refused."""
+    for q in specs:
+        if q.group_by is not None:
+            raise ValueError("group_by needs a store-backed QueryEngine; "
+                             "execute_specs runs against pre-fitted synopses")
+        if q.selector is not None:
+            raise ValueError("a per-query selector override needs a "
+                             "store-backed QueryEngine; execute_specs runs "
+                             "against pre-fitted synopses")
+    first = synopses if isinstance(synopses, KDESynopsis) else next(iter(synopses.values()))
+    backend = resolve_backend(backend, first.x.device)
+    compiled = [_compile(q, i) for i, q in enumerate(specs)]
+    res = _execute(compiled, len(compiled), _MappingResolver(synopses, backend),
+                   backend, n_qmc=n_qmc)
+    return np.asarray([r.estimate for r in res], np.float64)
