@@ -57,7 +57,26 @@ non-zero and prints no result line):
      (torch.profiler); every path-F launch of the three kernels held
      against its plain version, and their times, bounds and grids at the
      tier shapes;
-  9. every kernel against its plain PyTorch version on the card, on the
+  9. path G, admission serving: a third store of launch/serve.py's layout
+     (four-tier ladders on loss, latency_ms and their joint, the exact
+     model_id sketch) fed the same stream; (a) serve's closed loop, 8
+     client threads x 128 specs of the port's `make_mixed_aqp_queries`
+     into one `engine.session(watermark=8, max_delay=0.005)` on "cuda"
+     with no producer, then a GROUP BY spec: every answer bit-identical to
+     one `engine.execute` of the same specs, one aqp_batch / aqp_boxes /
+     aqp_grouped launch per range / box / GROUP BY flush, no plain-version
+     call, Eq counts exact; (b) the same with fullh_frac = 0.1, whose
+     full-H answers (Halton nodes over each micro-batch's hull) replay
+     bit for bit per flush and agree with the execute's within half a CI;
+     (c) (a) with `obs.enable()`: the same bits, kernel.wall_us for every
+     launched kernel, the exported metrics through
+     `scripts/validate_metrics.py`; device ms per flush from
+     torch.profiler; (d) `python -m repro_torch.launch.serve --mode aqp`
+     at this size with its streaming producer, exit 0; and the range,
+     box, GROUP BY and RFF kernels giving a query's bits alone at q = 8 as
+     inside the main path's launches (qmc_reduce where both cut the same
+     node slices), with their device ms at q = 8;
+ 10. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -67,7 +86,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
- 10. kernel and plain-version times (CUDA events, median of warm runs) on
+ 11. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
@@ -76,7 +95,9 @@ non-zero and prints no result line):
      the SM clock read after the kernel's windows.
 
 It prints a {"path_f": {...}} line (the rounds' walls, device ms and CI
-widths), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
+widths), a {"path_g": {...}} line (queries/s, flushes by reason, mean
+batch, p50 / p99 of aqp.query.latency_us, device ms per flush, the serve
+CLI's line, the card), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
 a {"kernels": [...]} JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device, and when run without the repository around it.
@@ -87,8 +108,10 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1033,8 +1056,7 @@ def device_ms(torch, fn) -> tuple:
 
 
 def grid_note(rt, wrapper: str, args) -> str:
-    """The grid the launcher opens for a call, beside the blocks one wave of
-    the card holds."""
+    """The grid the launcher opens for a call, beside the card's SM count."""
     mods = {"pairwise_scaled_ksum": rt["pairwise_reduce"], "aqp_batch_moments": rt["aqp_batch"],
             "aqp_box_moments": rt["aqp_boxes"]}
     mod = mods[wrapper]
@@ -1046,12 +1068,9 @@ def grid_note(rt, wrapper: str, args) -> str:
         k = mod.tile_for(n, mod.TILE)
         return f"{mod.n_tri_tiles(-(-n // k))} blocks of tile {k} on {sms} SMs"
     q_tiles = -(-args[2].shape[0] // mod.Q_TILE)
-    bps = (mod.blocks_per_sm(index) if wrapper == "aqp_batch_moments"
-           else mod.blocks_per_sm(index, x.shape[1]))
-    pts = rt["launch"].point_range(n, q_tiles, sms, bps, mod.WAVES, mod.TILE)
+    pts = rt["launch"].fixed_range(n, mod.RANGES, 32, mod.TILE)
     blocks = q_tiles * -(-n // pts)
-    return (f"{blocks} blocks ({q_tiles} query tiles x ranges of {pts} points), "
-            f"{sms * bps} resident a wave")
+    return f"{blocks} blocks ({q_tiles} query tiles x ranges of {pts} points) on {sms} SMs"
 
 
 def path_f(torch, rt, args, stream, specs):
@@ -1206,6 +1225,415 @@ def path_f_timings(torch, rt, rounds, calls, f_errs, counts) -> list:
                             "plain_ms": min(p1, p2), "bound_ms": b, "bound_by": by,
                             "sfu_floor_ms": sfu, "sm_clock_mhz": mhz, "grid": grid})
     return out
+
+
+# --- path G (admission serving) --------------------------------------------------
+
+G_CLIENTS, G_PER_CLIENT = 8, 128       # launch/serve.py's closed-loop clients: 1 024 specs
+G_WATERMARK, G_MAX_DELAY = 8, 0.005    # serve's default watermark (the client count), 5 ms
+G_JOINT = ("loss", "latency_ms")       # launch/serve.py's joint
+G_WAIT = 120.0                         # seconds any one answer or join may take
+G_MICRO = 8                            # serve's micro-batch, for the kernels' invariance
+G_REPEATS = 3                          # warm closed-loop runs timed for queries/s
+FULLH_KERNELS = ("qmc_box_reduce", "rff_density")
+
+
+def build_serve_store(args, rt, stream):
+    """Path G's store, launch/serve.py's layout at this script's size:
+    four-tier ladders on loss, latency_ms and their joint, the exact
+    categorical sketch on model_id, the same stream in the same batches, and
+    the (model_id, latency_ms) joint backfilled after it; the query mix's
+    sampling ranges come from the reservoirs, as serve's do."""
+    t0 = time.perf_counter()
+    store = rt["store"].TelemetryStore(capacity=CAPACITY, seed=args.seed)
+    check(store.device.type == DEV, f"path G store landed on {store.device}")
+    for key in G_JOINT + (G_JOINT,):
+        store.track_tiered(key, n_tiers=N_TIERS)
+    store.track_categorical("model_id")
+    for s in range(0, STREAM_ROWS, BATCH_ROWS):
+        store.add_batch({k: v[s:s + BATCH_ROWS] for k, v in stream.items()})
+    store.track_joint(("model_id", "latency_ms"))
+    ranges = {c: (float(s.min()), float(s.max()))
+              for c, s in ((c, store.columns[c].sample()) for c in store.columns
+                           if c != "model_id")}
+    sec = time.perf_counter() - t0
+    print(f"path G store: {STREAM_ROWS} rows in {BATCH_ROWS}-row batches, tiers "
+          f"{TIER_SIZES} on {list(G_JOINT)} and their joint, exact model_id sketch, "
+          f"set-up {sec:.2f} s")
+    return store, ranges, sec
+
+
+def g_specs(rt, ranges, fullh_frac: float):
+    """Each client's 128 specs from the port's `make_mixed_aqp_queries`,
+    seeded as serve seeds its clients."""
+    codes = tuple(float(c) for c in range(N_CODES))
+    return [rt["serve"].make_mixed_aqp_queries(G_PER_CLIENT, ranges, G_JOINT, "model_id", codes,
+                                               seed=10 + ci, fullh_frac=fullh_frac)
+            for ci in range(G_CLIENTS)]
+
+
+@contextlib.contextmanager
+def plain_calls(ref):
+    """Count calls of the kernels' plain versions (`kernels/ref.py`) while
+    the block runs."""
+    names = sorted({w for ws in WRAPPERS.values() for w in ws} | {"lscv_grid_sums_from_s"})
+    made = dict.fromkeys(names, 0)
+    originals = {name: getattr(ref, name) for name in names}
+
+    def counted(name):
+        def wrapper(*args, **kwargs):
+            made[name] += 1
+            return originals[name](*args, **kwargs)
+        return wrapper
+
+    for name in names:
+        setattr(ref, name, counted(name))
+    try:
+        yield made
+    finally:
+        for name, fn in originals.items():
+            setattr(ref, name, fn)
+
+
+def closed_loop(torch, engine, per_client, extra):
+    """serve's closed loop: G_CLIENTS threads, one outstanding spec each,
+    into one `engine.session(watermark=8, max_delay=0.005)`; then the
+    `extra` specs submitted and flushed.  Returns (results in client order,
+    then extra's, flattened; CUDA-synced wall of the clients; session stats;
+    flushes [(bucket key, compiled units, their results)])."""
+    session = engine.session(watermark=G_WATERMARK, max_delay=G_MAX_DELAY)
+    flushes, lock = [], threading.Lock()
+    run_flush = session._run_flush
+
+    def recorded(key, pendings, reason):
+        run_flush(key, pendings, reason)
+        with lock:
+            flushes.append((key, [p.compiled for p in pendings],
+                            [p.ticket.parts[p.part] for p in pendings]))
+
+    session._run_flush = recorded
+    got, errors = {}, []
+
+    def client(ci):
+        try:
+            got[ci] = [session.submit(s).result(timeout=G_WAIT) for s in per_client[ci]]
+        except Exception as exc:            # reported after the join
+            errors.append((ci, repr(exc)))
+
+    threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+               for ci in range(G_CLIENTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=G_WAIT * 4)
+    check(not any(t.is_alive() for t in threads), "path G: a client thread hung")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not errors, f"path G: clients failed: {errors[:3]}")
+    results = [r for ci in range(G_CLIENTS) for r in got[ci]]
+    futs = [session.submit(s) for s in extra]
+    session.flush()
+    for fut in futs:
+        res = fut.result(timeout=G_WAIT)
+        results.extend(res if isinstance(res, list) else [res])
+    session.close()
+    return results, wall, session.stats(), flushes
+
+
+def g_key(r):
+    return (r.estimate, r.ci_lo, r.ci_hi, r.path, r.synopsis_version, r.n_effective, r.group)
+
+
+def expected_launches(flushes, counts) -> tuple:
+    """The launches a run's flushes make: one aqp_batch launch per range
+    bucket, one aqp_boxes launch per box bucket, one aqp_grouped launch per
+    GROUP BY bucket, none for the exact Eq buckets and no fits (cached by
+    the execute before); and the full-H buckets, one qmc_reduce or rff_eval
+    launch each.  Returns ({kernel: launches} without the two full-H
+    kernels, full-H buckets)."""
+    want = {k: 0 for k in counts if k not in FULLH_KERNELS}
+    fullh = 0
+    for key, _, _ in flushes:
+        col, sel = key[0], key[1]
+        if col == "model_id":
+            continue
+        if not isinstance(col, tuple):
+            want["aqp_batch_sums"] += 1
+        elif sel == "lscv_H":
+            fullh += 1
+        elif col == G_JOINT:
+            want["aqp_box_sums"] += 1
+        else:
+            want["aqp_grouped_sums"] += 1
+    return want, fullh
+
+
+def g_check_run(torch, rt, what, engine, per_client, gb, stream):
+    """One quiescent closed-loop run against one `engine.execute` of the same
+    specs: launch counts from the flushes, no plain-version call, every
+    answer finite and inside its CI, Eq COUNT answers the stream's exact
+    counts, and every answer bit-identical to the execute's, but for full-H
+    answers, whose Halton nodes span their group's hull (below)."""
+    ops, ref = rt["ops"], rt["ref"]
+    flat = [s for ci in range(G_CLIENTS) for s in per_client[ci]] + [gb]
+    t0 = time.perf_counter()
+    want = engine.execute(flat)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    with plain_calls(ref) as plain:
+        got, wall, st, flushes = closed_loop(torch, engine, per_client, [gb])
+        counts = ops.launch_counts()
+    check(len(got) == len(want), f"{what}: {len(got)} answers for {len(want)}")
+    check(not any(plain.values()), f"{what}: plain versions called {plain}")
+    want_rest, fullh = expected_launches(flushes, counts)
+    rest = {k: v for k, v in counts.items() if k not in FULLH_KERNELS}
+    check(rest == want_rest and sum(counts[k] for k in FULLH_KERNELS) == fullh,
+          f"{what}: launches {counts}, expected {want_rest} and {fullh} full-H launches for "
+          f"{len(flushes)} flushes")
+    est = np.asarray([r.estimate for r in got])
+    check(bool(np.all(np.isfinite(est))), f"{what}: a non-finite estimate")
+    check(all(r.ci_lo <= r.estimate <= r.ci_hi for r in got), f"{what}: an estimate outside its CI")
+    codes = stream["model_id"]
+    for s, r in zip(flat, got):
+        if r.path == "exact" and s.aggregate == "count":
+            check(r.estimate == float(np.sum(codes == np.float32(s.predicates[0].value))),
+                  f"{what}: Eq COUNT {r.estimate} is not the stream's count")
+    is_fullh = [w.path.startswith("qmc") for w in want]
+    same = [g_key(g) == g_key(w) for g, w, f in zip(got, want, is_fullh) if not f]
+    check(all(same), f"{what}: {same.count(False)} of {len(same)} answers differ from one "
+                     f"execute of the same specs")
+    # full-H answers: each flush replayed alone gives the same bits, and the
+    # answer agrees with the execute's within the larger half CI width
+    dev = 0.0
+    if any(is_fullh):
+        replayed = 0
+        for key, compiled, results in flushes:
+            if key[1] != "lscv_H":
+                continue
+            again = engine.run_compiled(compiled, selector=key[1], tier=key[2])
+            check([g_key(r) for r in again] == [g_key(r) for r in results],
+                  f"{what}: a full-H flush replayed through run_compiled differs")
+            replayed += 1
+        for g, w, f in zip(got, want, is_fullh):
+            if f:
+                half = max(w.ci_hi - w.ci_lo, g.ci_hi - g.ci_lo) / 2
+                check(g.path == w.path and abs(g.estimate - w.estimate) <= half,
+                      f"{what}: full-H answer {g.estimate} vs {w.estimate} (half CI {half})")
+                dev = max(dev, abs(g.estimate - w.estimate) / max(half, 1e-300))
+        print(f"{what}: {sum(is_fullh)} full-H answers on {sorted({w.path for w, f in zip(want, is_fullh) if f})}: "
+              f"{replayed} flushes replayed alone give the same bits; vs one execute within "
+              f"{dev:.3g} of a half CI width (their Halton nodes span each micro-batch's hull)")
+    n_specs = sum(map(len, per_client))
+    print(f"{what}: {len(got)} answers, the clients' {n_specs} in {wall * 1e3:.1f} ms "
+          f"({n_specs / wall:.1f} queries/s; "
+          f"the execute of the same specs first, fits included, {first_s * 1e3:.1f} ms); "
+          f"{st['flushes']} flushes {st['flush_reasons']}, mean batch {st['mean_batch']:.2f}; "
+          f"launches { {k: v for k, v in counts.items() if v} }; "
+          f"{len(same)} answers bit-identical to one execute, no plain-version call")
+    return got, wall, st, counts, flushes, dev
+
+
+def g_kernel_invariance(torch, rt, calls_main, calls_c, calls_d, calls_dx):
+    """A query's sums at serve's micro-batch (its first 8 queries launched
+    alone) against the same queries inside the recorded main-path / path C /
+    path D launch: bit-equal for the range, box and GROUP BY kernels (the cut
+    depends on n alone) and for rff_eval (per node); for qmc_reduce, whose
+    node slices per box depend on the box count (`box_slices`), bit-equal
+    where both launches cut the same slices.  At q = 8: device ms a launch,
+    the kernel's and the plain version's CUDA-event windows, the bound and
+    the SFU floor."""
+    ops, ref, qmc = rt["ops"], rt["ref"], rt["qmc_reduce"]
+    k = G_MICRO
+    out = {}
+
+    def device_per_launch(wrapper, args, reps=20):
+        fn = getattr(ops, wrapper)
+        dev = device_ms(torch, lambda: [fn(*args) for _ in range(reps)])[0] / reps
+        b, by, mufu = bound_ms(wrapper, args, {})
+        return {"device_ms": dev, "ms": time_ms(torch, lambda: fn(*args)),
+                "plain_ms": time_ms(torch, lambda: getattr(ref, wrapper)(*args)),
+                "bound_ms": b, "bound_by": by,
+                "sfu_floor_ms": sfu_floor_ms(mufu, sm_clock_mhz())}
+
+    a, kw = calls_main["aqp_batch_moments"][0]
+    x, h, qa, qb = a
+    full = ops.aqp_batch_moments(*a, **kw)
+    small = ops.aqp_batch_moments(x, h, qa[:k].contiguous(), qb[:k].contiguous())
+    check(torch.equal(full[:, :k], small), "aqp_batch: a query's sums differ at q = 8")
+    out["aqp_batch_sums"] = device_per_launch(
+        "aqp_batch_moments", (x, h, qa[:k].contiguous(), qb[:k].contiguous()))
+    a, kw = calls_main["aqp_box_moments"][0]
+    x, h, lo, hi, tgt = a
+    full = ops.aqp_box_moments(*a, **kw)
+    sl = (lo[:k].contiguous(), hi[:k].contiguous(), tgt[:k].contiguous())
+    check(torch.equal(full[:, :k], ops.aqp_box_moments(x, h, *sl)),
+          "aqp_boxes: a box's sums differ at q = 8")
+    out["aqp_box_sums"] = device_per_launch("aqp_box_moments", (x, h) + sl)
+    a, kw = calls_c["aqp_grouped_moments"][0]
+    x, h, lo, hi, wlo, whi, win, g_axis, tgt = a
+    full = ops.aqp_grouped_moments(*a, **kw)
+    sl = (lo[:k].contiguous(), hi[:k].contiguous(), wlo, whi, list(win)[:k],
+          list(g_axis)[:k], list(tgt)[:k])
+    check(torch.equal(full[:k], ops.aqp_grouped_moments(x, h, *sl)),
+          "aqp_grouped: a family's sums differ with 8 families")
+    out["aqp_grouped_sums"] = device_per_launch("aqp_grouped_moments", (x, h) + sl)
+    a, kw = calls_dx["qmc_box_reduce_split"][0]
+    nodes, xq, h_inv, log_norm, lo, hi, tgt, splits = a
+    q = lo.shape[0]
+    sms = rt["launch"].sm_count(xq.device.index or 0)
+    slices = (qmc.box_slices(k, nodes.shape[0], sms), qmc.box_slices(q, nodes.shape[0], sms))
+    full = ops.qmc_box_reduce_split(*a, **kw)
+    small = ops.qmc_box_reduce_split(nodes, xq, h_inv, log_norm, lo[:k].contiguous(),
+                                     hi[:k].contiguous(), tgt[:k].contiguous(), splits)
+    qmc_same = all(torch.equal(f[:, :k], s) for f, s in zip(full, small))
+    check(qmc_same or slices[0] != slices[1],
+          f"qmc_reduce: boxes differ at q = {k} with the same {slices[0]} node slices")
+    a, kw = max(calls_d["rff_density_blocks"], key=lambda c: c[0][0].shape[0])
+    pts, w, b, z, n_blocks = a
+    blocks, est = ops.rff_density_blocks(*a, **kw)
+    blocks_k, est_k = ops.rff_density_blocks(pts[:k].contiguous(), w, b, z, n_blocks)
+    check(torch.equal(est[:k], est_k) and torch.equal(blocks[:, :k], blocks_k),
+          "rff_eval: a node's density differs at 8 nodes")
+    print(f"path G kernels at q = {k}: aqp_batch, aqp_boxes, aqp_grouped and rff_eval give "
+          f"a query's (node's) bits alone as in the recorded launch (q = "
+          f"{calls_main['aqp_batch_moments'][0][0][2].shape[0]}, "
+          f"{calls_main['aqp_box_moments'][0][0][2].shape[0]}, "
+          f"{calls_c['aqp_grouped_moments'][0][0][2].shape[0]} families, m = {pts.shape[0]}); "
+          f"qmc_reduce at q = {k} vs {q}: {'the same bits' if qmc_same else 'other bits'} "
+          f"with {slices[0]} vs {slices[1]} node slices a box; at q = {k}: "
+          + "; ".join(f"{n} device {v['device_ms']:.5f} ms a launch (torch.profiler, 20 "
+                      f"launches), kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms "
+                      f"(median of 15), bound {v['bound_ms']:.5f} ms ({v['bound_by']}), SFU "
+                      f"floor {v['sfu_floor_ms']:.5f} ms" for n, v in out.items()))
+    return {"kernels_q8": out, "qmc_same_bits_q8": qmc_same, "qmc_slices": list(slices)}
+
+
+def path_g(torch, rt, args, stream, calls_main, calls_c, calls_d, calls_dx):
+    """Path G: admission serving.  (a) serve's closed loop (8 clients x 128
+    specs of `make_mixed_aqp_queries`, watermark 8, max_delay 5 ms) on the
+    "cuda" backend with no producer, bit-identical to one execute; (b) the
+    same with fullh_frac = 0.1; (c) (a) again with obs enabled: the same
+    bits, kernel.wall_us for every kernel launched, the exported metrics
+    through scripts/validate_metrics.py; (d) `python -m
+    repro_torch.launch.serve --mode aqp` at this size with its streaming
+    producer; and the kernels' invariance at q = 8."""
+    obs = rt["obs"]
+    store, ranges, setup_s = build_serve_store(args, rt, stream)
+    engine = store.engine()
+    check(engine.backend == "cuda", f"path G engine on {engine.backend}")
+    q = rt["query"]
+    gb = q.AqpQuery("avg", (q.Range("latency_ms", 0.0, 500.0),), target="latency_ms",
+                    group_by="model_id")
+    per_a = g_specs(rt, ranges, 0.0)
+    n_specs = sum(map(len, per_a))          # the clients' (the GROUP BY spec comes after)
+    got_a, wall_a, st_a, counts_a, flushes_a, _ = g_check_run(
+        torch, rt, "path G (a)", engine, per_a, gb, stream)
+    per_b = g_specs(rt, ranges, 0.1)
+    got_b, wall_b, st_b, counts_b, flushes_b, dev_b = g_check_run(
+        torch, rt, "path G (b) fullh_frac=0.1", engine, per_b, gb, stream)
+    check(any(r.path.startswith("qmc") for r in got_b), "path G (b): no full-H answer")
+    # (a) warm: the same closed loop repeated, the same bits each time
+    walls_a = []
+    for _ in range(G_REPEATS):
+        again, wall, _, _ = closed_loop(torch, engine, per_a, [gb])
+        check([g_key(r) for r in again] == [g_key(r) for r in got_a],
+              "path G (a) repeat: answers differ from the first run")
+        walls_a.append(wall)
+    print(f"path G (a) warm: {G_REPEATS} repeats bit-identical, clients' walls "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls_a)} ms")
+
+    # (c) obs on: the same bits, every launched kernel profiled, the export valid
+    prev = obs.set_tracer(obs.Tracer())
+    obs.enable()
+    try:
+        rt["ops"].reset_launch_counts()
+        got_c, wall_c, st_c, _ = closed_loop(torch, engine, per_a, [gb])
+        counts_c = rt["ops"].launch_counts()
+    finally:
+        obs.disable()
+        obs.set_tracer(prev)
+    check([g_key(r) for r in got_c] == [g_key(r) for r in got_a],
+          "path G (c): answers with obs on differ from (a)")
+    walls = {lb["kernel"] for lb, h in obs.get_registry().collect_histograms("kernel.wall_us")
+             if h.count}
+    launched = {k for k, v in counts_c.items() if v}
+    check(launched <= walls, f"path G (c): kernel.wall_us missing for {launched - walls}")
+    lat = {}
+    for lb, h in store.metrics.collect_histograms("aqp.query.latency_us"):
+        s = h.summary()
+        lat[lb["path"] + ("" if lb.get("tier") in (None, "None") else f"@t{lb['tier']}")] = {
+            "count": s["count"], "p50_us": s["p50"], "p99_us": s["p99"]}
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    mpath = out_dir / "path_g_metrics.json"
+    obs.export_json(str(mpath), store.metrics, obs.get_registry(), extra={"mode": "aqp"})
+    val = subprocess.run([sys.executable, str(ROOT / "scripts" / "validate_metrics.py"), str(mpath)],
+                 capture_output=True, text=True, timeout=120)
+    check(val.returncode == 0, f"path G (c): validate_metrics failed: {val.stdout}{val.stderr}")
+    print(f"path G (c) obs on: {len(got_c)} answers bit-identical to (a), the clients' in "
+          f"{wall_c * 1e3:.1f} ms ({n_specs / wall_c:.1f} queries/s); "
+          f"kernel.wall_us for {sorted(launched)}; {mpath.name}: {val.stdout.strip()}; "
+          f"aqp.query.latency_us {lat}")
+
+    # device ms per flush of (a)'s run
+    dev_ms, dev_kernels = device_ms(torch, lambda: closed_loop(torch, engine, per_a, [gb]))
+    n_flush = st_a["flushes"]
+
+    # (d) the entry point, with its streaming producer
+    dpath = out_dir / "path_g_serve_metrics.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "aqp", "--rows",
+           str(STREAM_ROWS), "--capacity", str(CAPACITY), "--clients", str(G_CLIENTS),
+           "--per-client", str(G_PER_CLIENT), "--metrics-out", str(dpath)]
+    if DEV != "cuda":
+        cmd += ["--device", DEV]
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                             else "")
+    serve = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    serve_s = time.perf_counter() - t0
+    check(serve.returncode == 0,
+          f"path G (d): serve exited {serve.returncode}:\n{serve.stdout[-3000:]}\n"
+          f"{serve.stderr[-3000:]}")
+    lines = serve.stdout.splitlines()
+    head = next(ln for ln in lines if "queries/s" in ln)
+    adm = next(ln for ln in lines if ln.startswith("[serve:aqp] admission:"))
+    for ln in lines:
+        if ln.startswith("[serve:aqp]"):
+            print(f"path G (d) | {ln}")
+    d_qps = float(head.split("->")[1].split("queries/s")[0].replace(",", ""))
+    check("[cuda]" in head or DEV != "cuda", f"path G (d): serve not on cuda: {head}")
+    val = subprocess.run([sys.executable, str(ROOT / "scripts" / "validate_metrics.py"), str(dpath)],
+                 capture_output=True, text=True, timeout=120)
+    check(val.returncode == 0, f"path G (d): validate_metrics failed: {val.stdout}{val.stderr}")
+    print(f"path G (d): serve exited 0 in {serve_s:.1f} s (its own process); its metrics "
+          f"{val.stdout.strip()}")
+
+    inv = g_kernel_invariance(torch, rt, calls_main, calls_c, calls_d, calls_dx)
+    summary = {
+        "setup_s": setup_s,
+        "qps": n_specs / float(np.median(walls_a)), "first_qps": n_specs / wall_a,
+        "walls_ms": [w * 1e3 for w in [wall_a] + walls_a], "answers": len(got_a),
+        "flushes": st_a["flushes"], "flush_reasons": st_a["flush_reasons"],
+        "mean_batch": st_a["mean_batch"],
+        "launches": {k: v for k, v in counts_a.items() if v},
+        "fullh": {"qps": n_specs / wall_b, "flushes": st_b["flushes"],
+                  "flush_reasons": st_b["flush_reasons"], "mean_batch": st_b["mean_batch"],
+                  "launches": {k: v for k, v in counts_b.items() if v},
+                  "max_dev_half_ci": dev_b},
+        "obs_on_qps": n_specs / wall_c, "latency_us": lat,
+        "device_ms_per_flush": dev_ms / max(n_flush, 1), "device_kernels": dev_kernels,
+        "serve": {"qps": d_qps, "line": head, "admission": adm, "seconds": serve_s},
+        **inv, "card": card_line()}
+    print(f"path G: (a) {summary['qps']:.1f} queries/s warm (median of {G_REPEATS}; first run "
+          f"{summary['first_qps']:.1f}), {n_flush} flushes, mean batch "
+          f"{st_a['mean_batch']:.2f}; device {dev_ms:.3f} ms in {dev_kernels} kernels and "
+          f"copies over one run ({summary['device_ms_per_flush']:.4f} ms a flush, "
+          f"torch.profiler); serve {d_qps:.1f} queries/s")
+    return summary
 
 
 def all_range_bounds(torch, calls):
@@ -2111,16 +2539,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import synopses
+    from repro_torch import obs, synopses
     from repro_torch.core import aqp, aqp_ci, aqp_multid, aqp_query, kde, lscv, plugin
     from repro_torch.data import aqp_store
     from repro_torch.kernels import (_build, _launch, aqp_batch, aqp_boxes, lscv_grid, ops,
-                                     pairwise_reduce, ref, rff_eval)
+                                     pairwise_reduce, qmc_reduce, ref, rff_eval)
+    from repro_torch.launch import serve
     rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
           "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
           "aqp_ci": aqp_ci, "aqp_batch": aqp_batch, "aqp_boxes": aqp_boxes,
           "launch": _launch, "lscv_grid": lscv_grid, "rff_eval": rff_eval,
-          "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses}
+          "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses, "obs": obs,
+          "serve": serve, "qmc_reduce": qmc_reduce}
     t_start = time.perf_counter()
 
     card = card_line()
@@ -2144,6 +2574,11 @@ def main() -> int:
     print(f"path F: {time.perf_counter() - t_f:.1f} s in all ({summary_f['setup_s']:.2f} s "
           f"set-up); through path F: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"path_f": summary_f}))
+    t_g = time.perf_counter()
+    summary_g = path_g(torch, rt, args, stream, calls_main, calls_c, calls_d, calls_dx)
+    print(f"path G: {time.perf_counter() - t_g:.1f} s in all ({summary_g['setup_s']:.2f} s "
+          f"set-up); through path G: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"path_g": summary_g}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))

@@ -42,7 +42,12 @@ by shape (the 4 096-point grids at d = 1 and d = 3, the 513-point
 trapezoid grids) with, per call, the wall, the host work issued unsynced,
 device ms and device kernels from torch.profiler, the bound and the SFU
 floor at the SM clock read after the shape; and the walls of the whole
-run.  `--set` times a variant: it copies the timed
+run.  The cuts section (`--paths cuts`) times the range, box and GROUP BY
+kernels on the main path's and path C's recorded calls (q = 256 ranges,
+q = 384 boxes at d = 3, 104 families) and on their first 8 queries
+(families) alone, serve's micro-batch: device ms a launch from
+torch.profiler and the CUDA-event window, and whether the 8 queries'
+sums alone are the same bits as inside the full launch.  `--set` times a variant: it copies the timed
 checkout's `src/repro_torch` into a temporary directory and sets
 `constexpr NAME` in `kernels/csrc/FILE` (a .cu) or the module constant
 `NAME` in `kernels/FILE` (a .py) to VALUE there (repeatable).  `--sass`
@@ -74,7 +79,7 @@ KERNEL_WRAPPERS = ("aqp_batch_sums", "aqp_batch_moments", "aqp_box_sums",
                    "aqp_box_moments", "aqp_grouped_sums", "aqp_grouped_moments",
                    "qmc_box_reduce", "qmc_box_reduce_split", "rff_density",
                    "rff_density_blocks", "pairwise_scaled_ksum", "kde_eval")
-PATHS = ("plugin_warm", "a_warm", "c", "d_exact", "d_auto", "plugin", "e")
+PATHS = ("plugin_warm", "a_warm", "c", "d_exact", "d_auto", "plugin", "e", "cuts")
 # engine functions timed by --splits, where the checkout's aqp_query has
 # them: compiling the specs (GROUP BY expansion), _execute (resolving each
 # entry, the groups' passes and the result rows), and inside it the
@@ -360,6 +365,45 @@ def path_e_section(torch, cs, ops, e_run, reps: int) -> dict:
     return out
 
 
+def cuts_section(torch, ops, store, specs, gspecs, reps: int, micro: int = 8) -> dict:
+    """aqp_batch / aqp_boxes / aqp_grouped at the main path's and path C's
+    shapes and at their first `micro` queries (families) alone: device ms a
+    launch (torch.profiler over `reps` launches), the CUDA-event window, and
+    whether the small launch gives the same bits as the full one."""
+    calls = recorded(ops, lambda: store.query(specs)) + recorded(ops, lambda: store.query(gspecs))
+    out = {}
+    k = micro
+
+    def small_args(w, a):
+        if w == "aqp_batch_moments":
+            x, h, qa, qb = a
+            return (x, h, qa[:k].contiguous(), qb[:k].contiguous())
+        if w == "aqp_box_moments":
+            x, h, lo, hi, tgt = a
+            return (x, h, lo[:k].contiguous(), hi[:k].contiguous(), tgt[:k].contiguous())
+        x, h, lo, hi, wlo, whi, win, g_axis, tgt = a
+        return (x, h, lo[:k].contiguous(), hi[:k].contiguous(), wlo, whi, list(win)[:k],
+                list(g_axis)[:k], list(tgt)[:k])
+
+    for w in ("aqp_batch_moments", "aqp_box_moments", "aqp_grouped_moments"):
+        a, kw = next((a, kw) for name, a, kw in calls if name == w)
+        fn = getattr(ops, w)
+        small = small_args(w, a)
+        full_out = fn(*a, **kw)
+        small_out = fn(*small)
+        same = bool(torch.equal(full_out[:k] if w == "aqp_grouped_moments"
+                                else full_out[:, :k], small_out))
+        for label, args_ in (("full", a), (f"q{k}", small)):
+            dev = device_kernels(torch, lambda: [fn(*args_) for _ in range(reps)])
+            q = args_[2].shape[0]
+            out[f"{w}_{label}"] = {
+                "q": q, "device_ms": dev["device_ms_total"] / reps,
+                "window_ms": float(np.median(time_ms(torch, lambda: fn(*args_), reps))),
+                "kernels_a_launch": dev["kernels"] / reps}
+        out[f"{w}_q{k}_same_bits"] = same
+    return out
+
+
 def run(args, root: Path, paths) -> dict:
     import torch
     sys.path.insert(0, str(REPO))
@@ -449,6 +493,9 @@ def run(args, root: Path, paths) -> dict:
             res[f"{name}_device"] = device_kernels(torch, fn)
     if "e" in paths:
         res.update(path_e_section(torch, cs, ops, e_run, args.reps))
+        res["clocks_sm"].append(smi("clocks.sm"))
+    if "cuts" in paths:
+        res.update(cuts_section(torch, ops, store, specs, gspecs, max(args.reps, 20)))
         res["clocks_sm"].append(smi("clocks.sm"))
     res["ptxas_registers"] = ptxas_registers(_build)
     if args.sass:

@@ -45,9 +45,18 @@ a `TieredReservoir` (its own synopsis, plan and cache entries), and
 `QueryEngine.progressive` answers tier by tier up to the full sample, whose
 round is bit-identical to `execute`.  `execute_specs` and the legacy
 `Query` / `BoxQuery` bridges run against bare synopses or a mapping of them.
+`QueryEngine.session` opens an admission session over the engine
+(`aqp_admission`), whose flushes run through `run_compiled`.
+
+With `repro_torch.obs` enabled, the engine opens the reference's spans
+(engine.run_compiled, engine.plan, engine.kernel, engine.ci, synopsis.fit,
+synopsis.eval), fences each group's outputs before closing its spans and
+records the `aqp.query.latency_us` histograms per path and tier in the
+store's registry; disabled, none of it runs and answers are bit-identical.
 """
 from __future__ import annotations
 
+import time
 import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -55,6 +64,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_backend
 
 from .aqp import (OP_CODES, OP_COUNT, OP_SUM, KDESynopsis, _select_op,
@@ -452,19 +462,29 @@ def _make_plan(syn: KDESynopsis) -> _GroupPlan:
 
 class PlanCache:
     """Version-keyed memo of `_GroupPlan`s, owned by a QueryEngine: an entry
-    whose version differs from the reservoir's current one misses."""
+    whose version differs from the reservoir's current one misses.  With a
+    `metrics` registry, hits and misses are mirrored there (`aqp.plan.*`)."""
 
-    def __init__(self):
+    def __init__(self, metrics: Optional[obs.MetricsRegistry] = None):
         self._entries: Dict[object, Tuple[int, _GroupPlan]] = {}
         self.hits = 0
         self.misses = 0
+        if metrics is not None:
+            self._m_hits = metrics.counter("aqp.plan.hits")
+            self._m_misses = metrics.counter("aqp.plan.misses")
+        else:
+            self._m_hits = self._m_misses = None
 
     def get(self, key, version: int) -> Optional[_GroupPlan]:
         ent = self._entries.get(key)
         if ent is not None and ent[0] == version:
             self.hits += 1
+            if self._m_hits is not None:
+                self._m_hits.inc()
             return ent[1]
         self.misses += 1
+        if self._m_misses is not None:
+            self._m_misses.inc()
         return None
 
     def put(self, key, version: int, plan: _GroupPlan) -> None:
@@ -568,23 +588,34 @@ class _StoreResolver:
             return None
         ckey = _rff_cache_key(_tier_key(col, tier), self.rff_features)
         cache = self.store.cache
+        metrics = getattr(self.store, "metrics", None)
         hit = cache.get(ckey, sel, version, backend=self.backend)
         if hit is not None:
+            if hit.degraded and metrics is not None:
+                metrics.counter("aqp.synopsis.fallback", backend="rff").inc()
             return None if hit.degraded else hit
         x = plan.x_rows
         # the seed is a function of the (column, selector) identity, so a
         # refit after a version bump draws the same frequencies
         seed = zlib.crc32(repr((ckey, sel)).encode()) & 0x7FFFFFFF
-        rff = RFFSynopsis.fit(x, syn.H, n_features=self.rff_features, seed=seed)
-        probes = x[:RFF_GATE_PROBES]
-        f_exact = np.asarray(kde_eval_H(probes, x, syn.H, device=x.device).cpu(),
-                             np.float64)
-        f_rff = np.asarray(rff.eval_batch(probes).cpu(), np.float64)
-        denom = max(float(np.mean(f_exact)), 1e-300)
-        rff.probe_rel_err = float(np.mean(np.abs(f_rff - f_exact)) / denom)
-        rff.degraded = rff.probe_rel_err > RFF_GATE_TOL
+        t_fit = time.perf_counter()
+        with obs.span("synopsis.fit", backend="rff", n=int(x.shape[0]),
+                      n_features=self.rff_features):
+            rff = RFFSynopsis.fit(x, syn.H, n_features=self.rff_features, seed=seed)
+            probes = x[:RFF_GATE_PROBES]
+            f_exact = np.asarray(kde_eval_H(probes, x, syn.H, device=x.device).cpu(),
+                                 np.float64)
+            f_rff = np.asarray(rff.eval_batch(probes).cpu(), np.float64)
+            denom = max(float(np.mean(f_exact)), 1e-300)
+            rff.probe_rel_err = float(np.mean(np.abs(f_rff - f_exact)) / denom)
+            rff.degraded = rff.probe_rel_err > RFF_GATE_TOL
         rff.n_source = syn.n_source
         rff.selector = sel
+        if metrics is not None:
+            metrics.histogram("aqp.synopsis.fit_us", backend="rff").observe(
+                (time.perf_counter() - t_fit) * 1e6)
+            if rff.degraded:
+                metrics.counter("aqp.synopsis.fallback", backend="rff").inc()
         cache.put(ckey, sel, version, rff, backend=self.backend)
         return None if rff.degraded else rff
 
@@ -707,7 +738,8 @@ def _pad_rows(arr: np.ndarray, m: int) -> np.ndarray:
 def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
                backend: str, n_qmc: int = 4096,
                ci_level: float = DEFAULT_CI_LEVEL, kde_backend: str = "auto",
-               rff=None, kde_crossover: int = KDE_CROSSOVER
+               rff=None, kde_crossover: int = KDE_CROSSOVER, metrics=None,
+               tier: Optional[int] = None
                ) -> List[Tuple[float, str, float, float, int]]:
     """Answer one resolved group in batched passes; returns one
     (estimate, path label, ci_lo, ci_hi, n_effective) per entry, in entry
@@ -722,7 +754,14 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
     grouped pass when the group runs the diagonal-bandwidth box path.
     Full-H entries whose density backend resolves to "rff" take the RFF
     pass when a fitted, non-degraded synopsis is given (`rff`); every other
-    full-H entry takes the exact pass."""
+    full-H entry takes the exact pass.
+
+    With `repro_torch.obs` enabled each pass runs in an engine.kernel span
+    (on "cuda" the span also covers the CI sums of the same launch, marked
+    ci="fused"; on "torch" the CI pass has its engine.ci span), its outputs
+    fenced before the span closes, and each group's latency goes to
+    `metrics` (the store's registry) as `aqp.query.latency_us` by path and
+    `tier`.  Disabled, the spans are no-ops and nothing is fenced."""
     syn = plan.syn
     x = plan.x_rows
     d_syn = x.shape[1]
@@ -769,6 +808,12 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
         rest = exact
 
     out: Dict[int, Tuple[float, str, float, float, int]] = {}
+    enabled = obs.enabled()
+
+    def observe(path, t_grp):
+        if enabled and metrics is not None:
+            metrics.histogram("aqp.query.latency_us", path=path, tier=tier).observe(
+                (time.perf_counter() - t_grp) * 1e6)
 
     def emit(group, ans, se, q_ci, path):
         ans_np = ans.detach().cpu().numpy().astype(np.float64)
@@ -788,31 +833,46 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
 
     if rest:
         n = len(rest)
+        t_grp = time.perf_counter() if enabled else 0.0
         ops_np, lo, hi, tgt = padded(rest, _pad_count(n))
         if plan.kind == "qmc":
             path = "qmc" + suffix
+            if metrics is not None:
+                metrics.counter("aqp.synopsis.hits", backend="exact").inc(n)
             if backend == "cuda":
                 # one plan and one launch: the estimate and its K CI chunks
-                ans, se, dof = qmc_answers_and_se(x, syn.H, lo, hi, tgt, ops_np,
-                                                  plan.scale, syn.n_source, n_qmc)
+                with obs.span("engine.kernel", path=path, n=n, tier=tier, ci="fused"):
+                    ans, se, dof = qmc_answers_and_se(x, syn.H, lo, hi, tgt, ops_np,
+                                                      plan.scale, syn.n_source, n_qmc)
+                    obs.fence(ans)
             else:
-                ans = batch_query_qmc(x, syn.H, lo, hi, tgt, ops_np, plan.scale,
-                                      n_qmc=n_qmc, backend=backend)
-                se, dof = qmc_subsample_se(x, syn.H, lo, hi, tgt, ops_np,
-                                           syn.n_source, n_qmc, backend=backend)
+                with obs.span("engine.kernel", path=path, n=n, tier=tier):
+                    ans = batch_query_qmc(x, syn.H, lo, hi, tgt, ops_np, plan.scale,
+                                          n_qmc=n_qmc, backend=backend)
+                    obs.fence(ans)
+                with obs.span("engine.ci", path=path, n=n):
+                    se, dof = qmc_subsample_se(x, syn.H, lo, hi, tgt, ops_np,
+                                               syn.n_source, n_qmc, backend=backend)
+                    obs.fence(se)
             q_ci = t_ppf(p, dof)
         elif plan.kind == "range1d":
             a, b = on_dev(lo[:, 0]), on_dev(hi[:, 0])
             path = "range1d" + suffix
             if backend == "cuda":
                 # one launch: the estimate's sums and the CI's
-                ans, se = range_answers_and_se(syn.x, syn.h, a, b, ops_np, plan.scale,
-                                               n_eff)
+                with obs.span("engine.kernel", path=path, n=n, tier=tier, ci="fused"):
+                    ans, se = range_answers_and_se(syn.x, syn.h, a, b, ops_np,
+                                                   plan.scale, n_eff)
+                    obs.fence(ans)
             else:
-                ans = batch_query_1d(syn.x, syn.h, a, b, on_dev(ops_np, np.int32),
-                                     plan.scale, backend=backend)
-                se = se_from_moments(ops_np, moments_1d(syn.x, syn.h, a, b),
-                                     plan.scale, n_eff)
+                with obs.span("engine.kernel", path=path, n=n, tier=tier):
+                    ans = batch_query_1d(syn.x, syn.h, a, b, on_dev(ops_np, np.int32),
+                                         plan.scale, backend=backend)
+                    obs.fence(ans)
+                with obs.span("engine.ci", path=path, n=n):
+                    se = se_from_moments(ops_np, moments_1d(syn.x, syn.h, a, b),
+                                         plan.scale, n_eff)
+                    obs.fence(se)
             q_ci = norm_ppf(p)
         else:
             lo_t, hi_t, tgt_t = on_dev(lo), on_dev(hi), on_dev(tgt, np.int32)
@@ -820,65 +880,104 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
             h_diag = syn.h_diag()
             if backend == "cuda":
                 # one launch: the estimate's sums and the CI's
-                ans, se = box_answers_and_se(x, h_diag, lo_t, hi_t, tgt_t, ops_np,
-                                             plan.scale, n_eff)
+                with obs.span("engine.kernel", path=path, n=n, tier=tier, ci="fused"):
+                    ans, se = box_answers_and_se(x, h_diag, lo_t, hi_t, tgt_t, ops_np,
+                                                 plan.scale, n_eff)
+                    obs.fence(ans)
             else:
-                ans = batch_query_box(x, h_diag, lo_t, hi_t, tgt_t,
-                                      on_dev(ops_np, np.int32), plan.scale,
-                                      backend=backend)
-                se = se_from_moments(ops_np, moments_box(x, h_diag, lo_t, hi_t, tgt_t),
-                                     plan.scale, n_eff)
+                with obs.span("engine.kernel", path=path, n=n, tier=tier):
+                    ans = batch_query_box(x, h_diag, lo_t, hi_t, tgt_t,
+                                          on_dev(ops_np, np.int32), plan.scale,
+                                          backend=backend)
+                    obs.fence(ans)
+                with obs.span("engine.ci", path=path, n=n):
+                    se = se_from_moments(ops_np, moments_box(x, h_diag, lo_t, hi_t, tgt_t),
+                                         plan.scale, n_eff)
+                    obs.fence(se)
             q_ci = norm_ppf(p)
         emit(rest, ans[:n], se[:n], q_ci, path)
+        observe(path, t_grp)
 
     if rff_entries:
         n = len(rff_entries)
+        t_grp = time.perf_counter() if enabled else 0.0
         ops_np, lo, hi, tgt = padded(rff_entries, _pad_count(n))
+        if metrics is not None:
+            metrics.counter("aqp.synopsis.hits", backend="rff").inc(n)
         # feature-block batch-means: the exact path's sample-chunk CI would
         # cost the O(n) pass this backend avoids
-        if backend == "cuda":
-            # one plan and one launch: the density and its feature blocks
-            ans, se, dof = qmc_rff_answers_and_se(rff, x, syn.H, lo, hi, tgt, ops_np,
-                                                  plan.scale, syn.n_source, n_qmc)
-        else:
-            ans = batch_query_qmc_rff(x, syn.H, rff, lo, hi, tgt, ops_np,
-                                      plan.scale, n_qmc=n_qmc)
-            se, dof = qmc_rff_se(rff, x, syn.H, lo, hi, tgt, ops_np, syn.n_source,
-                                 n_qmc)
+        with obs.span("synopsis.eval", backend="rff", n=n, n_features=rff.n_features):
+            if backend == "cuda":
+                # one plan and one launch: the density and its feature blocks
+                with obs.span("engine.kernel", path="qmc:rff", n=n, tier=tier,
+                              ci="fused"):
+                    ans, se, dof = qmc_rff_answers_and_se(rff, x, syn.H, lo, hi, tgt,
+                                                          ops_np, plan.scale,
+                                                          syn.n_source, n_qmc)
+                    obs.fence(ans)
+            else:
+                with obs.span("engine.kernel", path="qmc:rff", n=n, tier=tier):
+                    ans = batch_query_qmc_rff(x, syn.H, rff, lo, hi, tgt, ops_np,
+                                              plan.scale, n_qmc=n_qmc)
+                    obs.fence(ans)
+        if backend != "cuda":
+            with obs.span("engine.ci", path="qmc:rff", n=n):
+                se, dof = qmc_rff_se(rff, x, syn.H, lo, hi, tgt, ops_np, syn.n_source,
+                                     n_qmc)
+                obs.fence(se)
         emit(rff_entries, ans[:n], se[:n], t_ppf(p, dof), "qmc:rff")
+        observe("qmc:rff", t_grp)
+        if enabled and metrics is not None:
+            metrics.histogram("aqp.synopsis.eval_us", backend="rff").observe(
+                (time.perf_counter() - t_grp) * 1e6)
 
+    fam_path = "box:grouped" + suffix
     if families and backend == "cuda":
         # every family in one launch of the aqp_grouped kernel, whose five
         # moment sums give each category's estimate and CI (no moment pass)
+        t_grp = time.perf_counter() if enabled else 0.0
         g_axes = [fam[0].group_axis for fam in families]
-        five = grouped_family_moments(
-            x, syn.h_diag(), [(fam[0].lo, fam[0].hi) for fam in families],
-            [([c.lo[g] for c in fam], [c.hi[g] for c in fam])
-             for fam, g in zip(families, g_axes)],
-            g_axes, [fam[0].tgt for fam in families])
+        with obs.span("engine.kernel", path=fam_path, n=sum(map(len, families)),
+                      tier=tier, ci="fused"):
+            five = grouped_family_moments(
+                x, syn.h_diag(), [(fam[0].lo, fam[0].hi) for fam in families],
+                [([c.lo[g] for c in fam], [c.hi[g] for c in fam])
+                 for fam, g in zip(families, g_axes)],
+                g_axes, [fam[0].tgt for fam in families])
+            obs.fence(five)
         fam_ops = np.asarray([fam[0].op for fam in families], np.int32)[:, None]
         ans = _select_op(torch.as_tensor(fam_ops), plan.scale * five[:, 0],
                          plan.scale * five[:, 1])
         se = se_from_moments(np.broadcast_to(fam_ops, ans.shape), five.unbind(1),
                              plan.scale, n_eff)
         for fam, a, s in zip(families, ans, se):
-            emit(fam, a[:len(fam)], s[:len(fam)], norm_ppf(p), "box:grouped" + suffix)
+            emit(fam, a[:len(fam)], s[:len(fam)], norm_ppf(p), fam_path)
+        observe(fam_path, t_grp)
     else:
         for fam in families:
+            t_grp = time.perf_counter() if enabled else 0.0
             g_axis = fam[0].group_axis
             gm = _pad_count(len(fam))
             glo = _pad_rows(np.asarray([c.lo[g_axis] for c in fam], np.float32), gm)
             ghi = _pad_rows(np.asarray([c.hi[g_axis] for c in fam], np.float32), gm)
             h_diag = syn.h_diag()
-            ans = batch_query_box_grouped(x, h_diag, fam[0].lo, fam[0].hi, glo, ghi,
-                                          g_axis=g_axis, tgt=fam[0].tgt, op=fam[0].op,
-                                          scale=plan.scale, backend=backend)
+            with obs.span("engine.kernel", path=fam_path, n=len(fam), tier=tier):
+                ans = batch_query_box_grouped(x, h_diag, fam[0].lo, fam[0].hi, glo, ghi,
+                                              g_axis=g_axis, tgt=fam[0].tgt,
+                                              op=fam[0].op, scale=plan.scale,
+                                              backend=backend)
+                obs.fence(ans)
             # the family's moments run on the per-entry full boxes (each entry's
             # box carries its group window from _compile)
             _, flo, fhi, ftgt = padded(fam, gm)
-            mom = moments_box(x, h_diag, on_dev(flo), on_dev(fhi), on_dev(ftgt, np.int32))
-            se = se_from_moments(np.full(gm, fam[0].op, np.int32), mom, plan.scale, n_eff)
-            emit(fam, ans[:len(fam)], se[:len(fam)], norm_ppf(p), "box:grouped" + suffix)
+            with obs.span("engine.ci", path=fam_path, n=len(fam)):
+                mom = moments_box(x, h_diag, on_dev(flo), on_dev(fhi),
+                                  on_dev(ftgt, np.int32))
+                se = se_from_moments(np.full(gm, fam[0].op, np.int32), mom, plan.scale,
+                                     n_eff)
+                obs.fence(se)
+            emit(fam, ans[:len(fam)], se[:len(fam)], norm_ppf(p), fam_path)
+            observe(fam_path, t_grp)
 
     return [out[id(c)] for c in entries]
 
@@ -894,6 +993,10 @@ def _execute(compiled: Sequence[_Compiled], n_out: int, resolver, backend: str,
     results: List[Optional[AqpResult]] = [None] * n_out
     try_exact = getattr(resolver, "try_exact", None)
     density_for = getattr(resolver, "density_for", None)
+    # store-backed resolvers carry the store's registry and their tier
+    # budget; the mapping resolver has neither
+    metrics = getattr(getattr(resolver, "store", None), "metrics", None)
+    tier = getattr(resolver, "tier", None)
     remaining: List[_Compiled] = []
     for c in compiled:
         hit = try_exact(c) if try_exact is not None else None
@@ -908,11 +1011,12 @@ def _execute(compiled: Sequence[_Compiled], n_out: int, resolver, backend: str,
             remaining.append(c)
 
     groups: "Dict[object, dict]" = {}
-    for c in remaining:
-        key, c2, plan, version = resolver(c)
-        g = groups.setdefault(key, {"plan": plan, "version": version,
-                                    "entries": []})
-        g["entries"].append(c2)
+    with obs.span("engine.plan", n=len(remaining), tier=tier):
+        for c in remaining:
+            key, c2, plan, version = resolver(c)
+            g = groups.setdefault(key, {"plan": plan, "version": version,
+                                        "entries": []})
+            g["entries"].append(c2)
 
     for key, g in groups.items():
         plan: _GroupPlan = g["plan"]
@@ -928,7 +1032,8 @@ def _execute(compiled: Sequence[_Compiled], n_out: int, resolver, backend: str,
                 rff = density_for(key, g["version"], plan)
         answered = _run_group(key, plan, entries, backend, n_qmc,
                               ci_level=ci_level, kde_backend=kde_backend,
-                              rff=rff, kde_crossover=kde_crossover)
+                              rff=rff, kde_crossover=kde_crossover,
+                              metrics=metrics, tier=tier)
         for c, (est, path, ci_lo, ci_hi, n_eff) in zip(entries, answered):
             results[c.slot] = AqpResult(
                 estimate=est, path=path,
@@ -977,7 +1082,7 @@ class QueryEngine:
         self.kde_crossover = KDE_CROSSOVER if kde_crossover is None else int(kde_crossover)
         self.rff_features = (DEFAULT_RFF_FEATURES if rff_features is None
                              else int(rff_features))
-        self.plans = PlanCache()
+        self.plans = PlanCache(getattr(store, "metrics", None))
 
     def compile(self, queries: Union[AqpQuery, Sequence[AqpQuery]]
                 ) -> List[_Compiled]:
@@ -1009,13 +1114,16 @@ class QueryEngine:
                      backend: Optional[str] = None,
                      tier: Optional[int] = None,
                      kde_backend: Optional[str] = None) -> List[AqpResult]:
-        """Execute pre-compiled units (slots must be 0..n-1)."""
+        """Execute pre-compiled units (slots must be 0..n-1): the admission
+        layer's flush entry point, the same execution as `execute`."""
         backend = resolve_backend(backend or self.backend, self.store.device)
-        return _execute(compiled, len(compiled),
-                        self.resolver(selector, backend, tier=tier), backend,
-                        n_qmc=self.n_qmc, ci_level=self.ci_level,
-                        kde_backend=kde_backend or self.kde_backend,
-                        kde_crossover=self.kde_crossover)
+        with obs.span("engine.run_compiled", n=len(compiled), tier=tier,
+                      backend=backend):
+            return _execute(compiled, len(compiled),
+                            self.resolver(selector, backend, tier=tier), backend,
+                            n_qmc=self.n_qmc, ci_level=self.ci_level,
+                            kde_backend=kde_backend or self.kde_backend,
+                            kde_crossover=self.kde_crossover)
 
     def execute(self, queries: Union[AqpQuery, Sequence[AqpQuery]],
                 selector: Optional[str] = None,
@@ -1060,6 +1168,13 @@ class QueryEngine:
         """`execute`, reduced to the estimates (submission order)."""
         return np.asarray([r.estimate for r in self.execute(queries, **kw)],
                           np.float64)
+
+    def session(self, **kwargs):
+        """A streaming admission session over this engine: clients submit
+        AqpQuery specs and get futures back, micro-batches flush on a
+        watermark or a deadline (`repro_torch.core.aqp_admission`)."""
+        from .aqp_admission import AqpSession
+        return AqpSession(self, **kwargs)
 
     def _group_values(self, q: AqpQuery) -> List[Optional[float]]:
         if q.group_by is None:

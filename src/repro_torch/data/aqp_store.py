@@ -19,21 +19,30 @@ The cache also holds the RFF density synopses of full-H groups, beside
 their exact synopses, sized by their own `nbytes`, and the synopses of
 tiers below the top under tier-suffixed column keys (`_tier_key`).
 
-Not ported yet, raising NotImplementedError when asked for: version
-subscriptions and admission sessions (ROADMAP queue 1.11) and checkpoints
-(queue 1.12: `to_state`, and the `state()` of the reservoirs and sketches;
-`repro_torch.convert.store_from_state` reads a reference snapshot).
+Each store owns a metrics registry (`store.metrics`, `repro_torch.obs`):
+the cache's and the ingest path's instruments, and every admission
+session's counters, which `stats()["admission"]` sums.  `subscribe` tells
+listeners (admission sessions) the reservoir versions each `add_batch`
+bumped, and `session` opens an `AqpSession` over the store's shared engine.
+
+Not ported yet, raising NotImplementedError when asked for: checkpoints
+(ROADMAP queue 1.12: `to_state`, and the `state()` of the reservoirs and
+sketches; `repro_torch.convert.store_from_state` reads a reference
+snapshot).
 """
 from __future__ import annotations
 
 import copy
 import threading
+import time
+import weakref
 import zlib
 from collections import OrderedDict
-from typing import Dict, Hashable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.aqp import KDESynopsis, Query, canonical_selector
 from repro_torch.core.aqp_multid import BoxQuery
 from repro_torch.core.aqp_query import _effective_tier, _tier_key
@@ -669,10 +678,12 @@ class SynopsisCache:
     fitted at: a lookup at another version
     misses, so reservoir updates invalidate implicitly.  An LRU bounded by
     `max_entries` and, optionally, `max_bytes`.  Thread-safe: every field is
-    guarded by one lock."""
+    guarded by one lock.  With a `metrics` registry, hits, misses,
+    evictions, entries and bytes are mirrored there (`aqp.cache.*`)."""
 
     def __init__(self, max_entries: int = 128,
-                 max_bytes: Optional[int] = None):
+                 max_bytes: Optional[int] = None,
+                 metrics: Optional[obs.MetricsRegistry] = None):
         self.max_entries = max_entries
         self.max_bytes = max_bytes
         # (column-or-tuple, selector, backend) -> (version, synopsis, nbytes)
@@ -683,6 +694,16 @@ class SynopsisCache:
         self.oversize = 0      # guarded-by: _lock
         self._bytes = 0        # guarded-by: _lock
         self._lock = threading.Lock()
+        # registry mirror, its instruments resolved once here
+        if metrics is not None:
+            self._m_hits = metrics.counter("aqp.cache.hits")
+            self._m_misses = metrics.counter("aqp.cache.misses")
+            self._m_evictions = metrics.counter("aqp.cache.evictions")
+            self._m_entries = metrics.gauge("aqp.cache.entries")
+            self._m_bytes = metrics.gauge("aqp.cache.bytes")
+        else:
+            self._m_hits = self._m_misses = self._m_evictions = None
+            self._m_entries = self._m_bytes = None
 
     def __len__(self) -> int:
         with self._lock:
@@ -700,9 +721,13 @@ class SynopsisCache:
             ent = self._entries.get(key)
             if ent is not None and ent[0] == version:
                 self.hits += 1
+                if self._m_hits is not None:
+                    self._m_hits.inc()
                 self._entries.move_to_end(key)        # LRU: refresh recency
                 return ent[1]
             self.misses += 1
+            if self._m_misses is not None:
+                self._m_misses.inc()
             return None
 
     def put(self, column: ColumnKey, selector: str, version: int,
@@ -726,6 +751,11 @@ class SynopsisCache:
                 _, (_, _, ev_nb) = self._entries.popitem(last=False)
                 self._bytes -= ev_nb
                 self.evictions += 1
+                if self._m_evictions is not None:
+                    self._m_evictions.inc()
+            if self._m_entries is not None:
+                self._m_entries.set(len(self._entries))
+                self._m_bytes.set(self._bytes)
 
     def peek(self, column: ColumnKey, selector: str, version: int, *,
              backend: str) -> Optional[KDESynopsis]:
@@ -766,11 +796,13 @@ class SynopsisCache:
 class TelemetryStore:
     """Streams telemetry columns into reservoirs and answers AqpQuery batches
     from KDE synopses on `device` (default: the CUDA device; pass
-    `device="cpu"` for the plain path on the CPU)."""
+    `device="cpu"` for the plain path on the CPU).  `metrics` shares a
+    registry (default: the store's own)."""
 
     def __init__(self, capacity: int = 4096, seed: int = 0,
                  cache_entries: int = 128, cache_bytes: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 metrics: Optional[obs.MetricsRegistry] = None):
         self.device = resolve_device(device)
         # reads of the registries are unlocked by design (query paths
         # tolerate a stale view); every mutation holds _write_lock
@@ -779,8 +811,13 @@ class TelemetryStore:
         self.categoricals: Dict[str, CategoricalSketch] = {}  # guarded-by: _write_lock (writes)
         self.capacity = capacity
         self.seed = seed
+        # engine, admission and cache instruments land here, so co-hosted
+        # stores and tests stay apart
+        self.metrics = metrics if metrics is not None else obs.MetricsRegistry()
         self.cache = SynopsisCache(max_entries=cache_entries,
-                                   max_bytes=cache_bytes)
+                                   max_bytes=cache_bytes, metrics=self.metrics)
+        self._listeners: List[Callable[[Dict[ColumnKey, int]], None]] = []  # guarded-by: _write_lock
+        self._sessions: List["weakref.ref"] = []        # guarded-by: _write_lock
         # shared engines keyed (selector, backend): query() routes through
         # these so plan caches persist across calls
         self._engines: Dict[Tuple[str, str], object] = {}  # guarded-by: _write_lock (writes)
@@ -887,11 +924,29 @@ class TelemetryStore:
                 raise ValueError(f"unknown sketch kind {kind!r}; "
                                  f"expected one of {sorted(_SKETCH_KINDS)}")
 
-    def subscribe(self, fn) -> None:
-        raise _not_ported("version subscriptions", "1.11")
+    def subscribe(self, fn: Callable[[Dict[ColumnKey, int]], None]
+                  ) -> Callable[[], None]:
+        """Version-change notification: `fn` is called after every
+        `add_batch` with {column or joint tuple: new version} for each
+        reservoir it bumped.  Returns the unsubscribe function.  Admission
+        sessions re-key their pending micro-batches with it."""
+        with self._write_lock:
+            self._listeners.append(fn)
 
-    def session(self, *args, **kwargs) -> None:
-        raise _not_ported("admission sessions", "1.11")
+        def unsubscribe() -> None:
+            with self._write_lock:
+                try:
+                    self._listeners.remove(fn)
+                except ValueError:
+                    pass
+        return unsubscribe
+
+    def _register_session(self, session) -> None:
+        """Track an admission session (weakly) so `stats()` counts the live
+        ones; called by `AqpSession.__init__`."""
+        with self._write_lock:
+            self._sessions = [r for r in self._sessions if r() is not None]
+            self._sessions.append(weakref.ref(session))
 
     def to_state(self) -> None:
         raise _not_ported("store checkpoints", "1.12")
@@ -908,17 +963,38 @@ class TelemetryStore:
                     raise ValueError(f"joint {cols} needs row-aligned columns, "
                                      f"got lengths {sizes}")
                 joint_rows[cols] = np.stack(arrays, axis=1)
+        t_ingest = time.perf_counter() if obs.enabled() else 0.0
         with self._write_lock:
             for name, values in stats.items():
                 if name not in self.columns:
                     self.columns[name] = Reservoir(self.capacity,
                                                    seed=self._col_seed(name))
-                self.columns[name].add(values)
+                res = self.columns[name]
+                res.add(values)
+                self.metrics.counter("aqp.ingest.rows", column=name).inc(
+                    np.asarray(values).size)
+                self.metrics.gauge("aqp.reservoir.fill", column=name).set(
+                    res.n_filled / max(res.capacity, 1))
                 sketch = self.categoricals.get(name)
                 if sketch is not None:
                     sketch.add(values)
+                    eb = getattr(sketch, "err_bound", None)
+                    if eb is not None:
+                        self.metrics.gauge("aqp.sketch.err_bound",
+                                           column=name).set(eb())
             for cols, rows in joint_rows.items():
                 self.joints[cols].add(rows)
+            self.metrics.counter("aqp.ingest.batches").inc()
+            if self._listeners:
+                bumped: Dict[ColumnKey, int] = {
+                    name: self.columns[name].version for name in stats}
+                for cols in joint_rows:
+                    bumped[cols] = self.joints[cols].version
+                for fn in list(self._listeners):
+                    fn(bumped)
+        if t_ingest:
+            self.metrics.histogram("aqp.ingest.us").observe(
+                (time.perf_counter() - t_ingest) * 1e6)
 
     def synopsis(self, column: str, selector: str = "plugin",
                  backend: Optional[str] = None,
@@ -988,6 +1064,15 @@ class TelemetryStore:
                 self._engines[key] = eng
             return eng
 
+    def session(self, selector: str = "plugin", backend: Optional[str] = None,
+                **kwargs):
+        """A streaming admission session over the shared engine of
+        (selector, backend): clients submit AqpQuery specs and get futures,
+        micro-batches coalesce across them and flush on a watermark or a
+        deadline (`repro_torch.core.aqp_admission`).  Other keywords
+        (watermark, max_delay, ...) go to `AqpSession`."""
+        return self.shared_engine(selector, backend).session(**kwargs)
+
     def query(self, queries, selector: str = "plugin",
               backend: Optional[str] = None, mode: str = "batch"):
         """Answer a mixed batch of AqpQuery specs in one engine call; returns
@@ -1029,8 +1114,8 @@ class TelemetryStore:
 
     def stats(self) -> Dict[str, object]:
         """Cache counters, stream sizes per reservoir, which joints were
-        backfilled, and sketch coverage.  The reference's `admission` entry
-        comes with the admission layer (ROADMAP queue 1.11)."""
+        backfilled, sketch coverage, and the admission counters of every
+        session opened on the store."""
         cats = {}
         for name, sketch in self.categoricals.items():
             ent = sketch.stats()
@@ -1043,7 +1128,31 @@ class TelemetryStore:
             "joints": {key: res.n_seen for key, res in self.joints.items()},
             "backfilled": {key: res.backfilled for key, res in self.joints.items()},
             "categoricals": cats,
+            "admission": self._admission_stats(),
         }
+
+    def _admission_stats(self) -> Dict[str, object]:
+        """Admission counters summed over every session ever opened on this
+        store, from the metrics registry: the counters are labelled by
+        session and outlive it, so the sums hold after a session closes and
+        is collected; only `sessions` (registered now) and `pending` (live
+        depth gauges) reflect the present."""
+        with self._write_lock:
+            live = [r for r in self._sessions if r() is not None]
+        reg = self.metrics
+        agg: Dict[str, object] = {"sessions": len(live)}
+        for k in ("submitted", "executed", "flushes", "coalesced",
+                  "invalidations", "blocked", "shed", "fit_requeued"):
+            agg[k] = int(reg.sum_counter(f"aqp.admission.{k}"))
+        agg["pending"] = int(reg.sum_gauge("aqp.admission.depth"))
+        flush_reasons: Dict[str, int] = {}
+        for labels, n in reg.collect_counters("aqp.admission.flush_reason"):
+            reason = labels.get("reason", "?")
+            flush_reasons[reason] = flush_reasons.get(reason, 0) + int(n)
+        agg["flush_reasons"] = flush_reasons
+        batch_rows = reg.sum_counter("aqp.admission.batch_rows")
+        agg["mean_batch"] = batch_rows / agg["flushes"] if agg["flushes"] else 0.0
+        return agg
 
     def merge(self, other: "TelemetryStore") -> "TelemetryStore":
         """The union of two stores on this store's device: reservoirs and

@@ -88,6 +88,17 @@ def point_range(n: int, q_tiles: int, sms: int, blocks_per_sm: int, waves: int,
     return max(32, min(pts, tile // 32 * 32))
 
 
+def fixed_range(n: int, ranges: int, step: int, tile: int) -> int:
+    """Sample points (rows) per block of a kernel whose blocks each sum a
+    range of the sample: a multiple of `step` in [step, tile], the fewest
+    that cut n into at most `ranges` ranges.  It depends on n alone, not on
+    the launch's query or family count and not on the card, so a query's
+    per-range partials, and the fixed-order pass that adds them, give the
+    same bits whatever micro-batch carries it and on any card."""
+    per = -(-(-(-n // max(ranges, 1))) // step) * step
+    return max(step, min(per, tile // step * step))
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

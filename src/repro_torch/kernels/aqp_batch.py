@@ -11,12 +11,11 @@ from functools import lru_cache
 import torch
 
 from . import _build
-from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, point_range, ptr,
-                      raise_on, sm_count, stream)
+from ._launch import GRID_Y_MAX, LaunchCounter, check_tensor, fixed_range, ptr, raise_on, stream
 
 TILE = 4096         # most sample points per block (a range, split over 32 lanes)
 Q_TILE = 32         # queries per block: kRows (4) per warp x kWarps (8)
-WAVES = 2           # waves of resident blocks the point ranges aim at
+RANGES = 160        # point ranges n is cut into (224 points each at n = 32 768)
 
 
 launches = LaunchCounter("aqp_batch_sums")
@@ -32,23 +31,14 @@ def _fn():
     return fn
 
 
-@lru_cache(maxsize=None)
-def blocks_per_sm(index: int) -> int:
-    """Blocks of the kernel that one SM of device `index` holds at once."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        raise_on(_build.load("aqp_batch").aqp_batch_blocks_per_sm(ctypes.byref(out)),
-                 "aqp_batch_sums occupancy")
-    return out.value
-
-
 def aqp_batch_moments(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor, tile: int) -> torch.Tensor:
     """(5, q) float32: per query the sums over the sample of c (eq. 9's term)
     and s (eq. 10's) as (sum c, sum s, sum c^2, sum s^2, sum c s).  x: (n,),
     h: one element, a/b: (q,), all float32 on one CUDA device; tile: the
-    most points per block, a multiple of 32.  n == 0 or q == 0 gives zeros
-    and launches nothing."""
+    most points per block, a multiple of 32.  The point ranges come from n
+    alone, so a query's sums are the same bits in any batch.  n == 0 or
+    q == 0 gives zeros and launches nothing."""
     check_tensor(x, "x", torch.float32, (None,))
     check_tensor(h.reshape(1), "h", torch.float32, (1,), x.device)
     check_tensor(a, "a", torch.float32, (None,), x.device)
@@ -59,9 +49,7 @@ def aqp_batch_moments(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
     n, q = x.shape[0], a.shape[0]
     if n == 0 or q == 0:
         return torch.zeros((5, q), dtype=torch.float32, device=x.device)
-    index = x.device.index or 0
-    pts = point_range(n, -(-q // Q_TILE), sm_count(index), blocks_per_sm(index), WAVES,
-                      tile)
+    pts = fixed_range(n, RANGES, 32, tile)
     n_ranges = -(-n // pts)
     if n_ranges > GRID_Y_MAX:
         raise ValueError(f"n={n} needs {n_ranges} ranges of {pts}; raise the tile")

@@ -11,12 +11,11 @@ from functools import lru_cache
 import torch
 
 from . import _build
-from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, point_range, ptr,
-                      raise_on, sm_count, stream)
+from ._launch import GRID_Y_MAX, LaunchCounter, check_tensor, fixed_range, ptr, raise_on, stream
 
 TILE = 4096         # most sample rows per block (a range, split over 32 lanes)
 Q_TILE = 32         # boxes per block: kRows (4) per warp x kWarps (8)
-WAVES = 2           # waves of resident blocks the row ranges aim at
+RANGES = 64         # row ranges n is cut into (512 rows each at n = 32 768)
 MAX_D = 8           # the kernel is instantiated for d = 1..8
 
 
@@ -34,17 +33,6 @@ def _fn():
     return fn
 
 
-@lru_cache(maxsize=None)
-def blocks_per_sm(index: int, d: int) -> int:
-    """Blocks of the kernel for d axes that one SM of device `index` holds
-    at once."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        raise_on(_build.load("aqp_boxes").aqp_box_blocks_per_sm(d, ctypes.byref(out)),
-                 "aqp_box_sums occupancy")
-    return out.value
-
-
 def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
                     hi: torch.Tensor, tgt: torch.Tensor, tile: int) -> torch.Tensor:
     """(5, q) float32: per box the sums over the sample rows of c (eq. 11's
@@ -52,8 +40,9 @@ def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     (sum c, sum s, sum c^2, sum s^2, sum c s).  x: (n, d) float32, h_diag:
     (d,) float32, lo/hi: (q, d) float32, tgt: (q,) int32 in [0, d) (another
     target gives NaN in the rows that hold s), all on one CUDA device;
-    1 <= d <= 8; tile: the most rows per block, a multiple of 32.  n == 0 or
-    q == 0 gives zeros and launches nothing."""
+    1 <= d <= 8; tile: the most rows per block, a multiple of 32.  The row
+    ranges come from n alone, so a box's sums are the same bits in any
+    batch.  n == 0 or q == 0 gives zeros and launches nothing."""
     check_tensor(x, "x", torch.float32, (None, None))
     n, d = x.shape
     if not 1 <= d <= MAX_D:
@@ -68,9 +57,7 @@ def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
         raise ValueError(f"tile={tile} must be a positive multiple of 32")
     if n == 0 or q == 0:
         return torch.zeros((5, q), dtype=torch.float32, device=x.device)
-    index = x.device.index or 0
-    rows = point_range(n, -(-q // Q_TILE), sm_count(index), blocks_per_sm(index, d),
-                       WAVES, tile)
+    rows = fixed_range(n, RANGES, 32, tile)
     n_ranges = -(-n // rows)
     if n_ranges > GRID_Y_MAX:
         raise ValueError(f"n={n} needs {n_ranges} ranges of {rows}; raise the tile")

@@ -14,15 +14,14 @@ from typing import Sequence
 import torch
 
 from . import _build
-from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, ptr, raise_on,
-                      sm_count, stream)
+from ._launch import GRID_Y_MAX, LaunchCounter, check_tensor, fixed_range, ptr, raise_on, stream
 
 TILE = 1024         # most sample rows per block (walked in SUB-row chunks)
 SUB = 32            # rows per shared-memory sub-chunk (kSub in the source)
 FAM_TILE = 32       # families per tile (kFamTile in the source)
 G_TILE = 64         # categories per block (kCatTile in the source)
 MAX_D = 8           # the kernel is instantiated for d = 1..8
-WAVES = 4           # blocks per SM the row ranges aim at
+RANGES = 128        # row ranges n is cut into (256 rows each at n = 32 768)
 
 
 launches = LaunchCounter("aqp_grouped_sums")
@@ -61,15 +60,6 @@ def family_tiles(win: Sequence[int], g_axis: Sequence[int], tgt: Sequence[int]):
     return order, tiles
 
 
-def range_rows(n: int, blocks_per_range: int, sms: int, tile: int) -> int:
-    """Rows per block: a multiple of SUB, at most `tile`, and few enough
-    that the ranges times `blocks_per_range` put about WAVES blocks on each
-    of the `sms` SMs."""
-    ranges = max(1, -(-WAVES * sms // blocks_per_range))
-    rows = -(-(-(-n // ranges)) // SUB) * SUB
-    return max(SUB, min(rows, tile // SUB * SUB))
-
-
 @lru_cache(maxsize=64)
 def _family_table(win: tuple, g_axis: tuple, tgt: tuple, n_tables: int, d: int):
     """(pinned int32 table, tile count) of one family layout: the tiles,
@@ -100,7 +90,9 @@ def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     entries ignored), wlo/whi: (W, Gmax) window tables (padded rows give
     values nobody reads), all on one CUDA device; win, g_axis, tgt: F host
     ints (family f's window table, group axis and target axis, each in
-    range).  n, F or Gmax == 0 gives zeros and launches nothing."""
+    range).  The row ranges come from n alone, so a family's sums are the
+    same bits whatever other families share the launch.  n, F or Gmax == 0
+    gives zeros and launches nothing."""
     check_tensor(x, "x", torch.float32, (None, None))
     n, d = x.shape
     if not 1 <= d <= MAX_D:
@@ -123,7 +115,7 @@ def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     k = int(tile)
     if k < SUB:
         raise ValueError(f"tile={k} must be at least {SUB}")
-    rows = range_rows(n, n_tiles * -(-Gmax // G_TILE), sm_count(x.device.index or 0), k)
+    rows = fixed_range(n, RANGES, SUB, k)
     # pinned, so the copy does not wait for the card's earlier work
     table = host.to(x.device, non_blocking=True)
     n_tab = 5 * n_tiles

@@ -18,9 +18,10 @@
 // What the design does about it:
 //  - a warp holds kRows queries (bounds in registers) and its lanes split a
 //    range of points (lane l takes points l, l + 32, ...), so one point load
-//    feeds kRows independent pairs, and the point ranges are cut at call
-//    time from the SM count and the occupancy so that the grid fills, and
-//    stays within, two waves of resident blocks at any q (point_range);
+//    feeds kRows independent pairs; the point ranges are cut from n alone
+//    (about 160 ranges of at least 32 points, fixed_range), never from q or
+//    the card, so a query's partials, and its bits, do not depend on what
+//    else rides in its launch;
 //  - erfc_gauss (common.cuh) gives erfc and the exponential of eq. 10 from
 //    one ex2 and one reciprocal: 4 SFU ops per pair where two erfcf and two
 //    expf took 6;
@@ -94,14 +95,6 @@ aqp_batch_tiles(const float* __restrict__ x, int n, const float* __restrict__ h,
 }
 
 }  // namespace repro_torch
-
-// Blocks of aqp_batch_tiles one SM holds at once, into *blocks.  Returns the
-// cudaError_t.
-extern "C" int aqp_batch_blocks_per_sm(int* blocks) {
-  using namespace repro_torch;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, aqp_batch_tiles,
-                                                            kThreads, 0);
-}
 
 // x: (n,), h: one float, a/b: (q,); n, q >= 1, range_pts >= 1.  partials
 // holds 5 * q * ceil(n / range_pts) floats, out (5, q).  Returns the

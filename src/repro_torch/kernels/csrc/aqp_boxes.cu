@@ -22,10 +22,10 @@
 // What the design does about it (the layout of aqp_batch.cu):
 //  - a warp holds kRows boxes (bounds in registers; d is a template
 //    parameter, so the axis loop unrolls and nothing spills) and its lanes
-//    split a range of rows, so one row load feeds kRows boxes, and the row
-//    ranges are cut at call time from the SM count and the occupancy so
-//    that the grid fills, and stays within, two waves of resident blocks
-//    at any q (point_range);
+//    split a range of rows, so one row load feeds kRows boxes; the row
+//    ranges are cut from n alone (about 64 ranges of at least 32 rows,
+//    fixed_range), never from q or the card, so a box's partials, and its
+//    bits, do not depend on what else rides in its launch;
 //  - erfc_gauss (common.cuh) gives each axis's erfc and exponentials from
 //    one ex2 and one reciprocal, so the target axis's density difference
 //    needs no exponential of its own: 4d SFU ops per (query, row) where
@@ -131,12 +131,6 @@ cudaError_t launch_d(const float* x, int n, const float* h, const float* lo,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t blocks_d(int* blocks) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, aqp_box_tiles<D>,
-                                                       kThreads, 0);
-}
-
 }  // namespace repro_torch
 
 #define BOX_CASES(F, ...)                                                          \
@@ -149,15 +143,6 @@ cudaError_t blocks_d(int* blocks) {
   case 7: err = F<7>(__VA_ARGS__); break;                                          \
   case 8: err = F<8>(__VA_ARGS__); break;                                          \
   default: return (int)cudaErrorInvalidValue;
-
-// Blocks of aqp_box_tiles<d> one SM holds at once, into *blocks; 1 <= d <= 8.
-// Returns the cudaError_t.
-extern "C" int aqp_box_blocks_per_sm(int d, int* blocks) {
-  using namespace repro_torch;
-  cudaError_t err;
-  switch (d) { BOX_CASES(blocks_d, blocks) }
-  return (int)err;
-}
 
 // x: (n, d) row-major, h: (d,), lo/hi: (q, d), tgt: (q,); 1 <= d <= 8, n,
 // q >= 1, range_rows >= 1.  partials holds 5 * q * ceil(n / range_rows)

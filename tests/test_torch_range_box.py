@@ -186,7 +186,7 @@ def test_point_range_keeps_the_grid_within_its_waves(n, q, bps):
     """The ranges never open a wave past WAVES (where the query tiles alone
     do not), and fill at least half of the waves once n has 32 points per
     range to spare."""
-    sms, waves, tile = 132, tab.WAVES, tab.TILE
+    sms, waves, tile = 132, 2, tab.TILE
     q_tiles = -(-q // tab.Q_TILE)
     pts = point_range(n, q_tiles, sms, bps, waves, tile)
     assert pts % 32 == 0 and 32 <= pts <= tile

@@ -213,20 +213,15 @@ def test_store_without_device_needs_cuda():
             tstore.TelemetryStore()
 
 
-@pytest.mark.parametrize("call", ["subscribe", "session", "to_state"])
+@pytest.mark.parametrize("call", ["to_state"])
 def test_unported_paths_raise(call):
     """Tiered ladders, count-min sketches and progressive execution answer
-    now (`tests/test_torch_tiered.py`, `tests/test_torch_sketch_merge.py`);
-    these wait for queues 1.11 and 1.12."""
+    now (`tests/test_torch_tiered.py`, `tests/test_torch_sketch_merge.py`),
+    and so do subscriptions and sessions (`tests/test_torch_admission.py`);
+    checkpoints wait for queue 1.12."""
     store = tstore.TelemetryStore(capacity=64, seed=0, device="cpu")
-    item = "1.12" if call == "to_state" else "1.11"
-    with pytest.raises(NotImplementedError, match=item):
-        if call == "subscribe":
-            store.subscribe(print)
-        elif call == "session":
-            store.session()
-        else:
-            store.to_state()
+    with pytest.raises(NotImplementedError, match="1.12"):
+        getattr(store, call)()
 
 
 def test_port_imports_neither_jax_nor_repro():
