@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
+(`--child tuned|restore` runs it as phase T's or path H's second process.)
+
 Phases, each failing loudly (a failed check raises; the script then exits
 non-zero and prints no result line):
 
@@ -76,7 +78,28 @@ non-zero and prints no result line):
      box, GROUP BY and RFF kernels giving a query's bits alone at q = 8 as
      inside the main path's launches (qmc_reduce where both cut the same
      node slices), with their device ms at q = 8;
- 10. every kernel against its plain PyTorch version on the card, on the
+ 10. phase T, tile tuning: `repro_torch.kernels.autotune.sweep` on the card
+     at path F's tier-0 shapes, path G's micro-batch shapes, the main
+     path's pairwise and 3-D box shapes and path D's full-H shapes (CUDA
+     events, device time a launch, the module constants as candidate 0),
+     each winner printed beside the constants with both times, the range
+     kernels' winners also timed at another batch (their cache key has no
+     batch); the cache saved and passed by `scripts/validate_metrics.py
+     --tuning`; path G (a) again under the cache, its sessions bit-identical
+     to one execute; the main path's specs on a fresh store under the
+     cache, within the parity tolerances of the untuned answers and
+     bit-identical to a second process (`--child tuned`) that loads the
+     cache with no sweep; then the cache is dropped;
+ 11. path H, a warm restart: path G's store, with its "cuda" fits and plain
+     ("torch") fits added, answers (a)'s and (b)'s specs through its shared
+     engines and is saved (`store.save`); a second process (`--child
+     restore`) loads it on the card and answers the same specs with the
+     same bits, no synopsis or plan cache miss, no fit launch, no plain
+     version, one launch a group; both add the same batch and their
+     reservoirs and sketches stay bit-identical; then the serve CLI at full
+     size with `--snapshot-dir` and again with `--restore`, which prints
+     its durability line, misses no synopsis and launches no fit kernel;
+ 12. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -86,7 +109,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
- 11. kernel and plain-version times (CUDA events, median of warm runs) on
+ 13. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
@@ -97,7 +120,10 @@ non-zero and prints no result line):
 It prints a {"path_f": {...}} line (the rounds' walls, device ms and CI
 widths), a {"path_g": {...}} line (queries/s, flushes by reason, mean
 batch, p50 / p99 of aqp.query.latency_us, device ms per flush, the serve
-CLI's line, the card), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
+CLI's line, the card), a {"phase_t": {...}} line (each sweep's winner and
+constants with their device times, the card), a {"path_h": {...}} line
+(save ms, load ms, the snapshot's bytes, the restored launches, the serve
+runs, the card), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
 a {"kernels": [...]} JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device, and when run without the repository around it.
@@ -109,6 +135,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -379,7 +406,7 @@ def build_store(args, rt, q):
     t0 = time.perf_counter()
     stream = make_stream(rng)
     store = rt["store"].TelemetryStore(capacity=CAPACITY, seed=args.seed)
-    check(store.device.type == "cuda", f"store landed on {store.device}")
+    check(store.device.type == DEV, f"store landed on {store.device}")
     store.track_joint(JOINT)
     store.track_joint(GJOINT)
     store.track_categorical("model_id")
@@ -1633,7 +1660,377 @@ def path_g(torch, rt, args, stream, calls_main, calls_c, calls_d, calls_dx):
           f"{st_a['mean_batch']:.2f}; device {dev_ms:.3f} ms in {dev_kernels} kernels and "
           f"copies over one run ({summary['device_ms_per_flush']:.4f} ms a flush, "
           f"torch.profiler); serve {d_qps:.1f} queries/s")
+    ctx = {"store": store, "engine": engine, "per_a": per_a, "per_b": per_b, "gb": gb,
+           "ranges": ranges}
+    return summary, ctx
+
+
+# --- phase T: tile tuning ----------------------------------------------------
+
+# the sweeps: path F's tier-0 pairwise and range shapes, the main path's
+# pairwise shape, the range, box and GROUP BY shapes of path G's micro-batch
+# (its joints are 2-D; the main path's range group shares the n = 32 768
+# aqp_batch key, as the key leaves the batch out), the main path's 3-D
+# joint at q = 8, and path D's full-H shapes (the joint's exact pass, a 1-D
+# RFF group)
+T_SWEEPS = (("pairwise_scaled_ksum", {"n": 4096}),
+            ("pairwise_scaled_ksum", {"n": CAPACITY}),
+            ("aqp_batch_sums", {"n": 4096, "G": 256}),
+            ("aqp_batch_sums", {"n": CAPACITY, "G": G_MICRO}),
+            ("aqp_box_sums", {"n": CAPACITY, "d": 3, "G": G_MICRO}),
+            ("aqp_box_sums", {"n": CAPACITY, "d": 2, "G": G_MICRO}),
+            ("aqp_grouped_sums", {"n": CAPACITY, "d": 2, "G": N_CODES}),
+            ("qmc_box_reduce", {"n": CAPACITY, "d": 3, "G": 384, "m": 4096}),
+            ("rff_density", {"n": 2048, "d": 1, "G": CAPACITY}))
+# the range kernels' winners also timed at another batch: their key has no G
+T_CROSS = (("aqp_batch_sums", {"n": 4096, "G": 256}, G_MICRO),
+           ("aqp_batch_sums", {"n": CAPACITY, "G": G_MICRO}, 256),
+           ("aqp_box_sums", {"n": CAPACITY, "d": 3, "G": G_MICRO}, 384))
+T_REPEATS = 5
+
+
+def g_flat(ctx, per_key="per_a"):
+    return [s for ci in range(G_CLIENTS) for s in ctx[per_key][ci]] + [ctx["gb"]]
+
+
+def answer_rows(res) -> dict:
+    """Answers as arrays, to compare bit for bit across processes."""
+    return {"estimate": np.asarray([r.estimate for r in res], np.float64),
+            "ci_lo": np.asarray([r.ci_lo for r in res], np.float64),
+            "ci_hi": np.asarray([r.ci_hi for r in res], np.float64),
+            "version": np.asarray([r.synopsis_version for r in res], np.int64),
+            "n_effective": np.asarray([r.n_effective for r in res], np.int64),
+            "path": np.asarray([r.path for r in res])}
+
+
+def same_rows(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def child(args, mode: str, **paths) -> dict:
+    """Run this script in a fresh process in `mode` (`--child`); returns the
+    JSON object its last line prints."""
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--child", mode, "--seed",
+           str(args.seed)]
+    for k, v in paths.items():
+        cmd += [f"--{k}", str(v)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"child {mode} exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    for ln in out.stdout.splitlines()[:-1]:
+        print(f"  child {mode} | {ln}")
+    got = json.loads(out.stdout.splitlines()[-1])
+    got["seconds"] = time.perf_counter() - t0
+    return got
+
+
+def phase_t(torch, rt, args, store, specs, stream, g_ctx):
+    """Phase T: tile tuning.  Sweeps T_SWEEPS on the card (CUDA-event device
+    time a launch, the module constants as candidate 0), each winner printed
+    beside the constants with both times; the range kernels' winners also
+    timed at another batch; the cache saved and checked by
+    `scripts/validate_metrics.py --tuning`; path G (a) again under the cache,
+    the sessions bit-identical to one execute; the main path's specs on a
+    fresh store under the cache, within the parity tolerances of the untuned
+    answers and bit-identical to a second process that loads the cache."""
+    tune, q = rt["autotune"], rt["query"]
+    want_untuned = answer_rows(store.query(specs))
+    cache = ROOT / "build" / "tiles.json"
+    cache.parent.mkdir(exist_ok=True)
+    cache.unlink(missing_ok=True)
+    card = card_line()
+    sweeps, cross = [], []
+    tune.reset()
+    tune.use_cache(str(cache))
+    try:
+        for kernel, shape in T_SWEEPS:
+            e = tune.sweep(kernel, shape, repeats=T_REPEATS)
+            sweeps.append({k: e[k] for k in ("kernel", "shape", "tiles", "us", "default_tiles",
+                                             "default_us", "repeats")}
+                          | {"candidates": len(e["swept"])})
+            print(f"phase T sweep {kernel} {shape}: winner {e['tiles']} {e['us']:.3f} us "
+                  f"against the constants {e['default_tiles']} {e['default_us']:.3f} us "
+                  f"({len(e['swept'])} candidates, median of {e['repeats']} CUDA-event windows "
+                  f"of {e['launches']} launches, device time a launch; {card})")
+        for kernel, shape, g in T_CROSS:
+            e = next(x for x in sweeps if x["kernel"] == kernel and x["shape"] == shape)
+            run = tune.SWEEPS[kernel].make({**shape, "G": g})
+            times = {name: tune.time_launches(lambda t=tiles: run(t), T_REPEATS)[0]
+                     for name, tiles in (("constants", e["default_tiles"]),
+                                         ("winner", e["tiles"]))}
+            cross.append({"kernel": kernel, "shape": {**shape, "G": g},
+                          "tiles": e["tiles"], "us": times["winner"],
+                          "default_tiles": e["default_tiles"], "default_us": times["constants"]})
+            print(f"phase T {kernel} at G = {g} (swept at G = {shape['G']}): winner "
+                  f"{e['tiles']} {times['winner']:.3f} us, constants {e['default_tiles']} "
+                  f"{times['constants']:.3f} us (device time a launch; {card})")
+        val = subprocess.run([sys.executable, str(ROOT / "scripts" / "validate_metrics.py"),
+                              "--tuning", str(cache)], capture_output=True, text=True,
+                             timeout=120)
+        check(val.returncode == 0, f"phase T: validate_metrics --tuning failed: "
+                                   f"{val.stdout}{val.stderr}")
+        print(f"phase T: {cache.name}: {val.stdout.strip()}")
+        hits0 = rt["obs"].get_registry().sum_counter("autotune.cache.hits")
+        g_check_run(torch, rt, "phase T: path G (a) under the tuned cache", g_ctx["engine"],
+                    g_ctx["per_a"], g_ctx["gb"], stream)
+        check(rt["obs"].get_registry().sum_counter("autotune.cache.hits") > hits0
+              or DEV != "cuda", "phase T: path G (a) never read the tuned cache")
+        loop = {}
+        for label in ("untuned", "tuned", "tuned", "untuned") * 2 + ("untuned", "tuned"):
+            tune.reset()
+            if label == "tuned":
+                tune.use_cache(str(cache))
+            run = lambda: closed_loop(torch, g_ctx["engine"], g_ctx["per_a"], [g_ctx["gb"]])
+            if label in loop and "device_ms" not in loop[label]:
+                loop[label]["device_ms"] = device_ms(torch, run)[0]
+                continue
+            _, wall, st, _ = run()
+            rec = loop.setdefault(label, {"walls_ms": [], "deadline_flushes": []})
+            rec["walls_ms"].append(wall * 1e3)
+            rec["deadline_flushes"].append(st["flush_reasons"].get("deadline", 0))
+        print("phase T: path G (a)'s closed loop, untuned and tuned in turn: " + "; ".join(
+            f"{k} walls {', '.join(f'{w:.1f}' for w in v['walls_ms'])} ms (median "
+            f"{np.median(v['walls_ms']):.1f}; deadline flushes {v['deadline_flushes']}), "
+            f"device {v['device_ms']:.3f} ms a run (torch.profiler)" for k, v in loop.items()))
+        fresh, fspecs, _, _ = build_store(args, rt, q)
+        tuned = answer_rows(fresh.query(fspecs))
+        del fresh
+        other = child(args, "tuned", cache=cache, out=ROOT / "build" / "phase_t_child.npz")
+        got = dict(np.load(ROOT / "build" / "phase_t_child.npz"))
+        check(same_rows(got, tuned), "phase T: a second process under the same cache gave "
+                                     "other bits")
+        check(other["sweeps"] == 0 and (other["hits"] > 0 or DEV != "cuda"),
+              f"phase T: the second process swept or missed the cache: {other}")
+        scale = STREAM_ROWS / CAPACITY
+        exact = want_untuned["path"] == "exact"
+        check(np.array_equal(tuned["estimate"][exact], want_untuned["estimate"][exact]),
+              "phase T: exact answers moved under the tuned cache")
+        dev = 0.0
+        for k in ("estimate", "ci_lo", "ci_hi"):
+            ok, err = close(tuned[k][~exact], want_untuned[k][~exact], 1e-4, 1e-4 * scale)
+            check(ok, f"phase T: tuned {k} off the untuned answers (max err {err})")
+            dev = max(dev, err)
+        print(f"phase T: the main path's {len(fspecs)} specs under the tuned cache: within rtol "
+              f"1e-4 / atol {1e-4 * scale:.4g} of the untuned answers (max abs diff {dev:.4g}), "
+              f"bit-identical in a second process that loaded the cache with no sweep "
+              f"({other['hits']} cache hits, {other['seconds']:.1f} s)")
+    finally:
+        tune.reset()
+    return {"sweeps": sweeps, "cross": cross, "closed_loop": loop,
+            "max_abs_diff_untuned": dev, "card": card}
+
+
+# --- path H: a warm restart ----------------------------------------------------
+
+H_FIT_KERNELS = ("pairwise_scaled_ksum", "sv_matrix", "lscv_grid_sums", "gh_fused_sum")
+
+
+def h_next_batch(seed: int) -> dict:
+    """The batch both processes add after the restart."""
+    rng = np.random.default_rng(seed + 1000)
+    latent = rng.normal(0.0, 1.0, BATCH_ROWS)
+    cols = {"loss": 2.0 + 0.5 * latent + rng.normal(0.0, 0.4, BATCH_ROWS),
+            "latency_ms": np.exp(3.0 + 0.3 * latent + rng.normal(0.0, 0.3, BATCH_ROWS)),
+            "grad_norm": 1.0 + 0.3 * latent + rng.normal(0.0, 0.5, BATCH_ROWS),
+            "tokens": np.exp(5.0 + rng.normal(0.0, 0.6, BATCH_ROWS)),
+            "model_id": rng.integers(0, N_CODES, BATCH_ROWS).astype(np.float64)}
+    return {k: v.astype(np.float32) for k, v in cols.items()}
+
+
+def sample_state(store) -> dict:
+    """The reservoirs' and sketches' part of a snapshot, flattened for a
+    bit comparison across processes."""
+    tree, meta = store.to_state()
+    out = {k: v for k, v in tree.items() if not k.startswith("cache/")}
+    for part in ("columns", "joints", "categoricals"):
+        out[f"meta/{part}"] = np.asarray(json.dumps(meta[part], sort_keys=True))
+    return out
+
+
+def restored_answers(torch, rt, store, g_ctx) -> tuple:
+    """The saved store's, or the restored store's, answers to path G (a)'s
+    specs and GROUP BY spec, then to (b)'s, on "cuda", with the launches,
+    plain-version calls and cache misses of each."""
+    ops = rt["ops"]
+    out, stats = {}, {}
+    for name, per in (("a", "per_a"), ("b", "per_b")):
+        misses = store.cache.stats()["misses"]
+        ops.reset_launch_counts()
+        with plain_calls(rt["ref"]) as plain:
+            res = store.query(g_flat(g_ctx, per))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        out.update({f"{name}/{k}": v for k, v in answer_rows(res).items()})
+        stats[name] = {"launches": {k: v for k, v in counts.items() if v},
+                       "groups": group_launches(g_flat(g_ctx, per)),
+                       "plain": sum(plain.values()),
+                       "misses": store.cache.stats()["misses"] - misses,
+                       "plan_misses": store.shared_engine().plans.misses}
+    return out, stats
+
+
+def group_launches(specs) -> dict:
+    """The launches one query of `specs` makes with every fit cached: one
+    aqp_batch launch per column of the single-Range specs, one aqp_boxes
+    launch per joint of the plain boxes, one aqp_grouped launch for the
+    GROUP BY spec, and one qmc_reduce or rff_eval launch per full-H joint."""
+    kinds = [(type(s.predicates[0]).__name__, s) for s in specs]
+    cols = {s.predicates[0].column for k, s in kinds
+            if k == "Range" and len(s.predicates) == 1 and s.group_by is None}
+    boxes = {(s.predicates[0].columns, s.selector) for k, s in kinds if k == "Box"}
+    return {"aqp_batch_sums": len(cols),
+            "aqp_box_sums": sum(sel is None for _c, sel in boxes),
+            "aqp_grouped_sums": int(any(s.group_by is not None for s in specs)),
+            "fullh": sum(sel == "lscv_H" for _c, sel in boxes)}
+
+
+def check_restored_launches(stats, what: str) -> None:
+    """No fit kernel, no plain version, no synopsis or plan cache miss, and
+    one launch per group (`group_launches`)."""
+    for name, st in stats.items():
+        c, want = st["launches"], st["groups"]
+        check(not any(c.get(k) for k in H_FIT_KERNELS), f"{what} ({name}): fit launches {c}")
+        check(st["plain"] == 0 and st["misses"] == 0 and st["plan_misses"] == 0,
+              f"{what} ({name}): {st['plain']} plain calls, {st['misses']} cache misses, "
+              f"{st['plan_misses']} plan misses")
+        got = {k: c.get(k, 0) for k in ("aqp_batch_sums", "aqp_box_sums", "aqp_grouped_sums")}
+        got["fullh"] = sum(c.get(k, 0) for k in FULLH_KERNELS)
+        check(got == want, f"{what} ({name}): launches {c}, expected one a group: {want}")
+
+
+def serve_cli(*extra) -> tuple:
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "aqp", "--rows",
+           str(STREAM_ROWS), "--capacity", str(CAPACITY), "--clients", str(G_CLIENTS),
+           "--per-client", str(G_PER_CLIENT), "--stream-every-ms", "100000", *extra]
+    if DEV != "cuda":
+        cmd += ["--device", DEV]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                             else "")
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True,
+                         timeout=600)
+    sec = time.perf_counter() - t0
+    check(out.returncode == 0, f"serve {' '.join(extra)} exited {out.returncode}:\n"
+                               f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout.splitlines(), sec
+
+
+def path_h(torch, rt, args, g_ctx):
+    """Path H: a warm restart.  Path G's store, with "cuda" fits from path G
+    and plain ("torch") fits of (a)'s specs added here, answers (a)'s specs
+    with the GROUP BY spec and (b)'s through its shared engines, is saved,
+    and a fresh process loads it on the card and answers the same specs: the
+    same bits, no cache miss, no fit launch, no plain-version call, one
+    launch a group; both add the same batch and their reservoirs stay
+    bit-identical.  Then serve's CLI at full size once with --snapshot-dir
+    and once with --restore: the restored run prints its durability line,
+    misses no synopsis and launches no fit kernel."""
+    store = g_ctx["store"]
+    want, stats = restored_answers(torch, rt, store, g_ctx)
+    store.query(g_flat(g_ctx), backend="torch")
+    backends = {key[2] for key, _v, _s in store.cache.entries()}
+    check(backends == {"cuda", "torch"}, f"path H: cache backends {backends}")
+    snap = ROOT / "build" / "path_h_snapshot"
+    shutil.rmtree(snap, ignore_errors=True)
+    t0 = time.perf_counter()
+    step = store.save(str(snap))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(p.stat().st_size for p in (snap / f"step_{step:08d}").iterdir())
+    got = child(args, "restore", snapshot=snap, out=ROOT / "build" / "path_h_child.npz")
+    theirs = dict(np.load(ROOT / "build" / "path_h_child.npz"))
+    for key in want:
+        check(np.array_equal(theirs[key], want[key]),
+              f"path H: the restored process's {key} differs from the saving process's")
+    check_restored_launches(got["stats"], "path H restored")
+    store.add_batch(h_next_batch(args.seed))
+    mine = sample_state(store)
+    for key, v in mine.items():
+        check(np.array_equal(theirs[f"state/{key}"], v),
+              f"path H: {key} differs after the same add_batch in both processes")
+    print(f"path H: saved {nbytes} bytes ({len(store.cache.entries())} cached synopses of "
+          f"both backends) in {save_ms:.1f} ms; the restored process loaded them on "
+          f"{got['device']} in {got['load_ms']:.1f} ms and answered "
+          f"{len(want['a/estimate']) + len(want['b/estimate'])} specs with the same bits, "
+          f"0 cache misses, 0 fit launches, no plain-version call (launches "
+          f"{got['stats']}); after the same add_batch the reservoirs and sketches are "
+          f"bit-identical ({len(mine)} arrays)")
+    serve_snap = ROOT / "build" / "path_h_serve_snapshot"
+    shutil.rmtree(serve_snap, ignore_errors=True)
+    lines1, sec1 = serve_cli("--snapshot-dir", str(serve_snap))
+    check(any(f"1 snapshots written to {serve_snap}" in ln for ln in lines1),
+          "path H: serve --snapshot-dir wrote no start-up snapshot")
+    mpath = ROOT / "build" / "path_h_serve_metrics.json"
+    lines2, sec2 = serve_cli("--snapshot-dir", str(serve_snap), "--restore",
+                             "--metrics-out", str(mpath))
+    durable = next((ln for ln in lines2 if "durability: warm-started" in ln), None)
+    check(durable is not None, "path H: serve --restore printed no durability line")
+    cache_line = next(ln for ln in lines2 if "synopsis cache:" in ln)
+    check(" / 0 misses" in cache_line, f"path H: serve --restore refitted: {cache_line}")
+    metrics = json.loads(mpath.read_text())
+    fits = [e["labels"] for e in metrics.get("counters", {}).get("kernel.calls", [])
+            if e["labels"].get("kernel") in H_FIT_KERNELS]
+    launched = sorted({e["labels"]["kernel"]
+                       for e in metrics.get("counters", {}).get("kernel.calls", [])})
+    check(not fits and ("aqp_batch_sums" in launched or DEV != "cuda"),
+          f"path H: serve --restore launched fit kernels {fits} (kernels {launched})")
+    head = next(ln for ln in lines2 if "queries/s" in ln)
+    for ln in lines1 + lines2:
+        if ln.startswith("[serve:aqp]") and ("durability" in ln or "queries/s" in ln
+                                             or "synopsis cache" in ln):
+            print(f"path H serve | {ln}")
+    summary = {"save_ms": save_ms, "load_ms": got["load_ms"], "snapshot_bytes": nbytes,
+               "cached_synopses": len(store.cache.entries()), "restored": got["stats"],
+               "saving": stats, "child_s": got["seconds"],
+               "serve": {"snapshot_s": sec1, "restore_s": sec2, "restored_line": head,
+                         "durability": durable, "cache": cache_line, "kernels": launched},
+               "card": card_line()}
+    print(f"path H: serve --snapshot-dir {sec1:.1f} s, --restore {sec2:.1f} s with no fit "
+          f"launch and 0 synopsis-cache misses (kernels {launched})")
     return summary
+
+
+def child_main(args) -> int:
+    """The second processes of phase T (`--child tuned`: the main path's
+    store under a tuned cache) and path H (`--child restore`: the saved
+    store loaded and queried); each writes its answers to `--out` and prints
+    one JSON line."""
+    import torch
+    torch_rt = runtime(torch)
+    ops, tune = torch_rt["ops"], torch_rt["autotune"]
+    if args.child == "tuned":
+        tune.use_cache(args.cache)
+        store, specs, _, _ = build_store(args, torch_rt, torch_rt["query"])
+        rows = answer_rows(store.query(specs))
+        np.savez(args.out, **rows)
+        reg = torch_rt["obs"].get_registry()
+        print(json.dumps({"sweeps": reg.sum_counter("autotune.sweeps"),
+                          "hits": reg.sum_counter("autotune.cache.hits")}))
+        return 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = torch_rt["store"].TelemetryStore.load(args.snapshot)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(store.device.type == DEV
+          and all(getattr(s, "x", getattr(s, "w", None)).device.type == DEV
+                  for _k, _v, s in store.cache.entries()),
+          "path H child: the snapshot did not land on the card")
+    ranges = {c: (float(s.min()), float(s.max()))
+              for c, s in ((c, store.columns[c].sample()) for c in store.columns
+                           if c != "model_id")}
+    q = torch_rt["query"]
+    g_ctx = {"per_a": g_specs(torch_rt, ranges, 0.0), "per_b": g_specs(torch_rt, ranges, 0.1),
+             "gb": q.AqpQuery("avg", (q.Range("latency_ms", 0.0, 500.0),),
+                              target="latency_ms", group_by="model_id")}
+    rows, stats = restored_answers(torch, torch_rt, store, g_ctx)
+    store.add_batch(h_next_batch(args.seed))
+    rows.update({f"state/{k}": v for k, v in sample_state(store).items()})
+    np.savez(args.out, **rows)
+    print(json.dumps({"load_ms": load_ms, "stats": stats, "device": torch.cuda.get_device_name(0),
+                      "launches_total": ops.launch_counts()}))
+    return 0
 
 
 def all_range_bounds(torch, calls):
@@ -2529,28 +2926,43 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx, calls_e):
     return out
 
 
+def runtime(torch) -> dict:
+    """The port's modules, imported from this checkout's `src`."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import obs, synopses
+    from repro_torch.core import aqp, aqp_ci, aqp_multid, aqp_query, kde, lscv, plugin
+    from repro_torch.data import aqp_store
+    from repro_torch.kernels import (_build, _launch, aqp_batch, aqp_boxes, autotune,
+                                     lscv_grid, ops, pairwise_reduce, qmc_reduce, ref,
+                                     rff_eval)
+    from repro_torch.launch import serve
+    return {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
+            "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
+            "aqp_ci": aqp_ci, "aqp_batch": aqp_batch, "aqp_boxes": aqp_boxes,
+            "launch": _launch, "lscv_grid": lscv_grid, "rff_eval": rff_eval,
+            "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses, "obs": obs,
+            "serve": serve, "qmc_reduce": qmc_reduce, "autotune": autotune,
+            "build": _build}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--child", choices=["tuned", "restore"], default=None,
+                    help="run as phase T's or path H's second process")
+    ap.add_argument("--cache", help="--child tuned: the tile cache to load")
+    ap.add_argument("--snapshot", help="--child restore: the snapshot directory")
+    ap.add_argument("--out", help="--child: where to write its answers (npz)")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import obs, synopses
-    from repro_torch.core import aqp, aqp_ci, aqp_multid, aqp_query, kde, lscv, plugin
-    from repro_torch.data import aqp_store
-    from repro_torch.kernels import (_build, _launch, aqp_batch, aqp_boxes, lscv_grid, ops,
-                                     pairwise_reduce, qmc_reduce, ref, rff_eval)
-    from repro_torch.launch import serve
-    rt = {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
-          "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
-          "aqp_ci": aqp_ci, "aqp_batch": aqp_batch, "aqp_boxes": aqp_boxes,
-          "launch": _launch, "lscv_grid": lscv_grid, "rff_eval": rff_eval,
-          "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses, "obs": obs,
-          "serve": serve, "qmc_reduce": qmc_reduce}
+    if args.child:
+        return child_main(args)
+    rt = runtime(torch)
+    _build = rt["build"]
     t_start = time.perf_counter()
 
     card = card_line()
@@ -2558,7 +2970,7 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s ({', '.join(_build.SOURCES.values())})")
 
-    store, specs, gspecs, stream = build_store(args, rt, aqp_query)
+    store, specs, gspecs, stream = build_store(args, rt, rt["query"])
     counts = {}
     counts["plugin"], calls_main = main_path(torch, rt, store, specs, stream)
     counts["A"], calls_a = path_a(torch, rt, store, specs, stream)
@@ -2575,10 +2987,21 @@ def main() -> int:
           f"set-up); through path F: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"path_f": summary_f}))
     t_g = time.perf_counter()
-    summary_g = path_g(torch, rt, args, stream, calls_main, calls_c, calls_d, calls_dx)
+    summary_g, g_ctx = path_g(torch, rt, args, stream, calls_main, calls_c, calls_d, calls_dx)
     print(f"path G: {time.perf_counter() - t_g:.1f} s in all ({summary_g['setup_s']:.2f} s "
           f"set-up); through path G: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"path_g": summary_g}))
+    t_t = time.perf_counter()
+    summary_t = phase_t(torch, rt, args, store, specs, stream, g_ctx)
+    print(f"phase T: {time.perf_counter() - t_t:.1f} s; through phase T: "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_t": summary_t}))
+    t_h = time.perf_counter()
+    summary_h = path_h(torch, rt, args, g_ctx)
+    del g_ctx
+    print(f"path H: {time.perf_counter() - t_h:.1f} s; through path H: "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"path_h": summary_h}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))

@@ -670,7 +670,7 @@ class AqpSession:
             with obs.span("admission.fit", key=colkey, selector=sel,
                           tier=tier, session=session.sid):
                 resolver.plan_for((colkey, sel, tier), version)
-        except Exception:        # the flush below raises it into the futures
+        except BaseException:    # the flush below raises it into the futures
             pass
         finally:
             with session._lock:
@@ -712,7 +712,7 @@ class AqpSession:
                 results = self.engine.run_compiled(
                     compiled, selector=self.selector, backend=self.backend,
                     tier=key[2])
-            except Exception as exc:            # surface through the futures
+            except BaseException as exc:        # surface through the futures
                 error = exc
         if obs.enabled():
             self.metrics.histogram("aqp.admission.flush_us",

@@ -25,10 +25,12 @@ session's counters, which `stats()["admission"]` sums.  `subscribe` tells
 listeners (admission sessions) the reservoir versions each `add_batch`
 bumped, and `session` opens an `AqpSession` over the store's shared engine.
 
-Not ported yet, raising NotImplementedError when asked for: checkpoints
-(ROADMAP queue 1.12: `to_state`, and the `state()` of the reservoirs and
-sketches; `repro_torch.convert.store_from_state` reads a reference
-snapshot).
+The store is durable in the reference's format: `to_state` / `from_state`
+round-trip every reservoir (buffer, stream counters, version, RNG state),
+every sketch, the joints with their backfill flags, the fitted synopses of
+each backend, the shared engines' plan keys and the metrics; `save` /
+`load` put that behind the atomic keep-k `repro_torch.checkpoint.
+CheckpointManager`.  Either package loads the other's snapshots.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch import obs
 from repro_torch.core.aqp import KDESynopsis, Query, canonical_selector
@@ -51,8 +54,10 @@ from repro_torch.device import DeviceLike, resolve_backend, resolve_device
 ColumnKey = Union[str, Tuple[str, ...]]
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue {item})")
+STATE_FORMAT = 1     # the reference's; bump on incompatible to_state layouts
+
+# backend names of the reference's plan entries, read as the port's
+_BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda", "torch": "torch", "cuda": "cuda"}
 
 
 class Reservoir:
@@ -102,9 +107,18 @@ class Reservoir:
     def sample(self) -> np.ndarray:
         return self.buf[: self.n_filled].copy()
 
+    def state(self) -> Tuple[np.ndarray, Dict[str, object]]:
+        """(retained buffer, JSON-safe metadata) for a snapshot.  The RNG
+        bit-generator state rides along, so a restored reservoir accepts
+        later rows bit-identically to the never-snapshotted one."""
+        meta = {"n_seen": int(self.n_seen), "n_filled": int(self.n_filled),
+                "version": int(self.version),
+                "rng": self.rng.bit_generator.state}
+        return self.buf[: self.n_filled].copy(), meta
+
     def load_state(self, buf: np.ndarray, meta: Dict[str, object]) -> None:
-        """Load the reference's `Reservoir.state()` (buffer, counters,
-        version and RNG bit-generator state)."""
+        """Load a `state()` of either package (buffer, counters, version and
+        RNG bit-generator state)."""
         n_filled = int(meta["n_filled"])
         if n_filled > self.capacity or buf.shape[0] != n_filled:
             raise ValueError(f"reservoir state has {buf.shape[0]} rows for "
@@ -180,6 +194,11 @@ class MultiReservoir(Reservoir):
         out = super().merge(other)
         out.backfilled = self.backfilled or other.backfilled   # sticky
         return out
+
+    def state(self) -> Tuple[np.ndarray, Dict[str, object]]:
+        buf, meta = super().state()
+        meta["backfilled"] = bool(self.backfilled)
+        return buf, meta
 
     def load_state(self, buf: np.ndarray, meta: Dict[str, object]) -> None:
         super().load_state(buf, meta)
@@ -319,11 +338,36 @@ class TieredReservoir:
         out.strata_overflow = self.strata_overflow or other.strata_overflow
         return out
 
+    def state(self) -> Tuple[Dict[str, np.ndarray], Dict[str, object]]:
+        """(arrays, JSON-safe metadata) for a snapshot: every tier and
+        stratum with its RNG state, so a restored ladder accepts later rows
+        bit-identically to the never-snapshotted one."""
+        arrays: Dict[str, np.ndarray] = {}
+        tier_meta = []
+        for i, tier in enumerate(self.tiers):
+            buf, m = tier.state()
+            arrays[f"tier{i}/buf"] = buf
+            tier_meta.append(m)
+        strata_meta = []
+        for j, code in enumerate(sorted(self.strata)):
+            buf, m = self.strata[code].state()
+            arrays[f"strata/{j}/buf"] = buf
+            strata_meta.append({"code": float(code), "meta": m})
+        meta = {"kind": "tiered", "n_tiers": int(self.n_tiers),
+                "capacity": int(self.capacity), "seed": int(self.seed),
+                "columns": list(self.columns) if self.columns else None,
+                "strat_column": self.strat_column,
+                "strata_capacity": int(self.strata_capacity),
+                "max_strata": int(self.max_strata),
+                "strata_overflow": bool(self.strata_overflow),
+                "tiers": tier_meta, "strata": strata_meta}
+        return arrays, meta
+
     @classmethod
     def from_state(cls, arrays: Dict[str, np.ndarray],
                    meta: Dict[str, object]) -> "TieredReservoir":
-        """Load the reference's `TieredReservoir.state()`: every tier and
-        stratum with its RNG state."""
+        """Load a `state()` of either package: every tier and stratum with
+        its RNG state."""
         cols = meta.get("columns")
         out = cls(capacity=int(meta["capacity"]), n_tiers=int(meta["n_tiers"]),
                   seed=int(meta["seed"]), columns=tuple(cols) if cols else None,
@@ -388,10 +432,22 @@ class CategoricalSketch:
                 sm += code * k
         return cnt, sm
 
+    def state(self) -> Tuple[Dict[str, np.ndarray], Dict[str, object]]:
+        """(arrays, JSON-safe metadata) for a snapshot."""
+        # items(), not keys rebuilt from a float32 array: a NaN code is a
+        # legal dict key that can never be looked up again (nan != nan)
+        items = list(self.counts.items())
+        codes = np.asarray([c for c, _ in items], np.float32)
+        counts = np.asarray([k for _, k in items], np.int64)
+        meta = {"kind": "exact", "n_rows": int(self.n_rows),
+                "max_codes": int(self.max_codes),
+                "overflowed": bool(self.overflowed)}
+        return {"codes": codes, "counts": counts}, meta
+
     @classmethod
     def from_state(cls, arrays: Dict[str, np.ndarray],
                    meta: Dict[str, object]) -> "CategoricalSketch":
-        """Load the reference's `CategoricalSketch.state()`."""
+        """Load a `state()` of either package."""
         out = cls(max_codes=int(meta["max_codes"]))
         out.n_rows = int(meta["n_rows"])
         out.overflowed = bool(meta["overflowed"])
@@ -634,10 +690,27 @@ class CountMinSketch:
                 "off_grid": self.off_grid, "saturated": self.saturated,
                 "err_bound": self.err_bound()}
 
+    def state(self) -> Tuple[Dict[str, np.ndarray], Dict[str, object]]:
+        """(arrays, JSON-safe metadata) for a snapshot."""
+        meta = {"kind": "cm", "n_rows": int(self.n_rows),
+                "width": int(self.width), "depth": int(self.depth),
+                "seed": int(self.seed),
+                "conservative": bool(self.conservative),
+                "grid_step": float(self.grid_step),
+                "grid_origin": float(self.grid_origin),
+                "off_grid": bool(self.off_grid),
+                "saturated": int(self.saturated),
+                "max_enumerate": int(self.max_enumerate)}
+        # the hash parameters are stored, not derived again on load: numpy
+        # does not promise Generator streams across versions, and a table
+        # read through other hashes is silently wrong
+        return {"table": self.table.copy(), "mul": self._mul.copy(),
+                "add": self._add.copy()}, meta
+
     @classmethod
     def from_state(cls, arrays: Dict[str, np.ndarray],
                    meta: Dict[str, object]) -> "CountMinSketch":
-        """Load the reference's `CountMinSketch.state()`: its stored hash
+        """Load a `state()` of either package: its stored hash
         parameters, and int64 tables of older snapshots clipped to the
         uint32 cap as saturations."""
         out = cls(int(meta["width"]), int(meta["depth"]), int(meta["seed"]),
@@ -948,9 +1021,6 @@ class TelemetryStore:
             self._sessions = [r for r in self._sessions if r() is not None]
             self._sessions.append(weakref.ref(session))
 
-    def to_state(self) -> None:
-        raise _not_ported("store checkpoints", "1.12")
-
     def add_batch(self, stats: Dict[str, np.ndarray]) -> None:
         # joint rows are built before any reservoir changes: a ragged batch
         # fails without leaving the per-column reservoirs ahead of the joints
@@ -1173,3 +1243,252 @@ class TelemetryStore:
                     # deep copy: later updates of a source must not leak in
                     dest[name] = copy.deepcopy(mine.get(name) or theirs[name])
         return out
+
+    # -- durability ----------------------------------------------------------
+    #
+    # `to_state` / `from_state` round-trip the store's whole mutable state in
+    # the reference's format; `save` / `load` put it behind the atomic keep-k
+    # `CheckpointManager`.  The fitted synopses ride along, so a warm-started
+    # store skips the bandwidth fits, the step the paper's premise says is
+    # worth not repeating.
+
+    def to_state(self) -> Tuple[Dict[str, np.ndarray], Dict[str, object]]:
+        """(flat numpy arrays, JSON-safe metadata), taken under the store's
+        write lock: a snapshot racing `add_batch` sees whole batches only, so
+        a stored sketch never claims rows its reservoir has not seen.
+
+        Each cache entry carries, beside the reference's fields, the backend
+        that fitted it (`"backend"`), and each plan entry its own; the
+        reference ignores both.  Loaded by the reference, the "torch" and
+        "cuda" entries of one (column, selector, version) fall on one key of
+        its cache and the last one wins, so the "torch" entries, the port's
+        plain path like the reference's own fits, are written last."""
+        with self._write_lock:
+            tree: Dict[str, np.ndarray] = {}
+            meta: Dict[str, object] = {
+                "format": STATE_FORMAT, "capacity": int(self.capacity),
+                "seed": int(self.seed), "columns": {}, "joints": [],
+                "categoricals": {}, "cache": [],
+            }
+            for name in list(self.columns) + list(self.categoricals):
+                if "/" in name:
+                    raise ValueError(f"column name {name!r} contains '/', "
+                                     f"which state keys reserve as a "
+                                     f"separator")
+            for name, res in self.columns.items():
+                if isinstance(res, TieredReservoir):
+                    arrays, m = res.state()
+                    for k, arr in arrays.items():
+                        tree[f"columns/{name}/{k}"] = arr
+                else:
+                    buf, m = res.state()
+                    tree[f"columns/{name}/buf"] = buf
+                meta["columns"][name] = m
+            for i, (cols, res) in enumerate(self.joints.items()):
+                if isinstance(res, TieredReservoir):
+                    arrays, m = res.state()
+                    for k, arr in arrays.items():
+                        tree[f"joints/{i}/{k}"] = arr
+                else:
+                    buf, m = res.state()
+                    tree[f"joints/{i}/buf"] = buf
+                m["columns"] = list(cols)
+                meta["joints"].append(m)
+            for name, sketch in self.categoricals.items():
+                arrays, m = sketch.state()
+                for k, arr in arrays.items():
+                    tree[f"categoricals/{name}/{k}"] = arr
+                meta["categoricals"][name] = m
+            entries = sorted(self.cache.entries(), key=lambda e: e[0][2] == "torch")
+            for i, ((col, sel, backend), version, syn) in enumerate(entries):
+                ent = {
+                    "column": list(col) if isinstance(col, tuple) else col,
+                    "is_tuple": isinstance(col, tuple), "selector": sel,
+                    "version": int(version), "n_source": int(syn.n_source),
+                    "syn_selector": syn.selector, "backend": backend,
+                }
+                if isinstance(syn, KDESynopsis):
+                    for k in ("x", "h", "H"):
+                        t = getattr(syn, k)
+                        if t is not None:
+                            tree[f"cache/{i}/{k}"] = t.detach().cpu().numpy()
+                else:
+                    # a density backend (the RFF synopsis) stores itself; the
+                    # backend name in its meta picks the loader on restore
+                    arrays, syn_meta = syn.to_state()
+                    ent["synopsis"] = syn_meta
+                    for k, arr in arrays.items():
+                        tree[f"cache/{i}/{k}"] = np.asarray(arr)
+                meta["cache"].append(ent)
+            # the shared engines' plan keys ride along: plans rebuild from the
+            # stored synopses on restore, so a warm start skips planning too
+            meta["plans"] = []
+            for (sel_eng, backend), eng in self._engines.items():
+                plans = []
+                for ((col, sel, tier), pbackend), version in eng.plans.entries():
+                    plans.append({
+                        "column": list(col) if isinstance(col, tuple) else col,
+                        "is_tuple": isinstance(col, tuple), "selector": sel,
+                        "tier": tier, "version": int(version), "backend": pbackend})
+                if plans:
+                    meta["plans"].append({"selector": sel_eng, "backend": backend,
+                                          "entries": plans})
+            # the registry rides in the manifest, so cumulative counters
+            # (ingest rows, admission totals) survive a restart
+            meta["metrics"] = self.metrics.state()
+            return tree, meta
+
+    def restore_state(self, tree: Dict[str, np.ndarray],
+                      meta: Dict[str, object]) -> None:
+        """Swap this store's contents for a snapshot's (either package's), in
+        place, its synopses on the store's device.  A cache entry without a
+        `"backend"` (every reference snapshot's: the reference fits on its
+        plain path) is filed under "torch", and each backend serves only its
+        own fits: a restored "cuda" fit is served as it is, with no refit.
+        Plans are primed from the restored synopses of their own backend,
+        not through `SynopsisCache.get`, so a warm start counts no cache
+        miss.  The restored versions go to the `subscribe` listeners, so
+        admission sessions re-key their pending buckets."""
+        from repro_torch.core.aqp_query import _make_plan
+        from repro_torch.synopses import get_backend
+
+        if int(meta.get("format", -1)) != STATE_FORMAT:
+            raise ValueError(f"unsupported store-state format "
+                             f"{meta.get('format')!r} (want {STATE_FORMAT})")
+
+        def subtree(prefix: str) -> Dict[str, np.ndarray]:
+            return {k[len(prefix):]: v for k, v in tree.items() if k.startswith(prefix)}
+
+        def tensor(a):
+            return None if a is None else torch.tensor(
+                np.asarray(a, np.float32), dtype=torch.float32, device=self.device)
+
+        with self._write_lock:
+            self.capacity = int(meta["capacity"])
+            columns: Dict[str, Reservoir] = {}
+            for name, m in meta["columns"].items():
+                if m.get("kind") == "tiered":
+                    columns[name] = TieredReservoir.from_state(
+                        subtree(f"columns/{name}/"), m)
+                    continue
+                res = Reservoir(self.capacity, seed=self._col_seed(name))
+                res.load_state(tree[f"columns/{name}/buf"], m)
+                columns[name] = res
+            joints: Dict[Tuple[str, ...], MultiReservoir] = {}
+            for i, m in enumerate(meta["joints"]):
+                cols = tuple(m["columns"])
+                if m.get("kind") == "tiered":
+                    joints[cols] = TieredReservoir.from_state(subtree(f"joints/{i}/"), m)
+                    continue
+                res = MultiReservoir(cols, self.capacity,
+                                     seed=self._col_seed("|".join(cols)))
+                res.load_state(tree[f"joints/{i}/buf"], m)
+                joints[cols] = res
+            categoricals: Dict[str, object] = {}
+            for name, m in meta["categoricals"].items():
+                sketch = _SKETCH_KINDS[str(m["kind"])].from_state(
+                    subtree(f"categoricals/{name}/"), m)
+                res = columns.get(name)
+                if res is not None and sketch.n_rows > res.n_seen:
+                    # the coverage invariant: this would claim exact coverage
+                    # of rows the store never sampled
+                    raise ValueError(
+                        f"inconsistent snapshot: sketch for {name!r} has seen "
+                        f"{sketch.n_rows} rows but its reservoir only {res.n_seen}")
+                categoricals[name] = sketch
+            self.columns = columns
+            self.joints = joints
+            self.categoricals = categoricals
+            self.cache.invalidate()
+            for i, ent in enumerate(meta["cache"]):
+                syn_meta = ent.get("synopsis")
+                if syn_meta is not None:
+                    syn = get_backend(str(syn_meta["backend"])).from_state(
+                        subtree(f"cache/{i}/"), syn_meta, device=self.device)
+                    syn.n_source = int(ent["n_source"])
+                    syn.selector = str(ent["syn_selector"])
+                else:
+                    syn = KDESynopsis(x=tensor(tree[f"cache/{i}/x"]),
+                                      h=tensor(tree.get(f"cache/{i}/h")),
+                                      H=tensor(tree.get(f"cache/{i}/H")),
+                                      n_source=int(ent["n_source"]),
+                                      selector=str(ent["syn_selector"]))
+                col = tuple(ent["column"]) if ent["is_tuple"] else ent["column"]
+                self.cache.put(col, str(ent["selector"]), int(ent["version"]), syn,
+                               backend=_BACKEND_NAMES[str(ent.get("backend", "torch"))])
+            self._engines = {}
+            index = {key: (v, syn) for key, v, syn in self.cache.entries()}
+            for peng in meta.get("plans") or ():
+                engine_backend = _BACKEND_NAMES[str(peng["backend"])]
+                eng = self.shared_engine(str(peng["selector"]), engine_backend)
+                for ent in peng["entries"]:
+                    col = tuple(ent["column"]) if ent["is_tuple"] else ent["column"]
+                    tier = None if ent["tier"] is None else int(ent["tier"])
+                    sel = str(ent["selector"])
+                    backend = _BACKEND_NAMES[str(ent.get("backend", engine_backend))]
+                    hit = index.get((_tier_key(col, tier), sel, backend))
+                    if hit is not None and hit[0] == int(ent["version"]):
+                        eng.plans.put(((col, sel, tier), backend), int(ent["version"]),
+                                      _make_plan(hit[1]))
+            # optional: snapshots without metrics restore too; the gauges
+            # mirrored from live structures refresh on their next change
+            if meta.get("metrics"):
+                self.metrics.load_state(meta["metrics"])
+            if self._listeners:
+                bumped: Dict[ColumnKey, int] = {
+                    name: res.version for name, res in self.columns.items()}
+                for cols, res in self.joints.items():
+                    bumped[cols] = res.version
+                for fn in list(self._listeners):
+                    fn(bumped)
+
+    @classmethod
+    def from_state(cls, tree: Dict[str, np.ndarray], meta: Dict[str, object],
+                   cache_entries: int = 128, cache_bytes: Optional[int] = None,
+                   device: DeviceLike = None) -> "TelemetryStore":
+        """A store on `device` (default: the CUDA device) from a `to_state`
+        snapshot of either package."""
+        store = cls(capacity=int(meta["capacity"]), seed=int(meta["seed"]),
+                    cache_entries=cache_entries, cache_bytes=cache_bytes,
+                    device=device)
+        store.restore_state(tree, meta)
+        return store
+
+    def save(self, path: str, step: Optional[int] = None, keep: int = 3) -> int:
+        """Write an atomic snapshot under `path` through the keep-k
+        `CheckpointManager` (a crash mid-write never corrupts the latest
+        completed snapshot); returns the step written, one past the latest
+        when `step` is None.  Records `aqp.snapshot.us`."""
+        from repro_torch.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(path, keep=keep, async_save=False)
+        if step is None:
+            latest = mgr.latest_step()
+            step = 1 if latest is None else latest + 1
+        t0 = time.perf_counter()
+        tree, meta = self.to_state()
+        mgr.save(step, tree, extra=meta)
+        self.metrics.histogram("aqp.snapshot.us").observe(
+            (time.perf_counter() - t0) * 1e6)
+        return step
+
+    @classmethod
+    def load(cls, path: str, step: Optional[int] = None, device: DeviceLike = None,
+             cache_entries: int = 128,
+             cache_bytes: Optional[int] = None) -> "TelemetryStore":
+        """Warm-start a store on `device` (default: the CUDA device) from the
+        latest (or the given) snapshot under `path`, written by either
+        package: reservoir samples and RNG states (later sampling is
+        bit-identical to an uninterrupted store's), versions, joints and
+        their backfill flags, sketch coverage, the fitted synopses of each
+        backend, the shared engines' plans and the metrics."""
+        from repro_torch.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(path, async_save=False)
+        if step is None:
+            step = mgr.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no completed snapshots under {path!r}")
+        tree, meta = mgr.restore_flat(step)
+        return cls.from_state(tree, meta, cache_entries=cache_entries,
+                              cache_bytes=cache_bytes, device=device)

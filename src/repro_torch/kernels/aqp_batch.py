@@ -15,7 +15,7 @@ from ._launch import GRID_Y_MAX, LaunchCounter, check_tensor, fixed_range, ptr, 
 
 TILE = 4096         # most sample points per block (a range, split over 32 lanes)
 Q_TILE = 32         # queries per block: kRows (4) per warp x kWarps (8)
-RANGES = 160        # point ranges n is cut into (224 points each at n = 32 768)
+RANGES = 160        # point ranges n is cut into by default (224 points each at n = 32 768)
 
 
 launches = LaunchCounter("aqp_batch_sums")
@@ -32,12 +32,14 @@ def _fn():
 
 
 def aqp_batch_moments(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
-                      b: torch.Tensor, tile: int) -> torch.Tensor:
+                      b: torch.Tensor, tile: int, ranges: int) -> torch.Tensor:
     """(5, q) float32: per query the sums over the sample of c (eq. 9's term)
     and s (eq. 10's) as (sum c, sum s, sum c^2, sum s^2, sum c s).  x: (n,),
     h: one element, a/b: (q,), all float32 on one CUDA device; tile: the
-    most points per block, a multiple of 32.  The point ranges come from n
-    alone, so a query's sums are the same bits in any batch.  n == 0 or
+    most points per block, a multiple of 32; ranges: how many point ranges
+    n is cut into at most (`fixed_range`).  The point ranges come from n,
+    `tile` and `ranges` alone, so a query's sums are the same bits in any
+    batch.  n == 0 or
     q == 0 gives zeros and launches nothing."""
     check_tensor(x, "x", torch.float32, (None,))
     check_tensor(h.reshape(1), "h", torch.float32, (1,), x.device)
@@ -46,10 +48,13 @@ def aqp_batch_moments(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
     tile = int(tile)
     if tile < 32 or tile % 32:
         raise ValueError(f"tile={tile} must be a positive multiple of 32")
+    ranges = int(ranges)
+    if ranges < 1:
+        raise ValueError(f"ranges={ranges} must be positive")
     n, q = x.shape[0], a.shape[0]
     if n == 0 or q == 0:
         return torch.zeros((5, q), dtype=torch.float32, device=x.device)
-    pts = fixed_range(n, RANGES, 32, tile)
+    pts = fixed_range(n, ranges, 32, tile)
     n_ranges = -(-n // pts)
     if n_ranges > GRID_Y_MAX:
         raise ValueError(f"n={n} needs {n_ranges} ranges of {pts}; raise the tile")
@@ -65,8 +70,8 @@ def aqp_batch_moments(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
 
 
 def aqp_batch_sums(x: torch.Tensor, h: torch.Tensor, a: torch.Tensor,
-                   b: torch.Tensor, tile: int):
+                   b: torch.Tensor, tile: int, ranges: int):
     """(count_raw, sum_raw), each (q,) float32: the first two rows of
     `aqp_batch_moments`'s launch."""
-    five = aqp_batch_moments(x, h, a, b, tile=tile)
+    five = aqp_batch_moments(x, h, a, b, tile=tile, ranges=ranges)
     return five[0], five[1]

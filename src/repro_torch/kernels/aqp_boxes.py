@@ -15,7 +15,7 @@ from ._launch import GRID_Y_MAX, LaunchCounter, check_tensor, fixed_range, ptr, 
 
 TILE = 4096         # most sample rows per block (a range, split over 32 lanes)
 Q_TILE = 32         # boxes per block: kRows (4) per warp x kWarps (8)
-RANGES = 64         # row ranges n is cut into (512 rows each at n = 32 768)
+RANGES = 64         # row ranges n is cut into by default (512 rows each at n = 32 768)
 MAX_D = 8           # the kernel is instantiated for d = 1..8
 
 
@@ -34,15 +34,17 @@ def _fn():
 
 
 def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
-                    hi: torch.Tensor, tgt: torch.Tensor, tile: int) -> torch.Tensor:
+                    hi: torch.Tensor, tgt: torch.Tensor, tile: int,
+                    ranges: int) -> torch.Tensor:
     """(5, q) float32: per box the sums over the sample rows of c (eq. 11's
     product) and s (the product with the SUM factor on the target axis) as
     (sum c, sum s, sum c^2, sum s^2, sum c s).  x: (n, d) float32, h_diag:
     (d,) float32, lo/hi: (q, d) float32, tgt: (q,) int32 in [0, d) (another
     target gives NaN in the rows that hold s), all on one CUDA device;
-    1 <= d <= 8; tile: the most rows per block, a multiple of 32.  The row
-    ranges come from n alone, so a box's sums are the same bits in any
-    batch.  n == 0 or q == 0 gives zeros and launches nothing."""
+    1 <= d <= 8; tile: the most rows per block, a multiple of 32; ranges:
+    how many row ranges n is cut into at most (`fixed_range`).  The row
+    ranges come from n, `tile` and `ranges` alone, so a box's sums are the
+    same bits in any batch.  n == 0 or q == 0 gives zeros and launches nothing."""
     check_tensor(x, "x", torch.float32, (None, None))
     n, d = x.shape
     if not 1 <= d <= MAX_D:
@@ -55,9 +57,12 @@ def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     tile = int(tile)
     if tile < 32 or tile % 32:
         raise ValueError(f"tile={tile} must be a positive multiple of 32")
+    ranges = int(ranges)
+    if ranges < 1:
+        raise ValueError(f"ranges={ranges} must be positive")
     if n == 0 or q == 0:
         return torch.zeros((5, q), dtype=torch.float32, device=x.device)
-    rows = fixed_range(n, RANGES, 32, tile)
+    rows = fixed_range(n, ranges, 32, tile)
     n_ranges = -(-n // rows)
     if n_ranges > GRID_Y_MAX:
         raise ValueError(f"n={n} needs {n_ranges} ranges of {rows}; raise the tile")
@@ -73,8 +78,8 @@ def aqp_box_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
 
 
 def aqp_box_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
-                 hi: torch.Tensor, tgt: torch.Tensor, tile: int):
+                 hi: torch.Tensor, tgt: torch.Tensor, tile: int, ranges: int):
     """(count_raw, sum_raw), each (q,) float32: the first two rows of
     `aqp_box_moments`'s launch."""
-    five = aqp_box_moments(x, h_diag, lo, hi, tgt, tile=tile)
+    five = aqp_box_moments(x, h_diag, lo, hi, tgt, tile=tile, ranges=ranges)
     return five[0], five[1]

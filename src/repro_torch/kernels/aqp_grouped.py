@@ -21,7 +21,7 @@ SUB = 32            # rows per shared-memory sub-chunk (kSub in the source)
 FAM_TILE = 32       # families per tile (kFamTile in the source)
 G_TILE = 64         # categories per block (kCatTile in the source)
 MAX_D = 8           # the kernel is instantiated for d = 1..8
-RANGES = 128        # row ranges n is cut into (256 rows each at n = 32 768)
+RANGES = 128        # row ranges n is cut into by default (256 rows each at n = 32 768)
 
 
 launches = LaunchCounter("aqp_grouped_sums")
@@ -82,7 +82,7 @@ def _family_table(win: tuple, g_axis: tuple, tgt: tuple, n_tables: int, d: int):
 def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
                         hi: torch.Tensor, wlo: torch.Tensor, whi: torch.Tensor,
                         win: Sequence[int], g_axis: Sequence[int],
-                        tgt: Sequence[int], tile: int) -> torch.Tensor:
+                        tgt: Sequence[int], tile: int, ranges: int) -> torch.Tensor:
     """(F, 5, Gmax) float32: for family f and category g, the sums over the
     sample rows of c = shared_cnt * gPhi and s (the SUM term) as (sum c,
     sum s, sum c^2, sum s^2, sum c s).  x: (n, d) float32 with 1 <= d <= 8,
@@ -90,8 +90,10 @@ def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     entries ignored), wlo/whi: (W, Gmax) window tables (padded rows give
     values nobody reads), all on one CUDA device; win, g_axis, tgt: F host
     ints (family f's window table, group axis and target axis, each in
-    range).  The row ranges come from n alone, so a family's sums are the
-    same bits whatever other families share the launch.  n, F or Gmax == 0
+    range); tile: the most rows per block (at least SUB); ranges: how many
+    row ranges n is cut into at most (`fixed_range`).  The row ranges come
+    from n, `tile` and `ranges` alone, so a family's sums are the same bits
+    whatever other families share the launch.  n, F or Gmax == 0
     gives zeros and launches nothing."""
     check_tensor(x, "x", torch.float32, (None, None))
     n, d = x.shape
@@ -115,7 +117,10 @@ def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     k = int(tile)
     if k < SUB:
         raise ValueError(f"tile={k} must be at least {SUB}")
-    rows = fixed_range(n, RANGES, SUB, k)
+    ranges = int(ranges)
+    if ranges < 1:
+        raise ValueError(f"ranges={ranges} must be positive")
+    rows = fixed_range(n, ranges, SUB, k)
     # pinned, so the copy does not wait for the card's earlier work
     table = host.to(x.device, non_blocking=True)
     n_tab = 5 * n_tiles
@@ -134,7 +139,7 @@ def aqp_grouped_moments(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
 
 def aqp_grouped_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor, glo: torch.Tensor, ghi: torch.Tensor,
-                     g_axis: int, tgt: int, tile: int):
+                     g_axis: int, tgt: int, tile: int, ranges: int):
     """(count_raw, sum_raw), each (G,) float32, of one family: the launch of
     `aqp_grouped_moments` with F = 1.  x: (n, d) float32 with 1 <= d <= 8,
     h_diag/lo/hi: (d,) float32 (the group axis's entries of lo/hi are
@@ -143,5 +148,6 @@ def aqp_grouped_sums(x: torch.Tensor, h_diag: torch.Tensor, lo: torch.Tensor,
     check_tensor(lo, "lo", torch.float32, (None,))
     check_tensor(glo, "glo", torch.float32, (None,))
     five = aqp_grouped_moments(x, h_diag, lo[None], hi[None], glo[None],
-                               ghi[None], [0], [g_axis], [tgt], tile=tile)
+                               ghi[None], [0], [g_axis], [tgt], tile=tile,
+                               ranges=ranges)
     return five[0, 0], five[0, 1]

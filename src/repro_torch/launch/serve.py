@@ -26,8 +26,18 @@ merged JSON snapshot of the store and kernel registries every
 checks it) and prints an end-of-run summary table; `--trace-out FILE`
 appends the span ring as JSON lines on exit.
 
-`--snapshot-dir` / `--restore` (store snapshots) wait for ROADMAP queue
-1.12 and raise.
+The loop is restartable: `--snapshot-dir DIR` writes an atomic keep-3
+store snapshot (reservoirs and their RNG states, sketches, fitted
+synopses, plans, metrics) at start-up and every `--snapshot-every`
+streamed batches, and `--restore` warm-starts from the latest one instead
+of seeding a new store: no refit, and the exact categorical path stays on.
+
+    python -m repro_torch.launch.serve --mode aqp --snapshot-dir /tmp/aqp-snap
+    python -m repro_torch.launch.serve --mode aqp --snapshot-dir /tmp/aqp-snap --restore
+
+`--tuning-cache FILE` loads (and persists sweeps to) a tile cache of
+`repro_torch.kernels.autotune`, e.g. one written by
+`python -m repro_torch.launch.autotune --cache FILE`.
 """
 from __future__ import annotations
 
@@ -186,12 +196,10 @@ def run_aqp(args) -> dict:
 
     from repro_torch import obs
     from repro_torch.core.aqp_query import AqpQuery, Range
-    from repro_torch.data.aqp_store import TelemetryStore, _not_ported
+    from repro_torch.data.aqp_store import TelemetryStore
     from repro_torch.device import resolve_backend, resolve_device
+    from repro_torch.kernels import autotune
 
-    if args.snapshot_dir or args.restore:
-        raise _not_ported("serving from store snapshots (--snapshot-dir, --restore)",
-                          "1.12")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
@@ -200,23 +208,41 @@ def run_aqp(args) -> dict:
     if args.metrics_out or args.trace_out:
         # spans, fenced latency histograms and kernel profiling for this run
         obs.enable()
+    if args.tuning_cache:
+        autotune.use_cache(args.tuning_cache)
 
     rng = np.random.default_rng(0)
     n = args.rows
     joint_cols = ("loss", "latency_ms")
-    telemetry = _make_telemetry(rng, n)
-    store = TelemetryStore(capacity=args.capacity, seed=0, device=device)
-    # tiered ladders (before add_batch, like joints): tier 0 serves the
-    # "coarse" priority class, the top tier is the full sample
-    store.track_tiered("loss", n_tiers=4)
-    store.track_tiered("latency_ms", n_tiers=4)
-    store.track_tiered(joint_cols, n_tiers=4)   # joints sample whole rows
-    store.track_categorical("model_id")  # exact per-code counts for Eq terms
-    store.add_batch(telemetry)
-    # registering after add_batch backfills from the per-column reservoirs
-    store.track_joint(("model_id", "latency_ms"))
-    # query-mix sampling ranges come from the reservoir samples, not the raw
-    # stream
+    restored_step = None
+    if args.restore:
+        if not args.snapshot_dir:
+            raise SystemExit("--restore needs --snapshot-dir")
+        from repro_torch.checkpoint import CheckpointManager
+        restored_step = CheckpointManager(args.snapshot_dir,
+                                          async_save=False).latest_step()
+        if restored_step is None:
+            raise SystemExit(f"--restore: no completed snapshots under "
+                             f"{args.snapshot_dir!r}")
+        # warm start: reservoirs, sketches (exact coverage intact), joint
+        # registrations and fitted synopses all come back from the snapshot
+        store = TelemetryStore.load(args.snapshot_dir, device=device)
+        n = max(res.n_seen for res in store.columns.values())
+    else:
+        telemetry = _make_telemetry(rng, n)
+        store = TelemetryStore(capacity=args.capacity, seed=0, device=device)
+        # tiered ladders (before add_batch, like joints): tier 0 serves the
+        # "coarse" priority class, the top tier is the full sample
+        store.track_tiered("loss", n_tiers=4)
+        store.track_tiered("latency_ms", n_tiers=4)
+        store.track_tiered(joint_cols, n_tiers=4)   # joints sample whole rows
+        store.track_categorical("model_id")  # exact per-code counts for Eq terms
+        store.add_batch(telemetry)
+        # registering after add_batch backfills from the per-column reservoirs
+        store.track_joint(("model_id", "latency_ms"))
+    # query-mix sampling ranges come from the reservoir samples (not the raw
+    # stream) on both paths, so a restarted process regenerates the same
+    # client query stream as the run that wrote the snapshot
     ranges = {c: (float(s.min()), float(s.max()))
               for c, s in ((c, store.columns[c].sample())
                            for c in store.columns if c != "model_id")}
@@ -251,6 +277,7 @@ def run_aqp(args) -> dict:
     stop_producer = threading.Event()
     stop_metrics = threading.Event()
     exports = [0]
+    snapshots = [0]
 
     def export_metrics() -> None:
         obs.export_json(args.metrics_out, store.metrics, obs.get_registry(),
@@ -265,6 +292,12 @@ def run_aqp(args) -> dict:
     if args.metrics_out:
         mthread = threading.Thread(target=metrics_writer, daemon=True)
         mthread.start()
+
+    if args.snapshot_dir and not args.restore:
+        # a restartable loop snapshots at start-up too: --restore works even
+        # if the process dies before the producer's first cadence tick
+        store.save(args.snapshot_dir)
+        snapshots[0] += 1
 
     def client(ci: int) -> None:
         specs = make_mixed_aqp_queries(
@@ -289,8 +322,13 @@ def run_aqp(args) -> dict:
         # keep streaming telemetry while queries are in flight: every batch
         # bumps reservoir versions, re-keying pending micro-batches
         prng = np.random.default_rng(1234)
+        batches = 0
         while not stop_producer.wait(args.stream_every_ms / 1e3):
             store.add_batch(_make_telemetry(prng, args.stream_rows))
+            batches += 1
+            if args.snapshot_dir and batches % args.snapshot_every == 0:
+                store.save(args.snapshot_dir)   # atomic keep-k, under the
+                snapshots[0] += 1               # store's write lock
 
     threads = [threading.Thread(target=client, args=(i,), daemon=True)
                for i in range(args.clients)]
@@ -332,6 +370,14 @@ def run_aqp(args) -> dict:
           f"concurrent clients over {len(store.columns)} columns "
           f"({n:,} seed rows) "
           f"in {dt * 1e3:.1f} ms -> {qps:,.0f} queries/s [{backend}]")
+    if restored_step is not None:
+        print(f"[serve:aqp] durability: warm-started from snapshot step "
+              f"{restored_step} ({args.snapshot_dir}) — no refit, sketch "
+              f"coverage intact")
+    if args.snapshot_dir:
+        print(f"[serve:aqp] durability: {snapshots[0]} snapshots written to "
+              f"{args.snapshot_dir} (every {args.snapshot_every} streamed "
+              f"batches, keep-3)")
     print(f"[serve:aqp] admission: {st['flushes']} flushes "
           f"(reasons: " + ", ".join(f"{k}={v}" for k, v
                                     in sorted(st['flush_reasons'].items()))
@@ -392,7 +438,9 @@ def run_aqp(args) -> dict:
     return {"queries": len(results), "seconds": dt, "qps": qps, "backend": backend,
             "device": str(device), "flushes": st["flushes"],
             "flush_reasons": st["flush_reasons"], "mean_batch": st["mean_batch"],
-            "invalidations": st["invalidations"], "paths": dict(paths)}
+            "invalidations": st["invalidations"], "paths": dict(paths),
+            "restored_step": restored_step, "snapshots": snapshots[0],
+            "cache": cs}
 
 
 def main(argv=None) -> None:
@@ -421,10 +469,17 @@ def main(argv=None) -> None:
                     help="rows per streamed telemetry batch")
     ap.add_argument("--capacity", type=int, default=2048)
     ap.add_argument("--snapshot-dir", default=None,
-                    help="store snapshots: not ported yet (ROADMAP queue 1.12)")
+                    help="write atomic keep-k store snapshots here (enables "
+                         "--restore on the next run)")
+    ap.add_argument("--snapshot-every", type=int, default=5,
+                    help="streamed producer batches between snapshots")
     ap.add_argument("--restore", action="store_true",
-                    help="warm start from a snapshot: not ported yet (ROADMAP "
-                         "queue 1.12)")
+                    help="warm-start from the latest snapshot in "
+                         "--snapshot-dir instead of seeding a new store "
+                         "(reservoirs, RNG states, sketches, fitted synopses)")
+    ap.add_argument("--tuning-cache", default=None,
+                    help="tile cache of repro_torch.kernels.autotune to load "
+                         "(and to persist sweeps to)")
     ap.add_argument("--coarse-frac", type=float, default=0.0,
                     help="fraction of client queries submitted with "
                          "priority='coarse' (answered from the smallest "
@@ -465,6 +520,8 @@ def main(argv=None) -> None:
         ap.error(f"--coarse-frac must be in [0, 1], got {args.coarse_frac}")
     if not 0.0 <= args.fullh_frac <= 1.0:
         ap.error(f"--fullh-frac must be in [0, 1], got {args.fullh_frac}")
+    if args.snapshot_every < 1:
+        ap.error(f"--snapshot-every must be >= 1, got {args.snapshot_every}")
     run_aqp(args)
 
 

@@ -817,3 +817,66 @@ def test_answers_with_obs_on_equal_obs_off(rng):
         if not was:
             obs.disable()
     assert [_key(r) for r in on] == [_key(r) for r in off]
+
+
+# --- a flush interrupted by a BaseException -------------------------------------
+
+def _interrupted_flushes(pkg, data):
+    """The engine's run_compiled raising KeyboardInterrupt: on a manual flush
+    of two tickets, on a fit-offload flush (the worker thread's re-flush),
+    and on a deadline flush by the flusher thread, which must then live on
+    and flush the next bucket once run_compiled answers again."""
+    q = PKGS[pkg][0]
+    store = _store(pkg, data, capacity=256)
+    engine = store.engine()
+    answer = engine.run_compiled
+
+    def interrupted(*args, **kwargs):
+        raise KeyboardInterrupt("flush interrupted")
+
+    def held(fut):
+        return fut.done() and isinstance(fut.exception(timeout=WAIT), KeyboardInterrupt)
+
+    engine.run_compiled = interrupted
+    out = {}
+    sess = _manual_session(engine)
+    futs = [sess.submit(q.AqpQuery("count", (q.Range("a", -1.0, 1.0),))),
+            sess.submit(q.AqpQuery("sum", (q.Range("b", -0.5, 2.0),), target="b"))]
+    try:                          # a flush that lets the interrupt out fails here,
+        sess.flush()              # not the whole test run
+        escaped = False
+    except KeyboardInterrupt:
+        escaped = True
+    out["manual"] = (escaped, [held(f) for f in futs], sess.pending, sess.stats()["flushes"])
+    sess.close()
+
+    sess = _manual_session(engine, max_delay=0.0, fit_offload=True)
+    fut = sess.submit(q.AqpQuery("count", (q.Box(("a", "b"), (-1.0, -1.0), (1.0, 1.0)),),
+                                 selector="lscv_H"))
+    polled = sess.poll()
+    exc = fut.exception(timeout=120)
+    out["offload"] = (polled, isinstance(exc, KeyboardInterrupt), sess.pending,
+                      sess.fit_requeued)
+    sess.close()
+
+    sess = engine.session(watermark=None, max_delay=0.01)
+    fut = sess.submit(q.AqpQuery("count", (q.Range("a", -1.0, 1.0),)))
+    first = isinstance(fut.exception(timeout=WAIT), KeyboardInterrupt)
+    engine.run_compiled = answer
+    alive = sess._thread.is_alive()
+    again = sess.submit(q.AqpQuery("count", (q.Range("a", -0.5, 0.5),))).result(timeout=WAIT)
+    out["flusher"] = (first, alive, sess._thread.is_alive(), again.path, sess.pending)
+    sess.close()
+    return out
+
+
+def test_interrupted_flush_leaves_no_future_pending(rng):
+    """A BaseException inside a flush lands in every ticket's future, in both
+    packages: nothing stays pending, the depth drops to 0, and the flusher
+    thread survives its interrupted flush."""
+    data = _data(rng, n=256)
+    ref, port = _interrupted_flushes("ref", data), _interrupted_flushes("port", data)
+    assert port == ref
+    assert port["manual"] == (False, [True, True], 0, 2)
+    assert port["offload"] == (0, True, 0, 1)
+    assert port["flusher"] == (True, True, True, "range1d", 0)

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from repro_torch.core.gaussian import phi_diff
-from repro_torch.kernels import _launch
+from repro_torch.kernels import _launch, autotune, ops
 from repro_torch.kernels import aqp_batch as tab
 from repro_torch.kernels import aqp_boxes as tabx
 from repro_torch.kernels import aqp_grouped as tagr
@@ -75,17 +75,53 @@ def test_range_cut_is_the_same_for_every_batch_size(faked_launch, n):
     for q in QS:
         a = torch.zeros(q)
         cuts["batch"].add(_cut(faked_launch, lambda: tab.aqp_batch_moments(
-            x1, torch.ones(1), a, a, tile=tab.TILE)))
+            x1, torch.ones(1), a, a, tile=tab.TILE, ranges=tab.RANGES)))
         lo = torch.zeros(q, 3)
         cuts["boxes"].add(_cut(faked_launch, lambda: tabx.aqp_box_moments(
-            xd, torch.ones(3), lo, lo, torch.zeros(q, dtype=torch.int32), tile=tabx.TILE)))
+            xd, torch.ones(3), lo, lo, torch.zeros(q, dtype=torch.int32), tile=tabx.TILE,
+            ranges=tabx.RANGES)))
         w = torch.zeros(1, 64)
         cuts["grouped"].add(_cut(faked_launch, lambda: tagr.aqp_grouped_moments(
             xd, torch.ones(3), lo, lo, w, w, [0] * q, [2] * q, [i % 3 for i in range(q)],
-            tile=tagr.TILE)))
+            tile=tagr.TILE, ranges=tagr.RANGES)))
     assert cuts == {"batch": {_launch.fixed_range(n, tab.RANGES, 32, tab.TILE)},
                     "boxes": {_launch.fixed_range(n, tabx.RANGES, 32, tabx.TILE)},
                     "grouped": {_launch.fixed_range(n, tagr.RANGES, tagr.SUB, tagr.TILE)}}
+
+
+@pytest.mark.parametrize("n", NS)
+def test_a_tuned_cut_stays_a_function_of_n(faked_launch, n):
+    """With tuned `ranges` in the tile cache, each recorded at one batch
+    size, the `ops` wrappers (on meta tensors, standing in for the card)
+    cut the sample the same way for every batch size: the range kernels'
+    cache key leaves the batch out, so a tuned cut keeps a query's bits
+    independent of its micro-batch."""
+    tuned = {"aqp_batch_sums": ({"n": n, "G": 256}, 32),
+             "aqp_box_sums": ({"n": n, "d": 3, "G": 8}, 128),
+             "aqp_grouped_sums": ({"n": n, "d": 3, "G": 64}, 64)}
+    mods = {"aqp_batch_sums": tab, "aqp_box_sums": tabx, "aqp_grouped_sums": tagr}
+    autotune.reset()
+    try:
+        for kernel, (shape, ranges) in tuned.items():
+            autotune.record(kernel, shape, {"tile": mods[kernel].TILE, "ranges": ranges})
+        meta = {"device": "meta"}
+        x1, xd, h3 = torch.zeros(n, **meta), torch.zeros(n, 3, **meta), torch.ones(3, **meta)
+        w = torch.zeros(1, 64, **meta)
+        cuts = {k: set() for k in tuned}
+        for q in QS:
+            a, lo = torch.zeros(q, **meta), torch.zeros(q, 3, **meta)
+            cuts["aqp_batch_sums"].add(_cut(faked_launch, lambda: ops.aqp_batch_moments(
+                x1, torch.ones(1, **meta), a, a)))
+            cuts["aqp_box_sums"].add(_cut(faked_launch, lambda: ops.aqp_box_moments(
+                xd, h3, lo, lo, torch.zeros(q, dtype=torch.int32, **meta))))
+            cuts["aqp_grouped_sums"].add(_cut(faked_launch, lambda: ops.aqp_grouped_moments(
+                xd, h3, lo, lo, w, w, [0] * q, [2] * q, [i % 3 for i in range(q)])))
+    finally:
+        autotune.reset()
+    want = {k: {_launch.fixed_range(n, r, 32, mods[k].TILE)} for k, (_s, r) in tuned.items()}
+    assert cuts == want
+    for k, (_s, r) in tuned.items():      # and the cache was read, not the constant
+        assert want[k] != {_launch.fixed_range(n, mods[k].RANGES, 32, mods[k].TILE)}
 
 
 @pytest.mark.parametrize("ranges,step,tile", [(160, 32, 4096), (64, 32, 4096),
@@ -190,7 +226,8 @@ def test_a_query_has_the_same_bits_in_a_batch_of_8_as_in_256(rng, faked_launch, 
     def cut(q):
         a = torch.zeros(q)
         return _cut(faked_launch, lambda: tab.aqp_batch_moments(x1, torch.ones(1), a, a,
-                                                                tile=tab.TILE))
+                                                                tile=tab.TILE,
+                                                                ranges=tab.RANGES))
 
     big = _kernel_sums(terms, cut(256))[:8]
     small = _kernel_sums(terms[:8], cut(8))
@@ -223,7 +260,8 @@ def test_a_family_has_the_same_bits_whatever_families_share_its_launch(rng,
     def cut(f):
         lo = torch.zeros(f, 3)
         return _cut(faked_launch, lambda: tagr.aqp_grouped_moments(
-            xd, torch.ones(3), lo, lo, w, w, [0] * f, [2] * f, [0] * f, tile=tagr.TILE))
+            xd, torch.ones(3), lo, lo, w, w, [0] * f, [2] * f, [0] * f, tile=tagr.TILE,
+            ranges=tagr.RANGES))
 
     big = _grouped_columns(terms, cut(104))[:8]
     small = _grouped_columns(terms[:8], cut(8))

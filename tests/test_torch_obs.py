@@ -268,8 +268,8 @@ def test_wrappers_profile_only_with_obs_enabled(monkeypatch):
     the launcher is faked); the CPU plain versions are never profiled."""
     calls = []
 
-    def fake_launch(x, h, a, b, tile):
-        calls.append(tile)
+    def fake_launch(x, h, a, b, tile, ranges):
+        calls.append((tile, ranges))
         return torch.zeros(5, a.shape[0])
 
     monkeypatch.setattr(tab, "aqp_batch_moments", fake_launch)
@@ -283,12 +283,12 @@ def test_wrappers_profile_only_with_obs_enabled(monkeypatch):
     before = recorded()
     assert not tobs.enabled()
     ops.aqp_batch_moments(x, torch.zeros(1), a, a)
-    assert calls == [tab.TILE] and recorded() == before
+    assert calls == [(tab.TILE, tab.RANGES)] and recorded() == before
     prev = tobs.set_tracer(tobs.Tracer())
     tobs.enable()
     try:
         ops.aqp_batch_moments(x, torch.zeros(1), a, a)
-        assert calls == [tab.TILE] * 2 and recorded() == before + 1
+        assert calls == [(tab.TILE, tab.RANGES)] * 2 and recorded() == before + 1
         hist = reg.collect_histograms("kernel.wall_us", kernel="aqp_batch_sums", n=64)
         assert hist and hist[0][1].count >= 1
         cpu_before = reg.sum_counter("kernel.calls", kernel="aqp_batch_sums")

@@ -2,8 +2,8 @@
 aqp`) on the CPU: its query mixes give the reference's specs field for
 field for the same seed; a small run with `--device cpu` and a quiet
 producer exits 0 and prints the same sample answers on two runs; without
-`--device` on a machine with no card it exits non-zero; the snapshot flags
-raise the not-ported error naming ROADMAP queue 1.12.
+`--device` on a machine with no card it exits non-zero; `--snapshot-dir`
+then `--restore` warm-starts a second process from the first one's snapshot.
 """
 import dataclasses
 import os
@@ -93,10 +93,41 @@ def test_serve_without_a_card_and_without_device_exits_nonzero():
     assert "no CUDA device" in out.stderr
 
 
-def test_serve_snapshot_flags_wait_for_queue_1_12():
-    out = _serve("--device", "cpu", "--snapshot-dir", str(ROOT / "build" / "no-snapshots"))
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "1.12" in out.stderr
+def test_serve_snapshot_flags_wait_for_queue_1_12(tmp_path):
+    """Queue 1.12 is done, so the snapshot flags answer; what is left to
+    refuse is their misuse: --restore without --snapshot-dir, or with no
+    completed snapshot under it, exits non-zero naming the cause."""
+    out = _serve("--device", "cpu", "--restore")
+    assert out.returncode != 0 and "--restore needs --snapshot-dir" in out.stderr
+    out = _serve("--device", "cpu", "--snapshot-dir", str(tmp_path / "none"), "--restore")
+    assert out.returncode != 0 and "no completed snapshots" in out.stderr
+
+
+def test_serve_snapshots_then_warm_restarts(tmp_path):
+    """--snapshot-dir writes the start-up snapshot; a second process with
+    --restore warm-starts from it with no refit (zero synopsis-cache misses)
+    and, with the producer quiet, prints the same answers; it also loads a
+    tile cache given by --tuning-cache."""
+    from repro_torch.kernels import autotune
+
+    snap = tmp_path / "snap"
+    first = _serve("--device", "cpu", "--snapshot-dir", str(snap))
+    assert first.returncode == 0, first.stdout + first.stderr
+    assert f"1 snapshots written to {snap}" in first.stdout
+    assert sorted(p.name for p in snap.iterdir()) == ["step_00000001"]
+    tiles = tmp_path / "tiles.json"
+    autotune.reset()
+    try:
+        autotune.save_cache(str(tiles))
+    finally:
+        autotune.reset()
+    again = _serve("--device", "cpu", "--snapshot-dir", str(snap), "--restore",
+                   "--tuning-cache", str(tiles))
+    assert again.returncode == 0, again.stdout + again.stderr
+    assert "durability: warm-started from snapshot step 1" in again.stdout
+    cache_line = next(ln for ln in again.stdout.splitlines() if "synopsis cache:" in ln)
+    assert " / 0 misses" in cache_line
+    assert _answers(again.stdout) == _answers(first.stdout)
 
 
 def test_serve_offers_no_lm_mode():

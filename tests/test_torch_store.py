@@ -213,15 +213,30 @@ def test_store_without_device_needs_cuda():
             tstore.TelemetryStore()
 
 
-@pytest.mark.parametrize("call", ["to_state"])
-def test_unported_paths_raise(call):
-    """Tiered ladders, count-min sketches and progressive execution answer
-    now (`tests/test_torch_tiered.py`, `tests/test_torch_sketch_merge.py`),
-    and so do subscriptions and sessions (`tests/test_torch_admission.py`);
-    checkpoints wait for queue 1.12."""
+@pytest.mark.parametrize("call", ["to_state", "save"])
+def test_snapshot_paths_answer(call, tmp_path):
+    """The store's snapshots answer (ROADMAP queue 1.12): `to_state` gives
+    the reference's format with JSON-safe metadata, `save` writes step 1 of
+    a keep-k checkpoint directory; `tests/test_torch_durability.py` holds
+    both against the reference."""
+    import json
+
     store = tstore.TelemetryStore(capacity=64, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="1.12"):
-        getattr(store, call)()
+    store.track_categorical("code")
+    rng = np.random.default_rng(0)
+    store.add_batch({"a": rng.normal(0, 1, 500).astype(np.float32),
+                     "code": rng.integers(0, 4, 500).astype(np.float32)})
+    store.synopsis("a")
+    if call == "to_state":
+        tree, meta = store.to_state()
+        assert meta["format"] == tstore.STATE_FORMAT == 1
+        assert tree["columns/a/buf"].shape == (64,)
+        assert [e["backend"] for e in meta["cache"]] == ["torch"]
+        json.dumps(meta)
+    else:
+        assert store.save(str(tmp_path)) == 1
+        assert sorted(p.name for p in (tmp_path / "step_00000001").iterdir()) == \
+            ["arrays.npz", "manifest.json"]
 
 
 def test_port_imports_neither_jax_nor_repro():
