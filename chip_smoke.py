@@ -99,7 +99,18 @@ non-zero and prints no result line):
      reservoirs and sketches stay bit-identical; then the serve CLI at full
      size with `--snapshot-dir` and again with `--restore`, which prints
      its durability line, misses no synopsis and launches no fit kernel;
- 12. every kernel against its plain PyTorch version on the card, on the
+ 12. phase I, beyond the paper: the binned PLUGIN (`core/binned.py`) on the
+     1 000 000 streamed rows of loss, g = 1024, twice with the same bits,
+     against its plain version on the CPU and within 2 % of the exact
+     PLUGIN h of the pairwise kernel on the same rows; the four shares of a
+     world of 4 (`triangle.share`) launched in one process and summed
+     against one whole pairwise (K6, K4) and lscv_grid launch, with one
+     share's time beside the whole's; the distributed selectors
+     (`core/distributed.py`) on "cuda" over NCCL with one rank and a file
+     store, each call's launches counted (2 pairwise; 1 sv_matrix and 1
+     lscv_grid), no plain version, against the single-device kernels; and
+     the three torch examples, each a process of its own;
+ 13. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -109,7 +120,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
- 13. kernel and plain-version times (CUDA events, median of warm runs) on
+ 14. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
@@ -123,7 +134,9 @@ batch, p50 / p99 of aqp.query.latency_us, device ms per flush, the serve
 CLI's line, the card), a {"phase_t": {...}} line (each sweep's winner and
 constants with their device times, the card), a {"path_h": {...}} line
 (save ms, load ms, the snapshot's bytes, the restored launches, the serve
-runs, the card), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
+runs, the card), a {"phase_i": {...}} line (the binned and exact PLUGIN
+times, the shares and their times, the distributed calls, the examples'
+seconds, the card), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
 a {"kernels": [...]} JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device, and when run without the repository around it.
@@ -138,6 +151,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -1991,6 +2005,241 @@ def path_h(torch, rt, args, g_ctx):
     return summary
 
 
+# --- phase I: binned PLUGIN, the distributed selectors, the examples -----------
+
+I_GRID = 1024                           # bins of the binned PLUGIN (the reference's default)
+I_WORLD = 4                             # the shares launched in one process
+I_D4 = (3000, 50)                       # the distributed example's LSCV_h: n, n_h (d = 4)
+I_EXAMPLES = (("torch_quickstart.py",), ("torch_aqp_database.py",),
+              ("torch_distributed_bandwidth.py", "--world", "1"))
+
+
+def synced_s(torch, fn) -> tuple:
+    """(fn(), CUDA-synced wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def i_counted(torch, ops, what: str, fn) -> tuple:
+    """(fn(), seconds, the kernels it launched): every launch count set to
+    0 just before and read just after."""
+    ops.reset_launch_counts()
+    out, sec = synced_s(torch, fn)
+    made = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"{what}: {sec * 1e3:.1f} ms; launches {made}")
+    return out, sec, made
+
+
+def i_binned(torch, rt, stream) -> dict:
+    """The binned PLUGIN on the 1 000 000 streamed rows of `loss`, on the
+    card twice (the same bits), against its plain version on the CPU, and
+    its h against the exact PLUGIN h of the pairwise kernel on the same
+    rows."""
+    binned, plugin = rt["binned"], rt["plugin"]
+    rows = stream["loss"]
+    x = torch.as_tensor(rows, device=DEV)
+
+    def run(xx, device):
+        h = binned.binned_plugin_bandwidth(xx, I_GRID, device=device)
+        lo, hi = torch.min(xx) - 1e-3, torch.max(xx) + 1e-3
+        grid, counts = binned.linear_binning(xx, lo, hi, I_GRID, device=device)
+        kde = binned.binned_kde_fft(grid, counts, h, device=device)
+        return h, grid, counts, kde
+
+    first, t_first = synced_s(torch, lambda: run(x, DEV))
+    again, t_binned = synced_s(torch, lambda: run(x, DEV))
+    for name, a, b in zip(("h", "grid", "counts", "KDE"), first, again):
+        check(torch.equal(a, b), f"phase I: two binned runs gave different {name} bits")
+    exact, t_exact = synced_s(torch, lambda: plugin.plugin_bandwidth(x, device=DEV))
+    h, grid, counts, kde = first
+    hp, gridp, countsp, kdep = run(torch.as_tensor(rows), "cpu")
+    check(torch.equal(grid.cpu(), gridp), "phase I: the binned grid differs from the CPU's")
+    err_c = held(counts.cpu(), countsp, 1e-4, 1e-4 * float(countsp.max()),
+                 "phase I binned counts against the CPU")
+    err_k = held(kde.cpu(), kdep, 1e-4, 1e-4 * float(kdep.max()),
+                 "phase I binned KDE against the CPU")
+    psi = {}
+    for r, gbw in ((6, exact.g1), (4, exact.g2)):
+        a = float(binned.binned_psi_r(grid, counts, gbw, r, device=DEV))
+        b = float(binned.binned_psi_r(gridp, countsp, gbw.cpu(), r, device="cpu"))
+        held(a, b, 1e-3, 0.0, f"phase I binned Psi{r} against the CPU")
+        psi[f"psi{r}"] = (a, b)
+    held(float(h), float(hp), 1e-3, 0.0, "phase I binned h against the CPU")
+    rel = abs(float(h) - float(exact.h)) / float(exact.h)
+    check(rel < 0.02, f"phase I: binned h {float(h)} is {rel:.2%} from the exact {float(exact.h)}")
+    print(f"phase I binned PLUGIN on {rows.shape[0]} rows of loss, g = {I_GRID}: h = "
+          f"{float(h):.6f} in {t_binned * 1e3:.2f} ms warm ({t_first * 1e3:.2f} ms first, with "
+          f"the bins and the grid's KDE), exact PLUGIN h = {float(exact.h):.6f} on the pairwise "
+          f"kernel in {t_exact * 1e3:.2f} ms ({rel:.3%} apart); two runs bit-identical; against "
+          f"the CPU: counts {err_c:.3g}, KDE {err_k:.3g} max abs, Psi6 / Psi4 {psi}, h "
+          f"{float(hp):.6f}")
+    return {"rows": int(rows.shape[0]), "grid": I_GRID, "h": float(h), "h_exact": float(exact.h),
+            "rel": rel, "binned_ms": t_binned * 1e3, "binned_first_ms": t_first * 1e3,
+            "exact_ms": t_exact * 1e3}
+
+
+def share_fraction(torch, tri, n: int, k: int, blocks) -> float:
+    """The pairs of a (begin, count) share of tiles of side k over all
+    n(n-1)/2: the share's part of a whole launch's work and bytes, so its
+    bound is the whole's times this."""
+    begin, count = blocks
+    q, l = tri.bx_to_ql(torch.arange(begin, begin + count))
+    rows, cols = torch.clamp(n - q * k, max=k), torch.clamp(n - l * k, max=k)
+    pairs = torch.where(q == l, rows * (rows - 1) // 2, rows * cols).sum()
+    return int(pairs) / (n * (n - 1) // 2)
+
+
+def i_shares(torch, rt, x, g1, g2, lscv_in) -> dict:
+    """The four shares of a world of 4 launched in one process: their sums
+    against one whole launch (pairwise K6 and K4; the LSCV_h grid per grid
+    point), and one share's time beside the whole's."""
+    ops, tri, kpr, klg = rt["ops"], rt["triangle"], rt["pairwise_reduce"], rt["lscv_grid"]
+    n = x.shape[0]
+    n_tri = tri.n_tri_tiles(-(-n // kpr.tile_for(n, kpr.TILE)))
+    shares = [tri.share(n_tri, r, I_WORLD) for r in range(I_WORLD)]
+    out = {"pairwise_tiles": n_tri, "pairwise_shares": shares}
+    for kind, g in (("k6", g1), ("k4", g2)):
+        whole = ops.pairwise_scaled_ksum(x, g, kind, tile=kpr.TILE)
+        check(torch.equal(whole, ops.pairwise_scaled_ksum(x, g, kind, tile=kpr.TILE,
+                                                          blocks=(0, n_tri))),
+              f"phase I: pairwise {kind} over all its tiles as blocks changed its bits")
+        parts = [float(ops.pairwise_scaled_ksum(x, g, kind, tile=kpr.TILE, blocks=s))
+                 for s in shares]
+        held(sum(parts), float(whole), PAIR_RTOL, 0.0,
+             f"phase I: the {I_WORLD} pairwise {kind} shares against the whole")
+    w_ms = time_ms(torch, lambda: ops.pairwise_scaled_ksum(x, g1, "k6", tile=kpr.TILE))
+    s_ms = time_ms(torch, lambda: ops.pairwise_scaled_ksum(x, g1, "k6", tile=kpr.TILE,
+                                                            blocks=shares[0]))
+    s_bound = (bound_ms("pairwise_scaled_ksum", (x, g1), {"kind": "k6"})[0]
+               * share_fraction(torch, tri, n, kpr.TILE, shares[0]))
+    out.update(pairwise_whole_ms=w_ms, pairwise_share_ms=s_ms, pairwise_share_bound_ms=s_bound)
+    x2, m, hg, c_k, c_kk = lscv_in
+    s_mat = ops.sv_matrix(x2, m)
+    g_tri = tri.n_tri_tiles(-(-n // klg.TILE))
+    g_shares = [tri.share(g_tri, r, I_WORLD) for r in range(I_WORLD)]
+    whole = ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk)
+    parts = sum(ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk, blocks=s).double()
+                for s in g_shares)
+    held(parts.cpu(), whole.cpu(), 1e-4, 1e-6 * float(whole.abs().max()),
+         f"phase I: the {I_WORLD} lscv_grid shares against the whole")
+    gw_ms = time_ms(torch, lambda: ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk), reps=5, warm=1)
+    gs_ms = time_ms(torch, lambda: ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk,
+                                                              blocks=g_shares[0]), reps=5, warm=1)
+    del s_mat
+    gs_bound = (bound_ms("lscv_grid_sums", (x2, m, hg), {}, klg.POLY_SHARE)[0]
+                * share_fraction(torch, tri, n, klg.TILE, g_shares[0]))
+    out.update(grid_tiles=g_tri, grid_shares=g_shares, grid_whole_ms=gw_ms, grid_share_ms=gs_ms,
+               grid_share_bound_ms=gs_bound)
+    print(f"phase I shares of a world of {I_WORLD}, n = {n}: pairwise {n_tri} tiles as "
+          f"{shares}, K6 / K4 sums within {PAIR_RTOL} of one launch; one share "
+          f"{s_ms:.4f} ms (bound {s_bound:.4f}) against the whole's {w_ms:.4f} (median of 15); "
+          f"lscv_grid {g_tri} tiles as {g_shares}, every grid point within 1e-4; one share "
+          f"{gs_ms:.3f} ms (bound {gs_bound:.3f}) against the whole's {gw_ms:.3f} (median of 5)")
+    return out
+
+
+def i_distributed(torch, rt, stream) -> dict:
+    """The distributed selectors on "cuda" over NCCL with a world of one
+    rank (a file store): each call's launches counted, no plain version,
+    each against the single-device kernels."""
+    D, plugin, lscv, red, G = (rt["distributed"], rt["plugin"], rt["lscv"], rt["reductions"],
+                               rt["gaussian"])
+    ops, ref = rt["ops"], rt["ref"]
+    x = torch.as_tensor(stream["loss"][:CAPACITY], device=DEV)
+    fit = plugin.plugin_bandwidth(x, device=DEV)
+    g1, g2 = fit.g1.reshape(1), fit.g2.reshape(1)
+    x2 = x[:, None]
+    sigma_inv = lscv._inv(lscv.covariance(x2))
+    hg = lscv.h_grid_for(CAPACITY, 1, 150, device=DEV)
+    c_k, c_kk, _ = rt["gaussian"].lscv_h_consts(1, torch.linalg.det(lscv.covariance(x2)))
+    out = i_shares(torch, rt, x, g1, g2, (x2, sigma_inv, hg, c_k, c_kk))
+    x4 = torch.as_tensor(np.stack([stream[c][:I_D4[0]] for c in NUMERIC], axis=1), device=DEV)
+    with tempfile.TemporaryDirectory() as tmp:
+        D.init_group(os.path.join(tmp, "store"), 0, 1, device=DEV, timeout_s=120)
+        try:
+            with plain_calls(ref) as plain:
+                (s6, s4), t_psi0, c_psi = i_counted(
+                    torch, ops, "phase I sharded_plugin_psi_sums",
+                    lambda: D.sharded_plugin_psi_sums(x, g1, g2))
+                (h1, _g, gv1), t_l1, c_l1 = i_counted(
+                    torch, ops, "phase I distributed_lscv_h d=1",
+                    lambda: D.distributed_lscv_h(x, n_h=150))
+                (h4, _g, gv4), t_l4, c_l4 = i_counted(
+                    torch, ops, "phase I distributed_lscv_h d=4",
+                    lambda: D.distributed_lscv_h(x4, n_h=I_D4[1]))
+            check(sum(plain.values()) == 0, f"phase I: the distributed calls ran plain versions "
+                                            f"{ {k: v for k, v in plain.items() if v} }")
+            # the first call's wall holds NCCL's set-up of its communicator
+            _r, t_psi = synced_s(torch, lambda: D.sharded_plugin_psi_sums(x, g1, g2))
+
+            def k4(d):
+                return G.k4(d / g2)
+
+            sk4, t_sk4 = synced_s(torch, lambda: D.sharded_pairwise_reduce(k4, x))
+            backend = rt["dist"].get_backend()
+        finally:
+            rt["dist"].destroy_process_group()
+    for what, made, want in (("sharded_plugin_psi_sums", c_psi, {"pairwise_scaled_ksum": 2}),
+                             ("distributed_lscv_h d=1", c_l1,
+                              {"sv_matrix": 1, "lscv_grid_sums": 1}),
+                             ("distributed_lscv_h d=4", c_l4,
+                              {"sv_matrix": 1, "lscv_grid_sums": 1})):
+        check(made == want, f"phase I: {what} launched {made}, expected {want}")
+    held(float(s6), float(ops.pairwise_scaled_ksum(x, g1, "k6")), PAIR_RTOL, 0.0,
+         "phase I: sharded Psi6 sum against one pairwise launch")
+    held(float(s4), float(ops.pairwise_scaled_ksum(x, g2, "k4")), PAIR_RTOL, 0.0,
+         "phase I: sharded Psi4 sum against one pairwise launch")
+    for what, (h, gv), xx, n_h in (("d=1", (h1, gv1), x, 150), ("d=4", (h4, gv4), x4, I_D4[1])):
+        one = lscv.lscv_h(xx, n_h=n_h, device=DEV)
+        check(torch.equal(h, one.h), f"phase I: distributed LSCV_h {what} h {float(h)} against "
+                                     f"the single device's {float(one.h)}")
+        held(gv.cpu(), one.g_values.cpu(), 1e-3, 0.0, f"phase I: distributed LSCV_h {what} g")
+    plain_k4 = float(red.pairwise_reduce(k4, x))
+    held(float(sk4), plain_k4, 1e-4, 0.0, "phase I: sharded_pairwise_reduce(k4)")
+    print(f"phase I distributed on {backend}, 1 rank: Psi sums {float(s6):.4f} / "
+          f"{float(s4):.4f} (2 pairwise launches, {t_psi0 * 1e3:.1f} ms first, "
+          f"{t_psi * 1e3:.2f} ms warm); LSCV_h d=1 n={CAPACITY} h={float(h1):.6f} in "
+          f"{t_l1 * 1e3:.1f} ms, d=4 n={I_D4[0]} h={float(h4):.6f} in {t_l4 * 1e3:.1f} ms (1 "
+          f"sv_matrix + 1 lscv_grid each), the single device's h; sharded K4 sum "
+          f"{float(sk4):.4f} against {plain_k4:.4f} in {t_sk4 * 1e3:.1f} ms")
+    out.update(backend=backend, psi_first_ms=t_psi0 * 1e3, psi_ms=t_psi * 1e3,
+               lscv_d1_ms=t_l1 * 1e3, lscv_d4_ms=t_l4 * 1e3, sharded_k4_ms=t_sk4 * 1e3,
+               h_d1=float(h1), h_d4=float(h4))
+    return out
+
+
+def i_examples() -> dict:
+    """The three torch examples on the card, each a process of its own."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                             else "")
+    secs = {}
+    for name, *extra in I_EXAMPLES:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, str(ROOT / "examples" / name), *extra],
+                             cwd=str(ROOT), env=env, capture_output=True, text=True,
+                             timeout=300)
+        secs[name] = time.perf_counter() - t0
+        check(out.returncode == 0, f"phase I: {name} exited {out.returncode}:\n"
+                                   f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        for ln in out.stdout.strip().splitlines()[-3:]:
+            print(f"phase I {name} | {ln}")
+    print("phase I examples: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return secs
+
+
+def phase_i(torch, rt, stream) -> dict:
+    """Phase I: the binned PLUGIN at 1 000 000 rows, the distributed
+    selectors' kernel shares and NCCL calls, and the three torch examples."""
+    summary = {"binned": i_binned(torch, rt, stream),
+               "distributed": i_distributed(torch, rt, stream),
+               "examples_s": i_examples(), "card": card_line()}
+    return summary
+
+
 def child_main(args) -> int:
     """The second processes of phase T (`--child tuned`: the main path's
     store under a tuned cache) and path H (`--child restore`: the saved
@@ -2929,12 +3178,15 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx, calls_e):
 def runtime(torch) -> dict:
     """The port's modules, imported from this checkout's `src`."""
     sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
     from repro_torch import obs, synopses
-    from repro_torch.core import aqp, aqp_ci, aqp_multid, aqp_query, kde, lscv, plugin
+    from repro_torch.core import (aqp, aqp_ci, aqp_multid, aqp_query, binned, distributed,
+                                  gaussian, kde, lscv, plugin, reductions)
     from repro_torch.data import aqp_store
     from repro_torch.kernels import (_build, _launch, aqp_batch, aqp_boxes, autotune,
                                      lscv_grid, ops, pairwise_reduce, qmc_reduce, ref,
-                                     rff_eval)
+                                     rff_eval, triangle)
     from repro_torch.launch import serve
     return {"query": aqp_query, "plugin": plugin, "lscv": lscv, "store": aqp_store,
             "ops": ops, "ref": ref, "pairwise_reduce": pairwise_reduce, "aqp": aqp,
@@ -2942,7 +3194,9 @@ def runtime(torch) -> dict:
             "launch": _launch, "lscv_grid": lscv_grid, "rff_eval": rff_eval,
             "aqp_multid": aqp_multid, "kde": kde, "synopses": synopses, "obs": obs,
             "serve": serve, "qmc_reduce": qmc_reduce, "autotune": autotune,
-            "build": _build}
+            "build": _build, "binned": binned, "distributed": distributed,
+            "gaussian": gaussian, "reductions": reductions, "triangle": triangle,
+            "dist": dist}
 
 
 def main() -> int:
@@ -3002,6 +3256,11 @@ def main() -> int:
     print(f"path H: {time.perf_counter() - t_h:.1f} s; through path H: "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"path_h": summary_h}))
+    t_i = time.perf_counter()
+    summary_i = phase_i(torch, rt, stream)
+    print(f"phase I: {time.perf_counter() - t_i:.1f} s; through phase I: "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_i": summary_i}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))

@@ -7,6 +7,10 @@ Public API (counterpart: `repro/core/__init__.py`'s AQP names):
   Range, Box, Eq, GroupBy                       — AqpQuery predicate terms
   AqpSession, AdmissionQueue, AdmissionFull     — admission and micro-batch
                                                   scheduling over QueryEngine
+  distributed.*                                 — the O(n^2) selectors over the
+                                                  ranks of a torch.distributed
+                                                  group (beyond the paper)
+  binned.*                                      — binned / FFT variants (§2.2)
 """
 from .aqp_admission import (DEFAULT_PRIORITY_TIERS, AdmissionFull, AdmissionQueue,
                             AqpSession)

@@ -78,17 +78,19 @@ __device__ __forceinline__ float exp2_poly(float x) {
   return x >= -126.0f ? r : (x < -126.0f ? 0.0f : x);
 }
 
-// partials: (n_h, n_tri); block bx writes column bx.
+// partials: (n_h, count); block b takes triangle tile begin + b and writes
+// column b.
 __global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
                                 const float* __restrict__ a_h, int n_h,
                                 const float* __restrict__ c_k_ptr,
                                 const float* __restrict__ c_kk_ptr,
-                                long long n_tri, float* __restrict__ partials) {
+                                long long begin, long long count,
+                                float* __restrict__ partials) {
   constexpr int kVecs = kGridTile * kGridTile / 4;
   __shared__ float4 tile4[kVecs];
   float* tile = reinterpret_cast<float*>(tile4);
   int q, l;
-  bx_to_ql(blockIdx.x, &q, &l);
+  bx_to_ql(begin + blockIdx.x, &q, &l);
   const long long i0 = (long long)q * kGridTile;
   const long long j0 = (long long)l * kGridTile;
   if (q != l && j0 + kGridTile <= n && (n & 3) == 0 &&
@@ -126,30 +128,34 @@ __global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
         }
       }
     }
-    partials[(size_t)h * (size_t)n_tri + blockIdx.x] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    partials[(size_t)h * (size_t)count + blockIdx.x] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
 }
 
 }  // namespace repro_torch
 
 // S: (n, n) row-major (only its strict upper triangle is read); a_h: (n_h,)
-// = -log2(e) / (4 h^2); c_k, c_kk: one float each in device memory;
-// partials: n_h * n_tri floats with n_tri = T(T+1)/2, T = ceil(n / 64);
-// out: (n_h,).  `threads` per block (a multiple of 32).
-// Returns the cudaError_t of the launches.
+// = -log2(e) / (4 h^2); c_k, c_kk: one float each in device memory.  The
+// launch sums the count triangle tiles begin .. begin + count - 1 of the
+// n_tri = T(T+1)/2, T = ceil(n / 64) (0 and n_tri: the whole triangle; a
+// share of it is one rank's part of a distributed grid); partials: n_h *
+// count floats, count >= 1; out: (n_h,).  `threads` per block (a multiple
+// of 32).  Returns the cudaError_t of the launches.
 extern "C" int lscv_grid_sums_launch(const float* S, int n, const float* a_h,
                                      int n_h, const float* c_k,
                                      const float* c_kk, int threads,
+                                     long long begin, long long count,
                                      float* partials, float* out,
                                      void* stream_ptr) {
   using namespace repro_torch;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long n_tiles = (n + kGridTile - 1) / kGridTile;
   const long long n_tri = n_tiles * (n_tiles + 1) / 2;
-  lscv_grid_tiles<<<(unsigned)n_tri, threads, 0, stream>>>(
-      S, n, a_h, n_h, c_k, c_kk, n_tri, partials);
+  if (begin < 0 || count < 1 || begin + count > n_tri) return (int)cudaErrorInvalidValue;
+  lscv_grid_tiles<<<(unsigned)count, threads, 0, stream>>>(
+      S, n, a_h, n_h, c_k, c_kk, begin, count, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_tile_partials<<<(unsigned)n_h, 256, 0, stream>>>(partials, n_tri, out);
+  sum_tile_partials<<<(unsigned)n_h, 256, 0, stream>>>(partials, count, out);
   return (int)cudaGetLastError();
 }

@@ -65,10 +65,10 @@ __device__ __forceinline__ float term(float xi, float xj, float acc) {
 }
 
 // blockDim.x = T (a multiple of 32), tile side K = kRows * T; dynamic shared
-// memory K floats.
+// memory K floats.  Block b sums triangle tile begin + b into partials[b].
 template <int KIND>
 __global__ void pairwise_tiles(const float* __restrict__ x, int n,
-                               const float* __restrict__ g,
+                               const float* __restrict__ g, long long begin,
                                float* __restrict__ partials) {
   constexpr int R = kRows;
   extern __shared__ float4 cols4[];
@@ -78,7 +78,7 @@ __global__ void pairwise_tiles(const float* __restrict__ x, int n,
   const int K = R * T;
   const int t = threadIdx.x;
   int q, l;
-  bx_to_ql(blockIdx.x, &q, &l);
+  bx_to_ql(begin + blockIdx.x, &q, &l);
   const int i0 = q * K;
   const int j0 = l * K;
   const float s = kSqrtHalfLog2e / g[0];
@@ -170,10 +170,14 @@ __global__ void triangle_map(long long n_tri, int* __restrict__ q,
 
 // kind: 0 = K^(4), 1 = K^(6), 2 = Gaussian.  x: (n,) with n >= 2; g: one
 // float in device memory.  Tiles of side k, a multiple of 32 kRows, with
-// k / kRows threads (at most 1024); partials holds n_tri floats with
-// n_tri = T(T+1)/2, T = ceil(n/k).  Returns the cudaError_t of the launches.
+// k / kRows threads (at most 1024).  The launch sums the count triangle
+// tiles begin .. begin + count - 1 of the n_tri = T(T+1)/2, T = ceil(n/k)
+// (0 and n_tri: the whole triangle; a share of it is one rank's part of a
+// distributed sum); partials holds count floats, count >= 1.  Returns the
+// cudaError_t of the launches.
 extern "C" int pairwise_scaled_ksum_launch(const float* x, int n, const float* g,
-                                           int kind, int k, float* partials,
+                                           int kind, int k, long long begin,
+                                           long long count, float* partials,
                                            float* out, void* stream_ptr) {
   using namespace repro_torch;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -181,16 +185,18 @@ extern "C" int pairwise_scaled_ksum_launch(const float* x, int n, const float* g
   const int threads = k / kRows;
   const long long n_tiles = ((long long)n + k - 1) / k;
   const long long n_tri = n_tiles * (n_tiles + 1) / 2;
+  if (begin < 0 || count < 1 || begin + count > n_tri) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)k * sizeof(float);
+  const unsigned blocks = (unsigned)count;
   switch (kind) {
-    case 0: pairwise_tiles<0><<<(unsigned)n_tri, threads, smem, stream>>>(x, n, g, partials); break;
-    case 1: pairwise_tiles<1><<<(unsigned)n_tri, threads, smem, stream>>>(x, n, g, partials); break;
-    case 2: pairwise_tiles<2><<<(unsigned)n_tri, threads, smem, stream>>>(x, n, g, partials); break;
+    case 0: pairwise_tiles<0><<<blocks, threads, smem, stream>>>(x, n, g, begin, partials); break;
+    case 1: pairwise_tiles<1><<<blocks, threads, smem, stream>>>(x, n, g, begin, partials); break;
+    case 2: pairwise_tiles<2><<<blocks, threads, smem, stream>>>(x, n, g, begin, partials); break;
     default: return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  sum_tile_partials<<<1, 256, 0, stream>>>(partials, n_tri, out);
+  sum_tile_partials<<<1, 256, 0, stream>>>(partials, count, out);
   return (int)cudaGetLastError();
 }
 

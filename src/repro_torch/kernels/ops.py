@@ -58,13 +58,18 @@ def _d(x) -> int:
     return x.shape[1] if x.dim() > 1 else 1
 
 
-def pairwise_scaled_ksum(x, g, kind="k4", tile=None):
-    if x.device.type == "cpu":
+def pairwise_scaled_ksum(x, g, kind="k4", tile=None, blocks=None):
+    """`blocks=(begin, count)`: that range of the kernel's triangle tiles
+    only (one rank's share, `triangle.share`); None, all of them."""
+    if x.device.type == "cpu" and blocks is None:
         return ref.pairwise_scaled_ksum(x, g, kind)
     (tile,) = _tune.resolve("pairwise_scaled_ksum", {"n": x.shape[0]},
                             tile=(tile, _pr.TILE))
+    if x.device.type == "cpu":
+        return ref.pairwise_scaled_ksum(x, g, kind, blocks=blocks,
+                                        tile=_pr.tile_for(x.shape[0], tile))
     return _run("pairwise_scaled_ksum",
-                lambda: _pr.pairwise_scaled_ksum(x, g, kind, tile=tile),
+                lambda: _pr.pairwise_scaled_ksum(x, g, kind, tile=tile, blocks=blocks),
                 n=x.shape[0], kind=kind, tile=tile)
 
 
@@ -139,13 +144,18 @@ def gh_fused_sum(x, h_inv, c_k, c_kk, tile=None):
                 **shape, tile=tile)
 
 
-def lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=None):
+def lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=None, blocks=None):
+    """`blocks=(begin, count)`: that range of the kernel's S tiles only (one
+    rank's share, `triangle.share`); None, all of them."""
     if s.device.type == "cpu":
-        return ref.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk)
+        if blocks is None:
+            return ref.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk)
+        return ref.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, blocks=blocks, tile=_lg.TILE)
     shape = {"n": s.shape[0], "G": h_grid.shape[0]}
     (h_tile,) = _tune.resolve("lscv_grid_sums", shape, h_tile=(h_tile, _lg.H_TILE))
     return _run("lscv_grid_sums",
-                lambda: _lg.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=h_tile),
+                lambda: _lg.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=h_tile,
+                                                  blocks=blocks),
                 **shape, h_tile=h_tile)
 
 

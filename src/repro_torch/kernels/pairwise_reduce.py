@@ -4,7 +4,9 @@ Counterpart: `repro/kernels/pairwise_reduce.py` (`pairwise_scaled_ksum`).
 
 The kernel walks the upper-triangle tiles of side K (eqs. 49/50), each
 block with K / ROWS threads that own ROWS rows apiece; `tile_for` picks K,
-and `block_pairs` mirrors which pairs a block sums.
+and `block_pairs` mirrors which pairs a block sums.  `blocks=(begin,
+count)` launches a contiguous range of the tiles only (one rank's share of a
+distributed sum, `triangle.share`); None is the whole triangle.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from . import _build
 from ._launch import (LaunchCounter, check_tensor, check_tile, ptr,
                       raise_on, stream)
-from .triangle import bx_to_ql, n_tri_tiles
+from .triangle import block_range, bx_to_ql, n_tri_tiles
 
 TILE = 512          # side K of a triangle tile: 128 threads x ROWS rows each
 ROWS = 4            # rows per thread (kRows in the source)
@@ -31,8 +33,9 @@ launches = LaunchCounter("pairwise_scaled_ksum")
 def _fn():
     fn = _build.load("pairwise_reduce").pairwise_scaled_ksum_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -45,13 +48,14 @@ def tile_for(n: int, tile: int) -> int:
     return -(-k // (32 * ROWS)) * 32 * ROWS
 
 
-def block_pairs(bx: int, n: int, k: int):
-    """The pairs (i, j) that block bx adds, as (i, j) int64 tensors (each
-    unordered pair once, not always with i < j): a tile off the diagonal
-    adds every row against its columns below n; the diagonal tile of side
-    m = min(k, n - qk) adds row a against column (a + o) mod m for
-    o = 1 .. (m - 1) // 2, and for even m rows a < m / 2 also o = m / 2."""
-    q, l = (int(v) for v in bx_to_ql(bx))
+def block_pairs(b: int, n: int, k: int, begin: int = 0):
+    """The pairs (i, j) that block b of a launch from tile `begin` adds
+    (tile bx = begin + b), as (i, j) int64 tensors (each unordered pair
+    once, not always with i < j): a tile off the diagonal adds every row
+    against its columns below n; the diagonal tile of side m = min(k, n -
+    qk) adds row a against column (a + o) mod m for o = 1 .. (m - 1) // 2,
+    and for even m rows a < m / 2 also o = m / 2."""
+    q, l = (int(v) for v in bx_to_ql(begin + b))
     if q != l:
         rows = torch.arange(k)
         cols = torch.arange(min(k, n - l * k))
@@ -69,10 +73,12 @@ def block_pairs(bx: int, n: int, k: int):
 
 
 def pairwise_scaled_ksum(x: torch.Tensor, g: torch.Tensor, kind: str,
-                         tile: int) -> torch.Tensor:
+                         tile: int, blocks=None) -> torch.Tensor:
     """0-d float32 sum on x's device.  x: (n,) float32 CUDA, g: one-element
     float32 CUDA tensor (read on the device, never synced to the host);
-    `tile` as `tile_for` takes it.  n < 2 gives 0 and launches nothing."""
+    `tile` as `tile_for` takes it; `blocks` the (begin, count) range of
+    triangle tiles, None for all.  n < 2 or count 0 gives 0 and launches
+    nothing."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {sorted(KINDS)}")
     check_tensor(x, "x", torch.float32, (None,))
@@ -84,11 +90,14 @@ def pairwise_scaled_ksum(x: torch.Tensor, g: torch.Tensor, kind: str,
     n_tri = n_tri_tiles(-(-n // k))
     if n_tri >= 2 ** 31:
         raise ValueError(f"n={n} with tile {k} needs {n_tri} blocks; raise the tile")
-    buf = torch.empty((n_tri + 1,), dtype=torch.float32, device=x.device)
-    out = buf[n_tri]
+    begin, count = block_range(blocks, n_tri)
+    if count == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    buf = torch.empty((count + 1,), dtype=torch.float32, device=x.device)
+    out = buf[count]
     with torch.cuda.device(x.device):
-        err = _fn()(ptr(x), n, ptr(g), KINDS[kind], k, ptr(buf), ptr(out),
-                    stream(x.device))
+        err = _fn()(ptr(x), n, ptr(g), KINDS[kind], k, begin, count, ptr(buf),
+                    ptr(out), stream(x.device))
     raise_on(err, "pairwise_scaled_ksum")
     launches.inc()
     return out

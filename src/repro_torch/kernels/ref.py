@@ -21,6 +21,8 @@ import torch
 
 from repro_torch.core import gaussian as G
 
+from .triangle import block_range, n_tri_tiles, pair_tile
+
 _FUNS = {"k4": G.k4, "k6": G.k6, "gauss": G.phi}
 
 ROW_SLAB = 2048      # pairwise rows per slab: (2048, n) floats at a time
@@ -28,9 +30,23 @@ QUERY_SLAB = 64      # queries per slab for the (q, n[, d]) AQP terms
 QUAD_SLAB_ELEMS = 1 << 24   # floats of one (rows, cols, d) difference slab
 
 
-def pairwise_scaled_ksum(x: torch.Tensor, g: torch.Tensor, kind: str
-                         ) -> torch.Tensor:
-    """sum_{i<j} K^(r)((x_i - x_j)/g)   (PLUGIN eqs. 16/18 inner sums)."""
+def _upper(rows: torch.Tensor, cols: torch.Tensor, n: int, blocks, tile):
+    """The strict upper triangle's mask over rows x cols, cut to the pairs
+    of the (begin, count) range of tiles of side `tile` when blocks is
+    given (a kernel launch's share of the triangle)."""
+    mask = rows[:, None] < cols[None, :]
+    if blocks is None:
+        return mask
+    begin, count = block_range(blocks, n_tri_tiles(-(-n // tile)))
+    bx = pair_tile(rows[:, None], cols[None, :], tile)
+    return mask & (bx >= begin) & (bx < begin + count)
+
+
+def pairwise_scaled_ksum(x: torch.Tensor, g: torch.Tensor, kind: str,
+                         blocks=None, tile=None) -> torch.Tensor:
+    """sum_{i<j} K^(r)((x_i - x_j)/g)   (PLUGIN eqs. 16/18 inner sums);
+    with `blocks`, over the pairs of that range of the kernel's tiles of
+    side `tile` only."""
     fun = _FUNS[kind]
     n = x.shape[0]
     inv_g = 1.0 / g.reshape(())
@@ -40,7 +56,7 @@ def pairwise_scaled_ksum(x: torch.Tensor, g: torch.Tensor, kind: str
         rows = x[start:start + ROW_SLAB]
         idx = start + torch.arange(rows.shape[0], device=x.device)
         vals = fun((rows[:, None] - x[None, :]) * inv_g)
-        acc = acc + torch.sum(torch.where(idx[:, None] < cols[None, :],
+        acc = acc + torch.sum(torch.where(_upper(idx, cols, n, blocks, tile),
                                           vals, 0.0))
     return acc
 
@@ -186,9 +202,11 @@ def lscv_grid_sums(x: torch.Tensor, sigma_inv: torch.Tensor,
 
 
 def lscv_grid_sums_from_s(s_mat: torch.Tensor, h_grid: torch.Tensor, c_k,
-                          c_kk) -> torch.Tensor:
+                          c_kk, blocks=None, tile=None) -> torch.Tensor:
     """The grid phase alone (§6.2 phase 2): `lscv_grid_sums` over a
-    precomputed (n, n) S, reading its strict upper triangle only."""
+    precomputed (n, n) S, reading its strict upper triangle only; with
+    `blocks`, the pairs of that range of the kernel's tiles of side `tile`
+    only."""
     n = s_mat.shape[0]
     inv_h2 = 1.0 / (h_grid * h_grid)
     acc = torch.zeros(h_grid.shape, dtype=s_mat.dtype, device=s_mat.device)
@@ -197,7 +215,7 @@ def lscv_grid_sums_from_s(s_mat: torch.Tensor, h_grid: torch.Tensor, c_k,
     for start in range(0, n, rows_per):
         blk = s_mat[start:start + rows_per, start:]
         i = start + torch.arange(blk.shape[0], device=s_mat.device)
-        s = torch.where(i[:, None] < j[None, start:], blk, torch.inf)
+        s = torch.where(_upper(i, j[start:], n, blocks, tile), blk, torch.inf)
         acc = _grid_fold(acc, s, inv_h2, c_k, c_kk)
     return acc
 

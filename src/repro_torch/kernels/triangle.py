@@ -11,8 +11,14 @@ A float32 sqrt is off by one near perfect-square discriminants, so l is
 corrected by +-1 against the closed-form block counts (eq. 66): column l is
 right iff l(l+1)/2 <= bx < (l+1)(l+2)/2.  The CUDA kernel
 (`csrc/pairwise_reduce.cu`) does the same in double precision.
+
+A launch of the pairwise or the LSCV grid kernel may take a contiguous
+range of these tiles, `blocks = (begin, count)`: one rank's share of a
+distributed sum (`share`, `core/distributed.py`).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,3 +46,29 @@ def bx_to_ql(bx):
 def ql_to_bx(q, l):
     """Inverse mapping: bx = l(l+1)/2 + q, valid for q <= l."""
     return l * (l + 1) // 2 + q
+
+
+def share(n_tri: int, rank: int, world: int) -> Tuple[int, int]:
+    """(begin, count): rank's contiguous part of n_tri tiles split over
+    world ranks, the first n_tri % world ranks taking one tile more.  The
+    tiles are enumerated column by column, so a contiguous part holds
+    whole columns of nearly equal work."""
+    if world < 1 or not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of a world of {world}")
+    base, extra = divmod(n_tri, world)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+def block_range(blocks: Optional[Tuple[int, int]], n_tri: int) -> Tuple[int, int]:
+    """`blocks` checked against n_tri tiles; None means (0, n_tri)."""
+    if blocks is None:
+        return 0, n_tri
+    begin, count = (int(v) for v in blocks)
+    if begin < 0 or count < 0 or begin + count > n_tri:
+        raise ValueError(f"blocks {tuple(blocks)} outside the {n_tri} triangle tiles")
+    return begin, count
+
+
+def pair_tile(i: torch.Tensor, j: torch.Tensor, k: int) -> torch.Tensor:
+    """The tile index bx of each pair i < j under tiles of side k."""
+    return ql_to_bx(i // k, j // k)

@@ -98,7 +98,8 @@ def test_ops_wrapper_resolves_the_cache_at_call_time(monkeypatch):
 def test_profiled_launch_carries_the_resolved_tiles(monkeypatch):
     """With obs on, the kernel.wall_us labels carry the tiles the launch
     used, so `measured()` (and the CLI reading it) sees the tuned shape."""
-    monkeypatch.setattr(tpr, "pairwise_scaled_ksum", lambda x, g, kind, tile: x.sum())
+    monkeypatch.setattr(tpr, "pairwise_scaled_ksum",
+                        lambda x, g, kind, tile, blocks=None: x.sum())
     autotune.record("pairwise_scaled_ksum", {"n": 4096}, {"tile": 256})
     prev = tobs.set_tracer(tobs.Tracer())
     tobs.enable()

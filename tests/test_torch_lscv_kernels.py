@@ -26,8 +26,9 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import gh_fused as tgh
 from repro_torch.kernels import lscv_grid as tlg
+from repro_torch.kernels import triangle
 from repro_torch.kernels._launch import scalar_arg
-from repro_torch.kernels.triangle import bx_to_ql
+from repro_torch.kernels.triangle import block_range, bx_to_ql, n_tri_tiles
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 GH_TOL = dict(rtol=5e-4, atol=1e-4)
@@ -185,10 +186,11 @@ def test_gh_fused_emulated_matches_reference(rng, n, d, tile):
 
 
 def lscv_grid_emulated(s_mat: np.ndarray, h_grid: np.ndarray, c_k: float,
-                       c_kk: float) -> np.ndarray:
+                       c_kk: float, blocks=None) -> np.ndarray:
     """lscv_grid_tiles in float32: +inf outside the strict upper triangle,
     the term at group g, lane L on the polynomial when
-    (3 - L) * kGroup + g < kPolyTerms, four lane sums per (tile, h)."""
+    (3 - L) * kGroup + g < kPolyTerms, four lane sums per (tile, h), over
+    the launch's `blocks` = (begin, count) of the tiles (None: all)."""
     kc = _constants("lscv_grid.cu")
     tile, group, poly = kc["kGridTile"], kc["kGroup"], kc["kPolyTerms"]
     n = s_mat.shape[0]
@@ -199,8 +201,9 @@ def lscv_grid_emulated(s_mat: np.ndarray, h_grid: np.ndarray, c_k: float,
     a_h = (F32(-0.25 * np.log2(np.e)) / (h_grid * h_grid).astype(F32)).astype(F32)
     m2ck, ckk = F32(-2.0 * F32(c_k)), F32(c_kk)
     out = np.zeros(len(h_grid))
-    for bx in range(nt * (nt + 1) // 2):
-        q, l = (int(v) for v in bx_to_ql(bx))
+    begin, count = block_range(blocks, nt * (nt + 1) // 2)
+    for b in range(count):
+        q, l = (int(v) for v in bx_to_ql(begin + b))
         ii = q * tile + np.arange(tile)[:, None]
         jj = l * tile + np.arange(tile)[None]
         ok = (ii < jj) & (jj < n)
@@ -226,6 +229,34 @@ def test_lscv_grid_emulated_matches_reference(rng, n, d, n_h):
                                           0.3, 0.2))
     s_mat = ref.sv_matrix(torch.as_tensor(x), torch.as_tensor(m)).numpy()
     np.testing.assert_allclose(lscv_grid_emulated(s_mat, hg, 0.3, 0.2), want, **GRID_TOL)
+
+
+@pytest.mark.parametrize("n,world", [(64, 2), (130, 3), (200, 4), (200, 11)])
+def test_lscv_grid_emulated_shares_sum_to_reference(rng, n, world):
+    """The emulated walks of the world's shares (`triangle.share`): each
+    tile once across them, and their sums add up to the reference's."""
+    x = rng.normal(0, 1, (n, 2)).astype(F32)
+    hg = np.linspace(0.05, 2.0, 4).astype(F32)
+    want = np.asarray(jref.lscv_grid_sums(jnp.asarray(x), jnp.eye(2), jnp.asarray(hg),
+                                          0.3, 0.2))
+    s_mat = ref.sv_matrix(torch.as_tensor(x), torch.eye(2)).numpy()
+    n_tri = n_tri_tiles(-(-n // tlg.TILE))
+    shares = [triangle.share(n_tri, r, world) for r in range(world)]
+    assert sorted(b + i for b, c in shares for i in range(c)) == list(range(n_tri))
+    got = sum(lscv_grid_emulated(s_mat, hg, 0.3, 0.2, blocks) for blocks in shares)
+    np.testing.assert_allclose(got, want, **GRID_TOL)
+
+
+def test_lscv_grid_share_wrapper_on_cpu_sums_to_the_whole(rng):
+    x = torch.as_tensor(rng.normal(0, 1, (300, 2)).astype(F32))
+    s = ops.sv_matrix(x, torch.eye(2))
+    hg = torch.linspace(0.05, 2.0, 6)
+    n_tri = n_tri_tiles(-(-300 // tlg.TILE))
+    whole = ops.lscv_grid_sums_from_s(s, hg, 0.3, 0.2)
+    parts = sum(ops.lscv_grid_sums_from_s(s, hg, 0.3, 0.2, blocks=triangle.share(n_tri, r, 4))
+                for r in range(4))
+    np.testing.assert_allclose(parts.numpy(), whole.numpy(), **GRID_TOL)
+    assert not ops.lscv_grid_sums_from_s(s, hg, 0.3, 0.2, blocks=(5, 0)).any()
 
 
 # --- (c) argument checks before any launch, (d) the sources' contract ------------------
@@ -345,3 +376,26 @@ def test_cuda_lscv_grid_ragged_edges_and_repeats(cuda_device, rng):
         assert torch.equal(k1, k2), f"n={n}: two launches differ"
         np.testing.assert_allclose(k1.cpu(), ref.lscv_grid_sums_from_s(s, hg, 0.3, 0.2).cpu(),
                                    **GRID_TOL)
+
+
+def test_cuda_lscv_grid_shares_sum_to_the_whole_and_keep_its_bits(cuda_device, rng):
+    """All the tiles given as blocks give blocks=None's bits; the shares of
+    1-5 ranks add up to the whole per grid point; an empty share launches
+    nothing."""
+    dev = cuda_device
+    for n, d, n_h in ((65, 2, 33), (1001, 3, 150), (4100, 1, 7)):
+        x = torch.as_tensor(rng.normal(0, 1, (n, d)).astype(F32), device=dev)
+        s = ops.sv_matrix(x, torch.eye(d, device=dev))
+        hg = torch.linspace(0.05, 2.0, n_h, device=dev)
+        n_tri = n_tri_tiles(-(-n // tlg.TILE))
+        whole = ops.lscv_grid_sums_from_s(s, hg, 0.3, 0.2)
+        assert torch.equal(whole, ops.lscv_grid_sums_from_s(s, hg, 0.3, 0.2,
+                                                            blocks=(0, n_tri)))
+        for world in range(1, 6):
+            parts = sum(ops.lscv_grid_sums_from_s(s, hg, 0.3, 0.2,
+                                                  blocks=triangle.share(n_tri, r, world)).double()
+                        for r in range(world))
+            np.testing.assert_allclose(parts.cpu(), whole.cpu(), rtol=1e-4, atol=1e-3)
+    ops.reset_launch_counts()
+    assert not ops.lscv_grid_sums_from_s(s, hg, 0.3, 0.2, blocks=(1, 0)).any()
+    assert ops.launch_counts()["lscv_grid_sums"] == 0

@@ -34,6 +34,7 @@ from repro_torch.core import kde as tkde
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import pairwise_reduce as tpr
 from repro_torch.kernels import rff_eval as trff
+from repro_torch.kernels import triangle
 from repro_torch.synopses import RFFSynopsis
 
 from test_torch_fullh import PAIR, _assert_match, _fullh_stores, _pair_boxes
@@ -61,10 +62,13 @@ def _tile_cases():
             for n in (2, 3, tile - 1, tile, tile + 1, 3 * tile + 5)]
 
 
-def _walk(n, tile):
+def _walk(n, tile, blocks=None):
+    """(k, the pairs of each block) of a launch over `blocks` = (begin,
+    count) of the triangle tiles (None: all of them)."""
     k = tpr.tile_for(n, tile)
     n_tri = (-(-n // k)) * (-(-n // k) + 1) // 2
-    return k, [tpr.block_pairs(bx, n, k) for bx in range(n_tri)]
+    begin, count = triangle.block_range(blocks, n_tri)
+    return k, [tpr.block_pairs(b, n, k, begin) for b in range(count)]
 
 
 @pytest.mark.parametrize("n,tile", _tile_cases())
@@ -93,11 +97,12 @@ def test_pairwise_diagonal_tiles_give_every_row_the_same_count(n, tile):
         assert int(per_row.min()) >= (m - 1) // 2 and int(per_row.max()) - int(per_row.min()) <= 1
 
 
-def pairwise_emulated(x: np.ndarray, g: float, kind: str, tile: int) -> float:
+def pairwise_emulated(x: np.ndarray, g: float, kind: str, tile: int, blocks=None) -> float:
     """pairwise_tiles in float32: x - x[0] scaled by s = sqrt(c) / g, c =
     log2(e) / 2; per pair v = -u^2 (u the scaled difference), 2^v, t^2 =
     v (-1 / c) and the polynomial with its integer coefficients, over the
-    pairs each block adds, each block's sum times 1/sqrt(2 pi)."""
+    pairs each block of the launch over `blocks` adds, each block's sum
+    times 1/sqrt(2 pi)."""
     kc = _constants("pairwise_reduce.cu")
     assert kc["kRows"] == tpr.ROWS
     assert abs(kc["kSqrtHalfLog2e"] ** 2 - 0.5 * np.log2(np.e)) < 1e-7
@@ -105,7 +110,7 @@ def pairwise_emulated(x: np.ndarray, g: float, kind: str, tile: int) -> float:
     s = F32(F32(kc["kSqrtHalfLog2e"]) / F32(g))
     neg_inv_c = F32(kc["kNegTwoLn2"])
     xs = ((x - x[0]).astype(F32) * s).astype(F32)
-    _, pairs = _walk(x.shape[0], tile)
+    _, pairs = _walk(x.shape[0], tile, blocks)
     total = 0.0
     for i, j in pairs:
         d = (xs[i.numpy()] - xs[j.numpy()]).astype(F32)
@@ -129,6 +134,48 @@ def test_pairwise_emulated_matches_reference_kernel(rng, n, tile, kind):
     want = float(jops.pairwise_scaled_ksum(jnp.asarray(x), jnp.float32(0.5), kind=kind,
                                            tile=256))
     np.testing.assert_allclose(pairwise_emulated(x, 0.5, kind, tile), want, **_pair_tol(n))
+
+
+@pytest.mark.parametrize("n,tile", [(3, 128), (700, 128), (1541, 512)])
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_pairwise_share_walks_together_cover_every_pair_once(n, tile, world):
+    """The walks of the world's shares (`triangle.share`): every pair i < j
+    once across them, each block once."""
+    k = tpr.tile_for(n, tile)
+    n_tri = triangle.n_tri_tiles(-(-n // k))
+    walks = [_walk(n, tile, triangle.share(n_tri, r, world))[1] for r in range(world)]
+    assert sum(len(w) for w in walks) == n_tri
+    i = torch.cat([p[0] for w in walks for p in w])
+    j = torch.cat([p[1] for w in walks for p in w])
+    lo, hi = torch.minimum(i, j), torch.maximum(i, j)
+    assert lo.numel() == n * (n - 1) // 2
+    assert torch.unique(lo * n + hi).numel() == lo.numel()
+
+
+@pytest.mark.parametrize("kind", ["k4", "k6"])
+def test_pairwise_emulated_shares_sum_to_reference_kernel(rng, kind):
+    n, tile, world = 1541, 512, 4
+    x = (rng.normal(0, 1, n) * 2.0 + 40.0).astype(F32)
+    want = float(jops.pairwise_scaled_ksum(jnp.asarray(x), jnp.float32(0.5), kind=kind,
+                                           tile=256))
+    n_tri = triangle.n_tri_tiles(-(-n // tpr.tile_for(n, tile)))
+    got = sum(pairwise_emulated(x, 0.5, kind, tile, triangle.share(n_tri, r, world))
+              for r in range(world))
+    np.testing.assert_allclose(got, want, **_pair_tol(n))
+
+
+def test_pairwise_share_wrapper_on_cpu_sums_to_the_whole(rng):
+    """`ops.pairwise_scaled_ksum(blocks=...)` on a CPU tensor: the plain
+    version over the share's pairs; the shares add up to the whole."""
+    x = _t(rng.normal(0, 1, 1300))
+    g = _t(0.45)
+    n_tri = triangle.n_tri_tiles(-(-1300 // tpr.tile_for(1300, 256)))
+    whole = float(ops.pairwise_scaled_ksum(x, g, "k6"))
+    parts = [float(ops.pairwise_scaled_ksum(x, g, "k6", tile=256,
+                                            blocks=triangle.share(n_tri, r, 3)))
+             for r in range(3)]
+    np.testing.assert_allclose(sum(parts), whole, **_pair_tol(1300))
+    assert float(ops.pairwise_scaled_ksum(x, g, "k6", tile=256, blocks=(2, 0))) == 0.0
 
 
 def test_pairwise_tile_for_keeps_the_small_n_tile_and_refuses_bad_tiles():
@@ -346,6 +393,29 @@ def test_cuda_pairwise_ragged_edges_kinds_and_repeats(cuda_device, rng):
             np.testing.assert_allclose(float(k1), float(ref.pairwise_scaled_ksum(x, g, kind)),
                                        **_pair_tol(n))
     assert ops.launch_counts()["pairwise_scaled_ksum"] == 2 * 3 * len(cases)
+
+
+def test_cuda_pairwise_shares_sum_to_the_whole_and_keep_its_bits(cuda_device, rng):
+    """A launch over all the tiles given as blocks gives blocks=None's bits;
+    the shares of 1-5 ranks add up to the whole; an empty share launches
+    nothing."""
+    dev = cuda_device
+    g = torch.tensor(0.4, device=dev)
+    for n, tile in ((129, 128), (4097, 512), (32_768, 512)):
+        x = _t(rng.normal(0, 1, n)).to(dev)
+        n_tri = triangle.n_tri_tiles(-(-n // tpr.tile_for(n, tile)))
+        for kind in ("k4", "k6"):
+            whole = ops.pairwise_scaled_ksum(x, g, kind, tile=tile)
+            assert torch.equal(whole, ops.pairwise_scaled_ksum(x, g, kind, tile=tile,
+                                                               blocks=(0, n_tri)))
+            for world in range(1, 6):
+                parts = [float(ops.pairwise_scaled_ksum(
+                    x, g, kind, tile=tile, blocks=triangle.share(n_tri, r, world)))
+                    for r in range(world)]
+                np.testing.assert_allclose(sum(parts), float(whole), **_pair_tol(n))
+    ops.reset_launch_counts()
+    assert float(ops.pairwise_scaled_ksum(x, g, "k4", tile=512, blocks=(3, 0))) == 0.0
+    assert ops.launch_counts()["pairwise_scaled_ksum"] == 0
 
 
 def test_cuda_rff_density_blocks_edges_and_repeats(cuda_device, rng):

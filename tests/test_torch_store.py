@@ -240,7 +240,12 @@ def test_snapshot_paths_answer(call, tmp_path):
 
 
 def test_port_imports_neither_jax_nor_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == ["torch_aqp_database.py",
+                                          "torch_distributed_bandwidth.py",
+                                          "torch_quickstart.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + examples)
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
