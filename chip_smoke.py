@@ -110,7 +110,20 @@ non-zero and prints no result line):
      store, each call's launches counted (2 pairwise; 1 sv_matrix and 1
      lscv_grid), no plain version, against the single-device kernels; and
      the three torch examples, each a process of its own;
- 13. every kernel against its plain PyTorch version on the card, on the
+ 13. phase L, LM serving (the LM stack reaches no hand kernel: every launch
+     count stays 0): (a) `launch/serve.run_lm` on llama3.2-1b at its full
+     published config in bf16, batch 4, prompt 128, 32 new tokens, twice,
+     with the same tokens and logits bits; the logits each token was chosen
+     from against the teacher-forced `apply` at the reference's bf16
+     tolerance; prefill and decode step timed (CUDA events, device ms and
+     kernels from torch.profiler) beside their bounds; (b) a float32 copy of
+     its first 2 layers at full width on the card and on the CPU, prefill
+     and 8 decode steps held at the CPU parity tests' tolerance; (c) every
+     other architecture at full width with its depth cut (`L_DEPTH`):
+     prefill and 8 greedy decode steps, finite logits, decode against
+     `apply` (MoE also with capacity_factor = E / k, where nothing is
+     dropped); the serve CLI in LM mode at (a)'s size as a process of its own;
+ 14. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -120,7 +133,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
- 14. kernel and plain-version times (CUDA events, median of warm runs) on
+ 15. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
@@ -136,7 +149,10 @@ constants with their device times, the card), a {"path_h": {...}} line
 (save ms, load ms, the snapshot's bytes, the restored launches, the serve
 runs, the card), a {"phase_i": {...}} line (the binned and exact PLUGIN
 times, the shares and their times, the distributed calls, the examples'
-seconds, the card), a {"path_f_kernels": [...]} line (the path-F kernels at n = 4 096),
+seconds, the card), a {"phase_l": {...}} line (run_lm's times, tokens/s and
+bounds, the float32 copy's card-CPU difference, each other architecture's
+depth, times and error, the CLI's line, the card), a {"path_f_kernels":
+[...]} line (the path-F kernels at n = 4 096),
 a {"kernels": [...]} JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device, and when run without the repository around it.
@@ -2240,6 +2256,243 @@ def phase_i(torch, rt, stream) -> dict:
     return summary
 
 
+# --- phase L: the LM stack (ROADMAP queue 1.15a) ------------------------------------
+
+L_ARCH = "llama3.2-1b"
+L_BATCH, L_PROMPT, L_NEW = 4, 128, 32       # run_lm's path at full size
+L_STEPS = 8                                 # decode steps of every other architecture
+L_BF16_RTOL, L_BF16_ATOL = 5e-2, 6e-2       # tests/test_models.py:86-91
+L_F32_RTOL, L_F32_ATOL = 2e-4, 1e-4         # the CPU parity tests'; atol x max |logit|
+L_F32_LAYERS = 2
+# layers kept of every other architecture at full width (None: all of them);
+# MoE decode is held to apply with no capacity drops (see l_other)
+L_DEPTH = {"stablelm-12b": 4, "glm4-9b": 4, "qwen2.5-14b": 4, "falcon-mamba-7b": 4,
+           "internvl2-2b": None, "zamba2-1.2b": 7, "qwen3-moe-235b-a22b": 2,
+           "granite-moe-1b-a400m": None, "whisper-base": None}
+L_SMOKE = False                             # True only to rehearse on the CPU
+PEAK_BF16 = 989e12                          # H100 SXM, dense bf16 tensor cores
+
+
+def l_config(arch: str, layers=None):
+    """The published config of `arch` (its smoke config when rehearsing),
+    cut to `layers` layers."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch, smoke=L_SMOKE)
+    return cfg if layers is None or L_SMOKE else dataclasses.replace(cfg, n_layers=layers)
+
+
+def l_bounds(cfg, tokens: int, kv_bytes: int) -> tuple:
+    """(prefill bound ms, decode-step bound ms): the larger of 2 x params x
+    tokens FLOPs at the bf16 peak and the weights' (and the KV cache's)
+    bytes at the HBM rate."""
+    p = cfg.param_count()
+    prefill = max(2 * p * tokens / PEAK_BF16, 2 * p / PEAK_BYTES) * 1e3
+    decode = max(2 * p * L_BATCH / PEAK_BF16, (2 * p + kv_bytes) / PEAK_BYTES) * 1e3
+    return prefill, decode
+
+
+def l_decode_vs_apply(torch, model, tokens, logits, extra, what: str) -> float:
+    """The logits each new token was chosen from (prefill's last position,
+    then one decode step each) against the teacher-forced apply on the same
+    tokens, at the reference's bf16 tolerance."""
+    n = logits.shape[1]
+    with torch.no_grad():
+        full = model.apply({"tokens": tokens[:, :-1], **extra})
+    return held_dev(torch, logits.float(), full[:, -n:].float(), L_BF16_RTOL, L_BF16_ATOL,
+                    f"{what}: decode against apply")
+
+
+def l_serve(torch, serve) -> tuple:
+    """(a) run_lm on llama3.2-1b at full size: two runs with the same bits,
+    decode against apply, prefill and decode steps timed."""
+    from repro_torch.train.serve_step import pad_caches
+
+    args = argparse.Namespace(device=DEV, arch=L_ARCH, smoke=L_SMOKE, batch=L_BATCH,
+                              prompt_len=L_PROMPT, max_new=L_NEW)
+    res = serve.run_lm(args)
+    model, cfg, (r0, r1) = res["model"], res["cfg"], res["runs"]
+    check(torch.equal(r0["tokens"], r1["tokens"]), "phase L (a): two runs, other tokens")
+    check(torch.equal(r0["logits"], r1["logits"]), "phase L (a): two runs, other logits bits")
+    check(bool(torch.isfinite(r1["logits"]).all()), "phase L (a): non-finite logits")
+    err = l_decode_vs_apply(torch, model, r1["tokens"], r1["logits"], res["extra"],
+                            "phase L (a)")
+    batch = {"tokens": res["prompt"], **res["extra"]}
+    with torch.no_grad():
+        prefill_ms = time_ms(torch, lambda: model.prefill(batch), reps=10, warm=2)
+        prefill_dev, prefill_k = device_ms(torch, lambda: model.prefill(batch))
+        _, cache = model.prefill(batch)
+        cache = pad_caches(cache, L_PROMPT + L_NEW)
+        tok = r1["tokens"][:, L_PROMPT:L_PROMPT + 1]
+        step = lambda: model.decode_step(cache, tok, L_PROMPT)      # noqa: E731
+        decode_ms = time_ms(torch, step, reps=20, warm=3)
+        decode_dev, decode_k = device_ms(torch, step)
+    kv_bytes = sum(a.numel() * a.element_size() for a in cache.values())
+    b_prefill, b_decode = l_bounds(cfg, L_BATCH * L_PROMPT, kv_bytes)
+    out = {"arch": cfg.name, "params": cfg.param_count(), "batch": L_BATCH,
+           "prompt": L_PROMPT, "new": L_NEW, "first_run_s": r0["seconds"],
+           "warm_run_s": r1["seconds"], "tokens_per_s": res["tokens_per_s"],
+           "prefill_ms": prefill_ms, "prefill_device_ms": prefill_dev,
+           "prefill_kernels": prefill_k, "prefill_bound_ms": b_prefill,
+           "decode_ms": decode_ms, "decode_device_ms": decode_dev,
+           "decode_kernels": decode_k, "decode_bound_ms": b_decode,
+           "decode_vs_apply_err": err, "same_bits": True}
+    print(f"phase L (a) {cfg.name}: prefill {L_BATCH} x {L_PROMPT} {prefill_ms:.3f} ms "
+          f"(device {prefill_dev:.3f} ms in {prefill_k} kernels; bound {b_prefill:.3f}), "
+          f"decode step {decode_ms:.3f} ms (device {decode_dev:.3f} ms in {decode_k} "
+          f"kernels; bound {b_decode:.3f}), {res['tokens_per_s']:.1f} tokens/s warm; "
+          f"decode against apply {err:.4g}; two runs bit-identical")
+    return out, model, cfg, res
+
+
+def l_float32(torch, model, cfg, res) -> dict:
+    """(b) a float32 copy of the first L_F32_LAYERS layers at full width, on
+    the card and then on the CPU: prefill and L_STEPS decode steps on (a)'s
+    tokens, logits held at the CPU parity tests' tolerance."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+    from repro_torch.train.serve_step import pad_caches
+
+    cfg32 = dataclasses.replace(cfg, n_layers=L_F32_LAYERS, param_dtype="float32")
+    keep = {k: v.float() for k, v in model.state_dict().items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < L_F32_LAYERS}
+    m32 = build_model(cfg32, DEV, torch.Generator(device=DEV).manual_seed(0))
+    m32.load_state_dict(keep, strict=True)
+    tokens = res["runs"][1]["tokens"]
+
+    def run(m, dev):
+        with torch.no_grad():
+            logits, cache = m.prefill({"tokens": res["prompt"].to(dev)})
+            cache = pad_caches(cache, L_PROMPT + L_STEPS)
+            outs = [logits]
+            for i in range(L_STEPS):
+                tok = tokens[:, L_PROMPT + i:L_PROMPT + i + 1].to(dev)
+                outs.append(m.decode_step(cache, tok, L_PROMPT + i)[0])
+        return [o.cpu() for o in outs]
+
+    t0 = time.perf_counter()
+    card = run(m32, DEV)
+    t_card = time.perf_counter() - t0
+    m32.to("cpu")
+    t0 = time.perf_counter()
+    host = run(m32, "cpu")
+    t_cpu = time.perf_counter() - t0
+    worst, scale = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(card, host)):
+        scale = float(b.abs().max())
+        worst = max(worst, held_dev(torch, a, b, L_F32_RTOL, L_F32_ATOL * scale,
+                                    f"phase L (b): float32 card against CPU, output {i}"))
+    del m32
+    print(f"phase L (b) {cfg.name} float32, {L_F32_LAYERS} layers: prefill + {L_STEPS} "
+          f"decode steps on the card ({t_card:.2f} s) and the CPU ({t_cpu:.2f} s), max abs "
+          f"difference {worst:.3g} (max |logit| {scale:.3g})")
+    return {"layers": L_F32_LAYERS, "max_abs_err": worst, "max_logit": scale,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def l_other(torch, arch: str) -> dict:
+    """(c) one other architecture at full width, its depth cut to
+    L_DEPTH[arch]: prefill and L_STEPS greedy decode steps in bf16, finite
+    logits, their distance from the bf16 teacher-forced apply (printed: at
+    full width bf16 rounding moves a decode step past the reference's
+    smoke-size tolerance, 0.117 on internvl2-2b's 24 layers); then the same
+    weights in float32, prefill and L_STEPS decode steps on those tokens
+    held to apply at the CPU parity tests' tolerance.  A MoE model runs the
+    float32 check with capacity_factor = E / k, where no assignment is
+    dropped: a 4-token decode step drops assignments that a 512-token
+    prefill keeps, so with drops decode and apply compute different
+    functions."""
+    import dataclasses
+
+    from repro_torch.models import build_model, random_inputs
+    from repro_torch.train.serve_step import greedy_generate, pad_caches
+
+    cfg = l_config(arch, L_DEPTH[arch])
+    t0 = time.perf_counter()
+    model = build_model(cfg, DEV, torch.Generator(device=DEV).manual_seed(0))
+    inputs = random_inputs(cfg, L_BATCH, L_PROMPT, torch.Generator(device=DEV).manual_seed(1))
+    prompt = inputs.pop("tokens")
+    n = L_STEPS + 1
+    (tokens, logits), sec = synced_s(torch, lambda: greedy_generate(
+        model, prompt, n, extra_batch=inputs, with_logits=True))
+    check(bool(torch.isfinite(logits).all()), f"phase L (c) {arch}: non-finite logits")
+    batch = {"tokens": prompt, **inputs}
+    with torch.no_grad():
+        full = model.apply({"tokens": tokens[:, :-1], **inputs})[:, -n:]
+        bf16_err = float((logits.float() - full.float()).abs().max())
+        prefill_ms = time_ms(torch, lambda: model.prefill(batch), reps=3, warm=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    del full
+    model.float()
+    extra = {"capacity_factor": cfg.n_experts / cfg.top_k} if cfg.family == "moe" else {}
+    model.cfg = dataclasses.replace(cfg, param_dtype="float32", **extra)
+    with torch.no_grad():
+        first, cache = model.prefill(batch)
+        start = first.shape[1]
+        cache = pad_caches(cache, start + L_STEPS)
+        steps = [first[:, -1]]
+        for i in range(L_STEPS):
+            tok = tokens[:, L_PROMPT + i:L_PROMPT + i + 1]
+            steps.append(model.decode_step(cache, tok, start + i)[0][:, -1])
+        full = model.apply({"tokens": tokens[:, :-1], **inputs})[:, -n:]
+    scale = float(full.abs().max())
+    err = held_dev(torch, torch.stack(steps, dim=1), full, L_F32_RTOL, L_F32_ATOL * scale,
+                   f"phase L (c) {arch}: float32 decode against apply")
+    out = {"layers": cfg.n_layers, "of": l_config(arch).n_layers, "params": n_params,
+           "generate_s": sec, "prefill_ms": prefill_ms, "bf16_decode_vs_apply": bf16_err,
+           "f32_decode_vs_apply": err, "max_logit": scale,
+           "seconds": time.perf_counter() - t0}
+    del model, cache
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase L (c) {arch}: {cfg.n_layers} of {out['of']} layers, {n_params:,} "
+          f"parameters; prefill {L_BATCH} x {L_PROMPT} {prefill_ms:.2f} ms, prefill + "
+          f"{L_STEPS} decode steps {sec:.2f} s; decode against apply: bf16 {bf16_err:.4g}"
+          f"{' (capacity drops differ)' if extra else ''}, float32 {err:.3g} (max |logit| "
+          f"{scale:.3g})")
+    return out
+
+
+def l_cli() -> dict:
+    """The serve CLI in LM mode at run_lm's full size, a process of its own."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch",
+           L_ARCH, "--batch", str(L_BATCH), "--prompt-len", str(L_PROMPT), "--max-new",
+           str(L_NEW)]
+    if DEV != "cuda":
+        cmd += ["--device", DEV, "--smoke"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                             else "")
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True,
+                         timeout=600)
+    sec = time.perf_counter() - t0
+    check(out.returncode == 0, f"serve --mode lm exited {out.returncode}:\n"
+                               f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    line = next(ln for ln in out.stdout.splitlines() if "tokens/s" in ln)
+    print(f"phase L serve CLI ({sec:.1f} s): {line}")
+    return {"seconds": sec, "line": line}
+
+
+def phase_l(torch, rt) -> dict:
+    """Phase L: the LM stack, with every launch count set to 0 just before
+    it and read just after (it reaches no hand kernel)."""
+    from repro_torch.configs.base import ARCH_IDS
+    ops = rt["ops"]
+    ops.reset_launch_counts()
+    summary = {"card": card_line()}
+    summary["serve"], model, cfg, res = l_serve(torch, rt["serve"])
+    summary["float32"] = l_float32(torch, model, cfg, res)
+    del model, res
+    summary["others"] = {arch: l_other(torch, arch) for arch in ARCH_IDS if arch != L_ARCH}
+    summary["cli"] = l_cli()
+    made = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not made, f"phase L launched hand kernels: {made}")
+    return summary
+
+
 def child_main(args) -> int:
     """The second processes of phase T (`--child tuned`: the main path's
     store under a tuned cache) and path H (`--child restore`: the saved
@@ -3261,6 +3514,11 @@ def main() -> int:
     print(f"phase I: {time.perf_counter() - t_i:.1f} s; through phase I: "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_i": summary_i}))
+    t_l = time.perf_counter()
+    summary_l = phase_l(torch, rt)
+    print(f"phase L: {time.perf_counter() - t_l:.1f} s; through phase L: "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_l": summary_l}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))

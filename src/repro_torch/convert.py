@@ -1,11 +1,12 @@
 """State carried across from the JAX package: its fitted synopses, its RFF
 density synopses and its store snapshots, rebuilt as the port's objects from
-numpy arrays (the system's counterpart of carrying weights across).
-Counterpart: the reference's `TelemetryStore.to_state()` / `from_state()`
-and `RFFSynopsis.to_state()`."""
+numpy arrays (the system's counterpart of carrying weights across), and the
+LM stack's parameter trees and decode caches.
+Counterpart: the reference's `TelemetryStore.to_state()` / `from_state()`,
+`RFFSynopsis.to_state()` and the models' `init()` / `init_cache()` trees."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -14,6 +15,10 @@ from repro_torch.core.aqp import KDESynopsis
 from repro_torch.data.aqp_store import TelemetryStore
 from repro_torch.device import DTYPE, DeviceLike, resolve_device
 from repro_torch.synopses import RFFSynopsis
+
+# the reference's parameter trees stack these subtrees on a leading layer
+# axis; the port keeps one entry per layer
+STACKED = ("layers", "mamba", "enc_layers", "dec_layers")
 
 
 def synopsis_from_numpy(x, h, n_source: int, selector: str,
@@ -65,3 +70,60 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
     looks (`_tier_key`).
     """
     return TelemetryStore.from_state(arrays, meta, device=device)
+
+
+def lm_state_from_numpy(params: Mapping) -> Dict[str, np.ndarray]:
+    """The reference's LM parameter tree (nested dicts of numpy arrays, the
+    layer axis stacked) as the port's `state_dict()` keys: "layers.3.attn.wq"
+    for `params["layers"]["attn"]["wq"][3]`."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree, path, layer):
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                if k in STACKED:
+                    n = len(next(iter(_leaves(v))))
+                    for i in range(n):
+                        walk(v, path + (k, str(i)), i)
+                else:
+                    walk(v, path + (k,), layer)
+            else:
+                a = np.asarray(v)
+                out[".".join(path + (k,))] = a if layer is None else a[layer]
+
+    walk(params, (), None)
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, Mapping):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def lm_params_from_numpy(cfg, params: Mapping, device: DeviceLike = None):
+    """The port's model of `cfg` holding the reference's parameters
+    (`model.init(key)` as nested dicts of numpy arrays).  bf16 leaves come as
+    float32, which holds them exactly; each is cast to the dtype the port's
+    module keeps for it (the config's, or float32 where the reference keeps
+    float32: the router, A_log, D, a_log, Mamba-2's dt_bias)."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device=device)
+    state = {k: torch.tensor(a) for k, a in lm_state_from_numpy(params).items()}
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def lm_cache_from_numpy(cfg, cache: Mapping[str, np.ndarray],
+                        device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A reference decode cache (`prefill`'s or `init_cache`'s, as numpy
+    arrays) on `device`, each leaf in the dtype the port's cache keeps: the
+    SSM states float32, the rest the config's dtype."""
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.param_dtype)
+    return {k: torch.tensor(np.asarray(a, np.float32), device=dev,
+                            dtype=torch.float32 if k == "ssm" else dt)
+            for k, a in cache.items()}

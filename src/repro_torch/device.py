@@ -4,16 +4,19 @@ package leaves placement to `jax.default_backend()`).
 float32 throughout, as in the reference.  TF32 is switched off for matrix
 products and for cuDNN at import: TF32 keeps about three decimal digits,
 and the parity of the port's kernels with the reference rests on full
-float32 arithmetic.
+float32 arithmetic.  The LM stack's bf16 products accumulate in float32, as
+the reference's do: cuBLAS's reduced-precision bf16 reduction is off too.
 """
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 DTYPE = torch.float32
 
@@ -54,3 +57,17 @@ def resolve_backend(backend: Optional[str], device: torch.device) -> str:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     return backend
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

@@ -1,7 +1,7 @@
-"""AQP serving on the port (counterpart: the AQP half of
-`repro/launch/serve.py`; its LM mode is ROADMAP queue 1.15 and not offered).
+"""Serving entry points of the port (counterpart: `repro/launch/serve.py`).
 
-A long-lived admission loop over a `TelemetryStore`: concurrent query
+AQP mode (the default here; the reference defaults to LM mode):
+a long-lived admission loop over a `TelemetryStore`: concurrent query
 clients submit heterogeneous AqpQuery specs (1-D ranges, multi-column box
 predicates of eq. 11, categorical equality on a dictionary column) into one
 `AqpSession` while a producer keeps streaming telemetry batches into the
@@ -38,6 +38,17 @@ of seeding a new store: no refit, and the exact categorical path stays on.
 `--tuning-cache FILE` loads (and persists sweeps to) a tile cache of
 `repro_torch.kernels.autotune`, e.g. one written by
 `python -m repro_torch.launch.autotune --cache FILE`.
+
+LM mode: random weights (seed 0) for one architecture's published config
+(or its smoke config, `--smoke`), `--batch` random prompts of
+`--prompt-len` tokens (seed 1), prefill and `--max-new` greedy decode steps,
+twice; it prints the warm run's tokens/s and the card's name and power
+limit.  Like AQP mode it runs on the CUDA device and raises without one
+unless `--device cpu` asks for the CPU.
+
+    python -m repro_torch.launch.serve --mode lm --arch llama3.2-1b \
+        --batch 4 --prompt-len 128 --max-new 32
+    python -m repro_torch.launch.serve --mode lm --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -443,13 +454,65 @@ def run_aqp(args) -> dict:
             "cache": cs}
 
 
+def run_lm(args) -> dict:
+    """LM mode: prefill + greedy decode of random prompts, run twice (the
+    first run also loads the card's libraries).  Returns the model, its
+    inputs, and each run's tokens, chosen-from logits and seconds."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.device import card_line, resolve_device, synchronize
+    from repro_torch.models import build_model, random_inputs
+    from repro_torch.train import greedy_generate
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model = build_model(cfg, device, torch.Generator(device=device).manual_seed(0))
+    inputs = random_inputs(cfg, args.batch, args.prompt_len,
+                           torch.Generator(device=device).manual_seed(1))
+    prompt = inputs.pop("tokens")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve:lm] {cfg.name} ({cfg.family}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params:,} parameters, {cfg.param_dtype}) on {device}")
+    runs = []
+    for _ in range(2):
+        synchronize(device)
+        t0 = time.perf_counter()
+        tokens, logits = greedy_generate(model, prompt, args.max_new, extra_batch=inputs,
+                                         with_logits=True)
+        synchronize(device)
+        runs.append({"tokens": tokens, "logits": logits, "seconds": time.perf_counter() - t0})
+    new = args.batch * args.max_new
+    tps = new / runs[1]["seconds"]
+    print(f"[serve:lm] generated {tuple(runs[1]['tokens'].shape)} tokens: "
+          f"{runs[0]['seconds']:.3f} s first run, {runs[1]['seconds']:.3f} s warm, "
+          f"{tps:,.1f} new tokens/s warm (prefill of {args.batch} x {args.prompt_len} "
+          f"included)")
+    card = card_line() if device.type == "cuda" else None
+    if card:
+        print(f"[serve:lm] card: {card}")
+    print(f"[serve:lm] sample: {runs[1]['tokens'][0, args.prompt_len:].tolist()}")
+    return {"cfg": cfg, "model": model, "prompt": prompt, "extra": inputs, "runs": runs,
+            "tokens_per_s": tps, "device": str(device), "card": card}
+
+
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="AQP serving on the port (admission loop)")
-    ap.add_argument("--mode", default="aqp", choices=["aqp"],
-                    help="serving mode (the reference's lm mode is not ported)")
+    from repro_torch.configs.base import ARCH_IDS
+
+    ap = argparse.ArgumentParser(description="Serving on the port: AQP admission loop "
+                                             "or LM prefill + decode")
+    ap.add_argument("--mode", default="aqp", choices=["aqp", "lm"],
+                    help="serving mode (default aqp; the reference defaults to lm)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device, raising without "
                          "one; 'cpu' runs the plain PyTorch path)")
+    ap.add_argument("--arch", default="llama3.2-1b", choices=list(ARCH_IDS),
+                    help="lm mode: the architecture")
+    ap.add_argument("--smoke", action="store_true",
+                    help="lm mode: the architecture's reduced smoke config")
+    ap.add_argument("--batch", type=int, default=4, help="lm mode: prompts")
+    ap.add_argument("--prompt-len", type=int, default=16, help="lm mode: prompt tokens")
+    ap.add_argument("--max-new", type=int, default=16, help="lm mode: tokens generated")
     ap.add_argument("--rows", type=int, default=200_000)
     ap.add_argument("--clients", type=int, default=8,
                     help="concurrent query clients feeding the AqpSession")
@@ -522,7 +585,12 @@ def main(argv=None) -> None:
         ap.error(f"--fullh-frac must be in [0, 1], got {args.fullh_frac}")
     if args.snapshot_every < 1:
         ap.error(f"--snapshot-every must be >= 1, got {args.snapshot_every}")
-    run_aqp(args)
+    if args.mode == "lm":
+        if min(args.batch, args.prompt_len, args.max_new) < 1:
+            ap.error("--batch, --prompt-len and --max-new must be >= 1")
+        run_lm(args)
+    else:
+        run_aqp(args)
 
 
 if __name__ == "__main__":

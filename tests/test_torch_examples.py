@@ -1,9 +1,10 @@
-"""The port's three examples (`examples/torch_*.py`) run end to end on the
+"""The port's four examples (`examples/torch_*.py`) run end to end on the
 CPU at small sizes, each in a process of its own with a timeout: the
-quickstart's three selectors, the database scenario's sections, and the
-distributed example over 2 gloo ranks.  Without a CUDA device and without
-`--device`, an example exits non-zero.  On a card they run at full size in
-chip_smoke.py's phase I.
+quickstart's three selectors, the database scenario's sections, the
+distributed example over 2 gloo ranks, and the LM serving scenario's three
+models.  Without a CUDA device and without `--device`, an example exits
+non-zero.  On a card the first three run at full size in chip_smoke.py's
+phase I; phase L drives the LM serving path itself.
 """
 import os
 import subprocess
@@ -27,6 +28,10 @@ RUNS = {
                                         "--d", "3", "--n-h", "20"],
                                        ["2 ranks over gloo on cpu", "pairwise K4 sum",
                                         "PLUGIN Psi6 / Psi4 sums", "distributed LSCV_h"]),
+    "torch_serve_lm.py": (["--batch", "2", "--prompt-len", "6", "--max-new", "4"],
+                          ["[llama3.2-1b       ] generated 2x10 tokens",
+                           "[falcon-mamba-7b   ] generated 2x10 tokens",
+                           "[whisper-base      ] generated 2x10 tokens"]),
 }
 
 

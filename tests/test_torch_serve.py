@@ -130,6 +130,15 @@ def test_serve_snapshots_then_warm_restarts(tmp_path):
     assert _answers(again.stdout) == _answers(first.stdout)
 
 
-def test_serve_offers_no_lm_mode():
+def test_serve_offers_no_lm_mode(monkeypatch):
+    """The port's serve now offers `--mode lm` (ROADMAP queue 1.15a), but not
+    as its default: with no `--mode` it runs the AQP loop, where the
+    reference's serve defaults to LM mode.  An unknown mode exits."""
+    called = []
+    monkeypatch.setattr(tserve, "run_aqp", lambda args: called.append(("aqp", args.mode)))
+    monkeypatch.setattr(tserve, "run_lm", lambda args: called.append(("lm", args.arch)))
+    tserve.main(["--device", "cpu"])
+    tserve.main(["--mode", "lm", "--device", "cpu", "--smoke"])
+    assert called == [("aqp", "aqp"), ("lm", "llama3.2-1b")]
     with pytest.raises(SystemExit):
-        tserve.main(["--mode", "lm", "--device", "cpu"])
+        tserve.main(["--mode", "train", "--device", "cpu"])

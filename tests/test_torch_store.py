@@ -243,7 +243,7 @@ def test_port_imports_neither_jax_nor_repro():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert [p.name for p in examples] == ["torch_aqp_database.py",
                                           "torch_distributed_bandwidth.py",
-                                          "torch_quickstart.py"]
+                                          "torch_quickstart.py", "torch_serve_lm.py"]
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + examples)
     assert len(files) > 10
