@@ -123,7 +123,26 @@ non-zero and prints no result line):
      prefill and 8 greedy decode steps, finite logits, decode against
      `apply` (MoE also with capacity_factor = E / k, where nothing is
      dropped); the serve CLI in LM mode at (a)'s size as a process of its own;
- 14. every kernel against its plain PyTorch version on the card, on the
+ 14. phase R, LM training (no hand kernel either; launch counts read and
+     printed): (a) `launch/train.run_train` on llama3.2-1b at its full
+     published config in bf16 with remat "nothing", batch 8 x 512 in 2
+     microbatches, 10 steps, twice from seed 0, with the same loss,
+     grad-norm and parameter bits; the forward-backward, the AdamW update
+     and a whole step timed apart (CUDA events) beside their bounds, a
+     step's device ms by kernel kind (torch.profiler), tokens/s, peak
+     memory against 16 bytes a parameter; (b) a float32 copy of its first 2
+     layers at full width, one step (2 microbatches) on the card and on the
+     CPU on the same pipeline batch: loss, grad norm, m, v and the
+     parameters at the CPU parity tests' tolerances; (c) every other
+     architecture at full width with `R_DEPTH`'s cuts: one batch's
+     gradients with remat on and off (the same bits), then 2 train steps
+     with finite losses and grad norms; (d) `python -m
+     repro_torch.launch.train` on the smoke config crashing at step 6 (exit
+     42), resuming from its step-4 checkpoint and ending with the same
+     checkpoint bits as an uninterrupted run; (e) `compressed_psum` on one
+     NCCL rank, each leaf the quantise-dequantise of g + e, the residual
+     carried into a second call;
+ 15. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -133,7 +152,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
- 15. kernel and plain-version times (CUDA events, median of warm runs) on
+ 16. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
@@ -151,7 +170,11 @@ runs, the card), a {"phase_i": {...}} line (the binned and exact PLUGIN
 times, the shares and their times, the distributed calls, the examples'
 seconds, the card), a {"phase_l": {...}} line (run_lm's times, tokens/s and
 bounds, the float32 copy's card-CPU difference, each other architecture's
-depth, times and error, the CLI's line, the card), a {"path_f_kernels":
+depth, times and error, the CLI's line, the card), a {"phase_r": {...}}
+line (the steps' losses, grad norms and times, the step's parts against
+their bounds, peak memory, the float32 copy's differences, each other
+architecture's depth and steps, the restart's times, the card), a
+{"path_f_kernels":
 [...]} line (the path-F kernels at n = 4 096),
 a {"kernels": [...]} JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -2493,6 +2516,416 @@ def phase_l(torch, rt) -> dict:
     return summary
 
 
+# --- phase R: LM training (ROADMAP queue 1.15b) -------------------------------------
+
+R_BATCH, R_SEQ, R_MICRO, R_STEPS = 8, 512, 2, 10    # launch.train's path at full size
+R_LR = 3e-4                                         # the trainer's default
+R_F32_BATCH, R_F32_SEQ = 2, 64                      # (b): the CPU takes the same step
+R_OTHER_BATCH, R_OTHER_SEQ = 2, 128                 # (c)
+# (c)'s SSM families scan time in a Python loop: shorter sequences
+R_OTHER_SEQS = {"falcon-mamba-7b": 32, "zamba2-1.2b": 64}
+# (c)'s depth: phase L's cuts, but qwen3-moe-235b-a22b keeps 1 of its 94 layers
+# (3.73 B parameters: 59.7 GB of bf16 weights, float32 moments and gradients)
+R_DEPTH = dict(L_DEPTH, **{"qwen3-moe-235b-a22b": 1})
+# (d): the crash-restart through the CLI, on llama3.2-1b's smoke config
+R_CLI = ("--smoke", "--steps", "12", "--batch", "4", "--seq", "32", "--ckpt-every", "4")
+R_FAIL_AT = 6
+# (b)'s tolerances, the CPU parity tests' (tests/test_torch_train_step.py): loss
+# and grad norm rtol 1e-5; m and v rtol L_F32_RTOL with atol R_STATE_ATOL x the
+# leaf's max |value|; a parameter within R_P_LOOSE x lr everywhere (AdamW steps
+# about lr whatever the gradient's size, so a gradient at float32 noise may step
+# either way) and within R_P_TIGHT x lr + 2^-20 |p| where the gradient is at
+# least R_ABOVE of its leaf's max |gradient| (read from m = (1 - b1) g)
+R_RTOL = 1e-5
+R_STATE_ATOL = 1e-4
+R_P_LOOSE, R_P_TIGHT, R_ABOVE = 2.0, 1e-2, 1e-3
+
+
+def r_args(**kw) -> argparse.Namespace:
+    base = dict(arch=L_ARCH, smoke=L_SMOKE, device=DEV, steps=R_STEPS, batch=R_BATCH,
+                seq=R_SEQ, n_micro=R_MICRO, lr=R_LR, ckpt_dir="", ckpt_every=20,
+                simulate_failure_at=-1, log_every=1)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def r_bounds(n_params: int, tokens: int) -> dict:
+    """A step's bounds (ms): 6 N T FLOPs at the bf16 peak (8 N T with remat's
+    recomputed forward), 28 bytes a parameter (the weights read twice and
+    AdamW's 24) at the HBM rate; AdamW alone, 24 bytes a parameter; tokens/s
+    at the 6 N T bound."""
+    flops = 6 * n_params * tokens / PEAK_BF16 * 1e3
+    return {"step_ms": flops, "step_remat_ms": flops * 8 / 6,
+            "step_bytes_ms": 28 * n_params / PEAK_BYTES * 1e3,
+            "adamw_ms": 24 * n_params / PEAK_BYTES * 1e3, "tokens_per_s": tokens / flops * 1e3}
+
+
+def r_train(torch, train_mod) -> tuple:
+    """(a) launch.train's path on llama3.2-1b at full size, twice from seed
+    0: finite losses and grad norms, the same loss and grad-norm bits at
+    every step and the same final parameter bits; the second run's peak
+    device memory."""
+    first = train_mod.run_train(r_args())
+    check(all(math.isfinite(v) for v in first["losses"] + first["grad_norms"]),
+          f"phase R (a): non-finite loss or grad norm {first['losses']} {first['grad_norms']}")
+    kept = {k: p.detach().cpu() for k, p in first["params"].items()}
+    losses, norms, secs = first["losses"], first["grad_norms"], first["seconds"]
+    del first
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    run = train_mod.run_train(r_args())
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    check(run["losses"] == losses, f"phase R (a): two runs, other losses {losses} / "
+                                   f"{run['losses']}")
+    check(run["grad_norms"] == norms, "phase R (a): two runs, other grad norms")
+    other = [k for k, p in run["params"].items() if not torch.equal(p.detach().cpu(), kept[k])]
+    check(not other, f"phase R (a): two runs, other parameter bits in {other[:5]}")
+    return run, {"losses": losses, "grad_norms": norms, "first_seconds": secs}, peak
+
+
+def r_timing(torch, run) -> dict:
+    """CUDA-event times of the forward-backward (n_micro 2) and the AdamW
+    update apart and of a whole step, on a pipeline batch, and the device ms
+    and kernels of one step (torch.profiler)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_grads_fn, make_train_step
+
+    model, params, state, cfg = run["model"], run["params"], run["opt_state"], run["cfg"]
+    opt_cfg = adamw.AdamWConfig(lr=R_LR, warmup_steps=1, total_steps=R_STEPS)
+    batch = TokenPipeline(cfg.vocab_size, R_BATCH, R_SEQ, seed=1, device=DEV).next()
+    grads_of = make_grads_fn(model, R_MICRO)
+    leaves = list(params.values())
+    fb_ms = time_ms(torch, lambda: grads_of(leaves, batch), reps=5, warm=1)
+    grads = adamw.like(params, grads_of(leaves, batch)[1])
+    upd_ms = time_ms(torch, lambda: adamw.update(opt_cfg, grads, state, params), reps=5,
+                     warm=1)
+    del grads
+    step = make_train_step(model, opt_cfg, R_MICRO)
+    step_ms = time_ms(torch, lambda: step(params, state, batch), reps=5, warm=1)
+    dev_ms, kernels, kinds, top = r_device_breakdown(torch, lambda: step(params, state, batch))
+    return {"fwd_bwd_ms": fb_ms, "adamw_ms": upd_ms, "step_ms": step_ms,
+            "step_device_ms": dev_ms, "step_kernels": kernels, "step_device_by_kind": kinds,
+            "step_top_kernels": top, "tokens_per_s": R_BATCH * R_SEQ / step_ms * 1e3}
+
+
+# kinds of a train step's device kernels, by a substring of the kernel's name
+R_KINDS = (("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+           ("foreach", ("multi_tensor_apply",)), ("softmax", ("softmax",)),
+           ("reduce", ("reduce",)),
+           ("index", ("index", "gather", "scatter", "segment", "sort", "unique", "radix")),
+           ("copy", ("copy", "memcpy", "memset", "fill", "cat")),
+           ("elementwise", ("elementwise", "vectorized")))
+
+
+def r_device_breakdown(torch, fn, top: int = 8) -> tuple:
+    """(device ms, kernels, device ms by kind, the `top` kernels by device
+    time as [name, ms, launches]) of one run of fn, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us and "CUDA" in str(getattr(ev, "device_type", "")):
+            rows.append((ev.key, us / 1e3, ev.count))
+    kinds = {}
+    for name, ms, _n in rows:
+        low = name.lower()
+        kind = next((k for k, subs in R_KINDS if any(x in low for x in subs)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    rows.sort(key=lambda r: -r[1])
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows), kinds,
+            [[name[:120], ms, n] for name, ms, n in rows[:top]])
+
+
+def r_state_held(torch, card: dict, host: dict, lr: float, what: str) -> dict:
+    """(b)'s check of one step's m, v and parameters, card against CPU."""
+    worst = {"m": 0.0, "v": 0.0, "params": 0.0}
+    for k, m_ref in host["m"].items():
+        m_max = float(m_ref.abs().max())
+        worst["m"] = max(worst["m"], held(card["m"][k], m_ref, L_F32_RTOL,
+                                          R_STATE_ATOL * m_max, f"{what}: m of {k}"))
+        v_ref = host["v"][k]
+        worst["v"] = max(worst["v"], held(card["v"][k], v_ref, L_F32_RTOL,
+                                          R_STATE_ATOL * float(v_ref.abs().max()),
+                                          f"{what}: v of {k}"))
+        p_ref = host["params"][k]
+        dp = (card["params"][k] - p_ref).abs()
+        above = m_ref.abs() >= R_ABOVE * m_max
+        bound = torch.where(above, R_P_TIGHT * lr + 2.0 ** -20 * p_ref.abs(),
+                            torch.full_like(p_ref, R_P_LOOSE * lr))
+        check(bool((dp <= bound).all()), f"{what}: parameter {k} moved {float(dp.max())} "
+                                         f"from the CPU's (lr {lr})")
+        worst["params"] = max(worst["params"], float(dp.max()))
+    return worst
+
+
+def r_float32(torch, run) -> dict:
+    """(b) a float32 copy of the first L_F32_LAYERS layers at full width:
+    one train step (n_micro 2) on the card and on the CPU on the same
+    pipeline batch; loss, grad norm, m, v and the parameters held."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step, train_params
+
+    cfg32 = dataclasses.replace(run["cfg"], n_layers=L_F32_LAYERS, param_dtype="float32")
+    keep = {k: p.detach().float().cpu() for k, p in run["params"].items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < L_F32_LAYERS}
+    batch = TokenPipeline(cfg32.vocab_size, R_F32_BATCH, R_F32_SEQ, seed=2, device="cpu").next()
+    opt_cfg = adamw.AdamWConfig(lr=R_LR, warmup_steps=1, total_steps=R_STEPS)
+
+    def one_step(dev):
+        model = build_model(cfg32, dev, torch.Generator(device=dev).manual_seed(0))
+        model.load_state_dict(keep, strict=True)
+        params = train_params(model)
+        state = adamw.init(params)
+        step = make_train_step(model, opt_cfg, R_MICRO)
+        (_p, state, met), sec = (synced_s(torch, lambda: step(params, state, {
+            k: v.to(dev) for k, v in batch.items()})) if dev == "cuda" else
+            (step(params, state, batch), None))
+        out = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+               "params": {k: p.detach().cpu() for k, p in params.items()},
+               "m": {k: t.cpu() for k, t in state.m.items()},
+               "v": {k: t.cpu() for k, t in state.v.items()}, "seconds": sec}
+        del model, params, state
+        return out
+
+    t0 = time.perf_counter()
+    card = one_step(DEV)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = one_step("cpu")
+    t_cpu = time.perf_counter() - t0
+    what = "phase R (b): float32 card against CPU"
+    held(card["loss"], host["loss"], R_RTOL, 0.0, f"{what}, loss")
+    held(card["grad_norm"], host["grad_norm"], R_RTOL, 0.0, f"{what}, grad norm")
+    worst = r_state_held(torch, card, host, R_LR, what)
+    print(f"phase R (b) {cfg32.name} float32, {L_F32_LAYERS} layers, batch {R_F32_BATCH} x "
+          f"{R_F32_SEQ}, {R_MICRO} microbatches: one step on the card ({t_card:.2f} s with the "
+          f"build) and the CPU ({t_cpu:.2f} s); loss {card['loss']:.6f} / {host['loss']:.6f}, "
+          f"grad norm {card['grad_norm']:.6f} / {host['grad_norm']:.6f}; max abs difference "
+          f"m {worst['m']:.3g}, v {worst['v']:.3g}, parameters {worst['params']:.3g} "
+          f"(lr {R_LR})")
+    return {"layers": L_F32_LAYERS, "loss": [card["loss"], host["loss"]],
+            "grad_norm": [card["grad_norm"], host["grad_norm"]], "max_abs_err": worst,
+            "card_s": t_card, "cpu_s": t_cpu}
+
+
+def r_other(torch, arch: str) -> dict:
+    """(c) one other architecture at full width, its depth cut to
+    R_DEPTH[arch]: the gradients of one batch with remat on and off (the
+    same bits), then 2 train steps with finite losses and grad norms."""
+    import dataclasses
+
+    from repro_torch.models import build_model, random_inputs
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step, train_params
+    from repro_torch.train.train_step import make_grads_fn
+
+    cfg = l_config(arch, R_DEPTH[arch])
+    t0 = time.perf_counter()
+    model = build_model(cfg, DEV, torch.Generator(device=DEV).manual_seed(0))
+    params = train_params(model)
+    leaves = list(params.values())
+    seq = R_OTHER_SEQS.get(arch, R_OTHER_SEQ)
+    batch = random_inputs(cfg, R_OTHER_BATCH, seq, torch.Generator(device=DEV).manual_seed(1))
+    batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    grads_of = make_grads_fn(model, 1)
+    (loss_on, g_on), fb_s = synced_s(torch, lambda: grads_of(leaves, batch))
+    model.cfg = dataclasses.replace(cfg, remat=False)
+    loss_off, g_off = grads_of(leaves, batch)
+    model.cfg = cfg
+    check(torch.equal(loss_on, loss_off), f"phase R (c) {arch}: remat on / off, other loss")
+    other = [k for k, a, b in zip(params, g_on, g_off) if not torch.equal(a, b)]
+    check(not other, f"phase R (c) {arch}: remat on / off, other gradient bits in {other[:5]}")
+    del g_on, g_off
+    state = adamw.init(params)
+    step = make_train_step(model, adamw.AdamWConfig(lr=R_LR, warmup_steps=1, total_steps=2))
+    losses, norms, secs = [], [], []
+    for _ in range(2):
+        (params, state, met), sec = synced_s(torch, lambda: step(params, state, batch))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(sec)
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"phase R (c) {arch}: non-finite loss or grad norm {losses} {norms}")
+    n_params = sum(p.numel() for p in leaves)
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    del model, params, leaves, state, step, batch
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"layers": cfg.n_layers, "of": l_config(arch).n_layers, "params": n_params,
+           "batch": R_OTHER_BATCH, "seq": seq, "losses": losses, "grad_norms": norms,
+           "fwd_bwd_s": fb_s, "step_s": secs, "peak_gb": peak / 1e9,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase R (c) {arch}: {cfg.n_layers} of {out['of']} layers, {n_params:,} parameters, "
+          f"batch {R_OTHER_BATCH} x {seq}; remat on / off the same gradient bits; 2 steps, "
+          f"losses {losses[0]:.4f} {losses[1]:.4f}, grad norms {norms[0]:.3f} {norms[1]:.3f}, "
+          f"{secs[0]:.2f} / {secs[1]:.2f} s a step, peak {peak / 1e9:.1f} GB")
+    return out
+
+
+def r_cli(*argv) -> subprocess.Popen:
+    """`python -m repro_torch.launch.train` with argv, started."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv]
+    if DEV != "cuda":
+        cmd += ["--device", DEV]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                             else "")
+    return subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def r_done(proc: subprocess.Popen) -> tuple:
+    """(exit code, stdout and the end of stderr) of a started CLI run."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    return proc.returncode, out + err[-3000:]
+
+
+def r_restart(torch, train_mod, tmp: str, crash: subprocess.Popen) -> dict:
+    """(d) crash and restart through the CLI: the run with
+    --simulate-failure-at (started before (c), `crash`, writing under
+    `tmp`) exits 42, the rerun resumes from its last checkpoint and ends
+    with the same checkpoint bits as an uninterrupted run of the same steps
+    (in this process)."""
+    import re
+
+    crashed, whole = os.path.join(tmp, "crashed"), os.path.join(tmp, "whole")
+    rc, out = r_done(crash)
+    check(rc == 42, f"phase R (d): the failing run exited {rc}, not 42:\n{out[-3000:]}")
+    t0 = time.perf_counter()
+    rc, out = r_done(r_cli(*R_CLI, "--ckpt-dir", crashed))
+    t_resume = time.perf_counter() - t0
+    check(rc == 0, f"phase R (d): the resumed run exited {rc}:\n{out[-3000:]}")
+    resumed = re.search(r"resumed from step (\d+) \(([\d.]+) ms to restore\)", out)
+    saved = re.search(r"checkpoint of step \d+ written in ([\d.]+) ms", out)
+    check(resumed is not None and saved is not None,
+          f"phase R (d): no resume or checkpoint line:\n{out[-3000:]}")
+    argv = list(R_CLI) + ["--ckpt-dir", whole, "--device", DEV]
+    train_mod.run_train(train_mod.parser().parse_args(argv))
+    final = "step_{:08d}/arrays.npz".format(int(R_CLI[R_CLI.index("--steps") + 1]))
+    with np.load(os.path.join(crashed, final)) as a, np.load(os.path.join(whole, final)) as b:
+        check(sorted(a.files) == sorted(b.files), "phase R (d): other checkpoint keys")
+        other = [k for k in a.files if a[k].tobytes() != b[k].tobytes()]
+        n_keys = len(a.files)
+    check(not other, f"phase R (d): restarted and uninterrupted runs differ in {other[:5]}")
+    step0, load_ms, save_ms = int(resumed.group(1)), float(resumed.group(2)), float(saved.group(1))
+    print(f"phase R (d) crash at step {R_FAIL_AT} exits 42 (run beside (c)), the rerun "
+          f"resumes from step {step0} ({load_ms:.1f} ms to restore, {t_resume:.1f} s) and its "
+          f"final checkpoint ({n_keys} arrays, written in {save_ms:.1f} ms) equals an "
+          f"uninterrupted run's bit for bit")
+    return {"resumed_from": step0, "load_ms": load_ms, "save_ms": save_ms,
+            "resume_run_s": t_resume, "arrays": n_keys}
+
+
+def r_compress(torch, rt) -> dict:
+    """(e) compressed_psum on one NCCL rank (a file store): each leaf equal
+    to the quantise-dequantise of g + e, the new residual quantize's, and a
+    second call carrying that residual."""
+    from repro_torch.optim import grad_compress as gc
+
+    D = rt["distributed"]
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    grads = {"w": torch.randn((1024, 512), generator=gen, device=DEV),
+             "b": torch.randn((4096,), generator=gen, device=DEV) * 1e-3,
+             "h": torch.randn((64, 64), generator=gen, device=DEV).to(torch.bfloat16)}
+    errors = {k: torch.randn(g.shape, generator=gen, device=DEV) * 1e-4 for k, g in grads.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        D.init_group(os.path.join(tmp, "store"), 0, 1, device=DEV, timeout_s=120)
+        try:
+            (out, carried), sec = synced_s(torch, lambda: gc.compressed_psum(grads, errors))
+            out2, carried2 = gc.compressed_psum(grads, carried)
+            backend = rt["dist"].get_backend()
+        finally:
+            rt["dist"].destroy_process_group()
+    for k, g in grads.items():
+        for e_in, o, e_out in ((errors[k], out[k], carried[k]), (carried[k], out2[k], carried2[k])):
+            q, scale, resid = gc.quantize(g, e_in)
+            check(torch.equal(o, q.float() * scale), f"phase R (e): {k} is not the quantise-"
+                                                     f"dequantise of its input")
+            check(torch.equal(e_out, resid), f"phase R (e): {k}'s residual")
+        check(not torch.equal(out2[k], out[k]) or not torch.equal(carried2[k], carried[k]),
+              f"phase R (e): {k}'s residual was not carried")
+    wire = (gc.wire_bytes(grads, True), gc.wire_bytes(grads, False))
+    print(f"phase R (e) compressed_psum on {backend}, 1 rank: 3 leaves equal their "
+          f"quantise-dequantise, residuals carried into a second call; {sec * 1e3:.1f} ms "
+          f"first call; {wire[0]:,} / {wire[1]:,} bytes on the wire (int8 / float32)")
+    return {"backend": backend, "first_ms": sec * 1e3, "wire_bytes": wire}
+
+
+def phase_r(torch, rt) -> dict:
+    """Phase R: LM training, with every launch count set to 0 just before
+    it and read just after."""
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.launch import train as train_mod
+
+    ops = rt["ops"]
+    ops.reset_launch_counts()
+    summary = {"card": card_line(),
+               "threads": sorted(t.name for t in threading.enumerate())}
+    print(f"phase R starts beside {len(summary['threads'])} threads: {summary['threads']}")
+    run, first, peak = r_train(torch, train_mod)
+    cfg = run["cfg"]
+    n = sum(p.numel() for p in run["params"].values())
+    tokens = R_BATCH * R_SEQ
+    bounds = r_bounds(n, tokens)
+    timing = r_timing(torch, run)
+    secs = run["seconds"]
+    warm = float(np.median(secs[1:])) if len(secs) > 1 else secs[0]
+    summary["train"] = dict(
+        arch=cfg.name, params=n, batch=R_BATCH, seq=R_SEQ, n_micro=R_MICRO, steps=R_STEPS,
+        remat=cfg.remat_policy if cfg.remat else "off", losses=run["losses"],
+        grad_norms=run["grad_norms"], step_s=secs, first_run_step_s=first["first_seconds"],
+        tokens_per_s_loop=tokens / warm, peak_gb=peak / 1e9, reckoning_gb=16 * n / 1e9,
+        bounds=bounds, same_bits=True, **timing)
+    print(f"phase R (a) {cfg.name}: {n:,} parameters, batch {R_BATCH} x {R_SEQ}, {R_MICRO} "
+          f"microbatches, {R_STEPS} steps twice with the same loss, grad-norm and parameter "
+          f"bits; losses {run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; a step "
+          f"{timing['step_ms']:.2f} ms (events; device {timing['step_device_ms']:.2f} ms in "
+          f"{timing['step_kernels']} kernels; bound {bounds['step_ms']:.2f}, with remat "
+          f"{bounds['step_remat_ms']:.2f}): forward-backward {timing['fwd_bwd_ms']:.2f} ms, "
+          f"AdamW {timing['adamw_ms']:.2f} ms (bound {bounds['adamw_ms']:.2f}); "
+          f"{timing['tokens_per_s']:,.0f} tokens/s (bound {bounds['tokens_per_s']:,.0f}), "
+          f"{tokens / warm:,.0f} in the trainer's loop; peak {peak / 1e9:.2f} GB against "
+          f"16 bytes a parameter {16 * n / 1e9:.2f} GB")
+    print("phase R (a) a step's device ms by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(timing["step_device_by_kind"].items(),
+                                          key=lambda kv: -kv[1])))
+    for name, ms, count in timing["step_top_kernels"]:
+        print(f"phase R (a)   {ms:8.3f} ms in {count:5d} launches: {name}")
+    summary["float32"] = r_float32(torch, run)
+    del run
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d)'s failing run is a process of its own: it runs beside (c)
+        crash = r_cli(*R_CLI, "--ckpt-dir", os.path.join(tmp, "crashed"),
+                      "--simulate-failure-at", str(R_FAIL_AT))
+        try:
+            summary["others"] = {arch: r_other(torch, arch) for arch in ARCH_IDS
+                                 if arch != L_ARCH}
+        except BaseException:
+            crash.kill()
+            raise
+        summary["restart"] = r_restart(torch, train_mod, tmp, crash)
+    summary["compress"] = r_compress(torch, rt)
+    summary["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"phase R launches of hand kernels: {summary['launches'] or 'none'}")
+    return summary
+
+
 def child_main(args) -> int:
     """The second processes of phase T (`--child tuned`: the main path's
     store under a tuned cache) and path H (`--child restore`: the saved
@@ -3519,6 +3952,11 @@ def main() -> int:
     print(f"phase L: {time.perf_counter() - t_l:.1f} s; through phase L: "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_l": summary_l}))
+    t_r = time.perf_counter()
+    summary_r = phase_r(torch, rt)
+    print(f"phase R: {time.perf_counter() - t_r:.1f} s; through phase R: "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_r": summary_r}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))

@@ -1,4 +1,4 @@
-"""Atomic, keep-k, optionally asynchronous checkpoints of flat array dicts.
+"""Atomic, keep-k, optionally asynchronous checkpoints of tensor trees.
 Counterpart: `repro/checkpoint/checkpoint.py` (`CheckpointManager`), whose
 on-disk format this keeps, so either package reads the other's snapshots:
 
@@ -11,10 +11,18 @@ and `latest_step()` sees completed steps only.  bfloat16 arrays, which
 numpy cannot hold, are stored as their uint16 bits under a `.bf16` key and
 folded back on restore.
 
-The port keeps the flat-dict half (`restore_flat`, what
-`TelemetryStore.save` / `load` use).  Nested dicts are flattened with "/"
-keys, as the reference's pytree paths are; the pytree
-`restore(template, shardings)` belongs with the model stack.
+A tree is nested mappings, tuples, lists and NamedTuples of tensors (a
+saved tree may also hold numpy arrays), keyed by path as the reference's
+pytree paths are: a
+mapping's key, a tuple's or a list's index, a NamedTuple's field as
+".name" (jax's `GetAttrKey`), joined by "/".  So a training state
+`(params, AdamWState(m, v, count))` is stored under `0/layers/attn/wq`,
+`1/.m/layers/attn/wq`, `1/.count`, the reference's own keys.
+
+`restore(step, template)` reads a step into the template's structure, each
+leaf in the template leaf's dtype and on its device; `restore_flat(step)`
+reads one without a template (what `TelemetryStore.save` / `load` use).
+The reference's `shardings` argument waits for the port's mesh.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ import json
 import os
 import shutil
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,19 +44,58 @@ def _host(value) -> np.ndarray:
     return np.asarray(value)
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{"a/w": array, ...} from nested mappings of tensors or arrays, on the
-    host; a bfloat16 tensor becomes its uint16 bits under a `.bf16` key."""
+def _items(tree) -> Iterator[Tuple[str, Any]]:
+    """(path component, child) of one tree node; nothing for a leaf."""
+    if isinstance(tree, Mapping):
+        return ((str(k), v) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return ((f".{f}", getattr(tree, f)) for f in tree._fields)
+    if isinstance(tree, (tuple, list)):
+        return ((str(i), v) for i, v in enumerate(tree))
+    return iter(())
+
+
+def _is_leaf(tree) -> bool:
+    return not isinstance(tree, (Mapping, tuple, list))
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{"a/w": array, ...} from a tree of tensors or arrays, on the host; a
+    bfloat16 tensor becomes its uint16 bits under a `.bf16` key."""
     flat: Dict[str, np.ndarray] = {}
-    for key, value in tree.items():
+    for key, value in _items(tree):
         path = f"{prefix}{key}"
-        if isinstance(value, Mapping):
+        if not _is_leaf(value):
             flat.update(_flatten(value, path + "/"))
         elif isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16:
             flat[path + BF16] = value.detach().cpu().view(torch.int16).numpy().view(np.uint16)
         else:
             flat[path] = _host(value)
     return flat
+
+
+def _leaf_from(arrays: Mapping[str, np.ndarray], path: str, like: torch.Tensor):
+    """The stored leaf at `path` as a tensor of `like`'s dtype on its device."""
+    if path + BF16 in arrays:
+        t = torch.from_numpy(np.array(arrays[path + BF16]).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arrays[path]))
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint leaf {path!r} has shape {tuple(t.shape)}, the "
+                         f"template {tuple(like.shape)}")
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def _unflatten_into(template, arrays: Mapping[str, np.ndarray], prefix: str = ""):
+    if _is_leaf(template):
+        return _leaf_from(arrays, prefix[:-1], template)
+    children = [(k, _unflatten_into(v, arrays, f"{prefix}{k}/")) for k, v in _items(template)]
+    if isinstance(template, Mapping):
+        return type(template)((k, v) for k, v in zip(template, (c for _, c in children)))
+    values = [c for _, c in children]
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*values)
+    return type(template)(values)
 
 
 class CheckpointManager:
@@ -73,7 +120,7 @@ class CheckpointManager:
         os.replace(tmp, final)
         self._gc()
 
-    def save(self, step: int, tree: Mapping, extra: Optional[Dict] = None) -> None:
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
         """Copy `tree` to the host now, write it now or, with `async_save`,
         on the manager's thread (at most one write outstanding)."""
         self.wait()
@@ -116,3 +163,14 @@ class CheckpointManager:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         return flat, manifest["extra"]
+
+    def restore(self, step: int, template: Any) -> Tuple[Any, Dict]:
+        """(tree, extra) of one step, in the structure of `template` (a
+        tree of tensors), each leaf in the template leaf's dtype and on its
+        device."""
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        with np.load(os.path.join(path, "arrays.npz")) as z:
+            arrays = {k: z[k] for k in z.files}
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        return _unflatten_into(template, arrays), manifest["extra"]

@@ -73,9 +73,10 @@ def store_from_state(arrays: Dict[str, np.ndarray], meta: Dict[str, object],
 
 
 def lm_state_from_numpy(params: Mapping) -> Dict[str, np.ndarray]:
-    """The reference's LM parameter tree (nested dicts of numpy arrays, the
-    layer axis stacked) as the port's `state_dict()` keys: "layers.3.attn.wq"
-    for `params["layers"]["attn"]["wq"][3]`."""
+    """The reference's LM parameter tree (nested dicts of numpy arrays or
+    tensors, the layer axis stacked) as the port's `state_dict()` keys:
+    "layers.3.attn.wq" for `params["layers"]["attn"]["wq"][3]`.  The
+    inverse of `lm_tree_from_state`."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(tree, path, layer):
@@ -88,11 +89,38 @@ def lm_state_from_numpy(params: Mapping) -> Dict[str, np.ndarray]:
                 else:
                     walk(v, path + (k,), layer)
             else:
-                a = np.asarray(v)
+                a = v if isinstance(v, torch.Tensor) else np.asarray(v)
                 out[".".join(path + (k,))] = a if layer is None else a[layer]
 
     walk(params, (), None)
     return out
+
+
+def lm_tree_from_state(state: Mapping[str, torch.Tensor]) -> dict:
+    """The port's per-layer tensors by `state_dict()` key (or any mapping
+    with those keys, such as AdamW's moments) as the reference's tree:
+    nested dicts with each layer list stacked on a leading axis, on the
+    host.  The inverse of `lm_state_from_numpy`; the layout both packages'
+    training checkpoints share."""
+    tree: dict = {}
+    stacked: Dict[tuple, Dict[int, torch.Tensor]] = {}
+
+    def put(path, value):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+
+    for key, t in state.items():
+        parts = key.split(".")
+        t = t.detach().cpu()
+        if parts[0] in STACKED and len(parts) > 2 and parts[1].isdigit():
+            stacked.setdefault((parts[0],) + tuple(parts[2:]), {})[int(parts[1])] = t
+        else:
+            put(parts, t)
+    for path, by_layer in stacked.items():
+        put(path, torch.stack([by_layer[i] for i in range(len(by_layer))]))
+    return tree
 
 
 def _leaves(tree):

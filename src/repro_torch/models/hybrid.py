@@ -162,12 +162,15 @@ class HybridLM(LM):
                                None if mask is None else mask[:, 1:])
 
     def prefill(self, batch, window: int = 0):
-        """Forward pass that also returns decode-ready caches."""
-        x = self.embed["w"][batch["tokens"]]
+        """Forward pass that also returns decode-ready caches; each SSM
+        layer rematerialised in the backward (`L.remat_block`), the shared
+        attention block not, as in the reference."""
+        x = L.gather_rows(self.embed["w"], batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
+        mamba = L.remat_block(self._mamba2_block, self.cfg)
         convs, ssms, ks, vs = [], [], [], []
         for i, g in self._sites():
-            x, (conv, ssm) = self._mamba2_block(x, self.mamba[i])
+            x, (conv, ssm) = mamba(x, self.mamba[i])
             convs.append(conv)
             ssms.append(ssm)
             if g is not None:

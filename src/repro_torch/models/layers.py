@@ -13,14 +13,22 @@ Attention is query-chunked as in the reference: scores for one query chunk
 at a time over that chunk's static key range, so prefill memory is
 O(q_chunk * S) per head.  No library attention kernel is used: the port
 computes the reference's own float32 function.
+
+Training runs these functions under autograd.  The token embedding and
+the MoE dispatch read rows through `gather_rows`, whose backward adds a
+row's repeated gradients by a stable sort and a segment sum, never float
+atomics, so a step on the card gives the same bits run to run.
+`remat_block` is the reference's per-layer remat.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 NEG_INF = -1e30          # the reference's mask value
 
@@ -49,6 +57,38 @@ def zeros(gen: torch.Generator, shape, dtype):
 
 def full(gen: torch.Generator, shape, value: float, dtype):
     return torch.full(shape, value, device=gen.device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# row gather with a deterministic backward
+# ---------------------------------------------------------------------------
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = grad.reshape(flat.shape[0], -1)
+        order = torch.sort(flat, stable=True).indices
+        rows, lengths = torch.unique_consecutive(flat[order], return_counts=True)
+        sums = torch.segment_reduce(g[order].float(), "sum", lengths=lengths)
+        out = torch.zeros((ctx.rows, g.shape[1]), dtype=grad.dtype, device=grad.device)
+        out[rows] = sums.to(grad.dtype)
+        return out.reshape(ctx.rows, *grad.shape[idx.dim():]), None
+
+
+def gather_rows(table, idx):
+    """`table[idx]` (idx any integer shape).  The gradient of a row read k
+    times is its k gradients summed in float32 in index order (a stable sort
+    and a segment sum) and rounded once to the table's dtype, where
+    indexing's backward accumulates with float atomics on the card."""
+    return _GatherRows.apply(table, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +274,7 @@ def gelu_mlp(p, x):
 def cross_entropy(logits, labels, mask=None):
     """logits: (B, S, V) any float dtype; labels: (B, S) int; mask: (B, S).
 
-    Computed in float32; ignores positions where mask == 0.  Forward only.
+    Computed in float32; ignores positions where mask == 0.
     """
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
@@ -244,3 +284,42 @@ def cross_entropy(logits, labels, mask=None):
         return torch.mean(nll)
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+# products whose outputs a policy saves: "dots" those without a batch
+# dimension (jax's dots_with_no_batch_dims_saveable), "dots_full" every one
+# (dots_saveable); the rest of the block is recomputed in the backward
+_SAVED = {"dots": ("mm", "addmm"), "dots_full": ("mm", "addmm", "bmm", "baddbmm")}
+
+
+def _policy(saved, ctx, op, *args, **kwargs):
+    name = op.overloadpacket.__name__
+    return (ckpt.CheckpointPolicy.MUST_SAVE if name in saved
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_block(fn, cfg):
+    """Per-layer remat with the config's policy while gradients are on:
+    "nothing" recomputes the whole block in the backward (least memory),
+    "dots" saves the outputs of products without a batch dimension,
+    "dots_full" every product's.  Without gradients (prefill, decode) `fn`
+    runs as it is."""
+    if not cfg.remat:
+        return fn
+    kwargs = {}
+    if cfg.remat_policy in _SAVED:
+        policy = functools.partial(_policy, frozenset(_SAVED[cfg.remat_policy]))
+        kwargs["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                 policy)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+
+    def block(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return block

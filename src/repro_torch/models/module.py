@@ -15,8 +15,10 @@ from repro_torch.device import DeviceLike, resolve_device
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as parameters (no gradient: the serving
-    half of the LM stack runs forward only)."""
+    """A nested dict of tensors as parameters, registered without
+    gradients: serving runs forward only, and the train step
+    (`train.train_step.make_train_step`) switches them on with
+    `requires_grad_(True)`."""
 
     def __init__(self, tree: Optional[dict] = None):
         super().__init__()

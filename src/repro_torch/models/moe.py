@@ -6,7 +6,9 @@
   3. position within the expert from an exclusive cumsum of the per-expert
      counts; assignments past capacity C = ceil(cf * T * k / E) are dropped;
   4. gather tokens into the (E, C, D) expert batch and run all experts as
-     batched products;
+     batched products (`layers.gather_rows`: a token read by k slots, and
+     token 0 read by every unused slot, gets its gradient summed in a fixed
+     order);
   5. combine: each token gathers its k slots' gated outputs (a dropped slot
      gives 0) and adds them in slot order.  The reference scatter-adds
      instead; the gather keeps float atomics out, so the combine gives the
@@ -68,7 +70,7 @@ def moe_block(p, x, cfg):
 
     # 4. expert batch (E, C, D); slots never written hold token 0 and are
     # read by no token
-    xe = xt[disp_tok].reshape(E, C, D)
+    xe = L.gather_rows(xt, disp_tok).reshape(E, C, D)
     hg = F.silu(torch.bmm(xe, p["wg"]))
     hu = torch.bmm(xe, p["wu"])
     he = torch.bmm(hg * hu, p["wd"])                            # (E, C, D)
@@ -79,7 +81,7 @@ def moe_block(p, x, cfg):
     slot[order] = dst
     rows = torch.cat([he.reshape(E * C, D).float(),
                       torch.zeros(1, D, dtype=torch.float32, device=dev)])
-    contrib = (rows[slot] * gates.reshape(-1)[:, None]).reshape(T, k, D)
+    contrib = (L.gather_rows(rows, slot) * gates.reshape(-1)[:, None]).reshape(T, k, D)
     out = contrib[:, 0]
     for j in range(1, k):
         out = out + contrib[:, j]
@@ -88,7 +90,7 @@ def moe_block(p, x, cfg):
 
 def load_balance_loss(p, x, cfg):
     """Auxiliary load-balancing loss (Switch-style): E * sum_e f_e * p_e.
-    Forward only."""
+    No loss calls it, as in the reference."""
     B, S, D = x.shape
     T = B * S
     logits = x.reshape(T, D).float() @ p["router"]["w"]

@@ -122,9 +122,10 @@ class MambaLM(LM):
 
     # ------------------------------------------------------------ forward --
     def apply(self, batch):
-        x = self.embed["w"][batch["tokens"]]
+        x = L.gather_rows(self.embed["w"], batch["tokens"])
+        block = L.remat_block(lambda x, lp: self._block(x, lp)[0], self.cfg)
         for lp in self.layers:
-            x, _ = self._block(x, lp)
+            x = block(x, lp)
         return self._head(x)
 
     def loss(self, batch):

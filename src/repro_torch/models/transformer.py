@@ -86,7 +86,7 @@ class TransformerLM(LM):
         return x, k, v
 
     def _embed_inputs(self, batch):
-        x = self.embed["w"][batch["tokens"]]
+        x = L.gather_rows(self.embed["w"], batch["tokens"])
         if self.cfg.family == "vlm":
             vis = batch["patch_embeds"].to(x.dtype) @ self.vision_proj["w"]
             x = torch.cat([vis, x], dim=1)
@@ -98,15 +98,17 @@ class TransformerLM(LM):
         return x @ head
 
     def apply(self, batch):
-        """Teacher-forced forward -> logits (B, S_total, V)."""
+        """Teacher-forced forward -> logits (B, S_total, V); each layer
+        rematerialised in the backward (`L.remat_block`)."""
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
+        block = L.remat_block(lambda x, lp: self._block(x, lp, positions)[0], self.cfg)
         for lp in self.layers:
-            x, _, _ = self._block(x, lp, positions)
+            x = block(x, lp)
         return self._head(x)
 
     def loss(self, batch):
-        """Next-token cross entropy (forward only)."""
+        """Next-token cross entropy."""
         cfg = self.cfg
         logits = self.apply(batch)
         labels = batch["labels"]

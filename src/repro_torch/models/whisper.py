@@ -61,18 +61,23 @@ class EncDecLM(LM):
         x = enc_frames.to(param_dtype(cfg))
         pos = torch.arange(x.shape[1], device=x.device)
         x = x + sinusoid_positions(pos, cfg.d_model).to(x.dtype)[None]
+        block = L.remat_block(self._enc_block, cfg)
         for lp in self.enc_layers:
-            h = L.apply_norm(x, lp["ln1"], cfg.norm)
-            q, k, v = L.attn_qkv(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
-            o = L.attention_core(q, k, v, causal=False, q_chunk=cfg.q_chunk)
-            x = x + L.attn_out(lp["attn"], o)
-            h = L.apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + L.gelu_mlp(lp["mlp"], h)
+            x = block(x, lp)
         return L.apply_norm(x, self.ln_enc, cfg.norm)
+
+    def _enc_block(self, x, lp):
+        cfg = self.cfg
+        h = L.apply_norm(x, lp["ln1"], cfg.norm)
+        q, k, v = L.attn_qkv(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+        o = L.attention_core(q, k, v, causal=False, q_chunk=cfg.q_chunk)
+        x = x + L.attn_out(lp["attn"], o)
+        h = L.apply_norm(x, lp["ln2"], cfg.norm)
+        return x + L.gelu_mlp(lp["mlp"], h)
 
     # ------------------------------------------------------------ decoder --
     def _embed_tokens(self, tokens, positions):
-        x = self.embed["w"][tokens]
+        x = L.gather_rows(self.embed["w"], tokens)
         return x + sinusoid_positions(positions, self.cfg.d_model).to(x.dtype)
 
     def _dec_block(self, x, lp, enc_out):
@@ -117,13 +122,16 @@ class EncDecLM(LM):
         return {"k": kv, "v": kv, "ck": cross, "cv": cross}
 
     def prefill(self, batch):
-        """Encoder + teacher-forced decoder pass, returning decode caches."""
+        """Encoder + teacher-forced decoder pass, returning decode caches;
+        each encoder and decoder layer rematerialised in the backward
+        (`L.remat_block`)."""
         enc_out = self.encode(batch["enc_frames"])
         tokens = batch["tokens"]
         x = self._embed_tokens(tokens, torch.arange(tokens.shape[1], device=tokens.device))
+        block = L.remat_block(self._dec_block, self.cfg)
         kvs = []
         for lp in self.dec_layers:
-            x, kv = self._dec_block(x, lp, enc_out)
+            x, kv = block(x, lp, enc_out)
             kvs.append(kv)
         cache = {name: torch.stack([kv[j] for kv in kvs])
                  for j, name in enumerate(("k", "v", "ck", "cv"))}

@@ -1,3 +1,3 @@
-"""Serving steps of the LM stack (counterpart: `repro/train/`; the train
-step waits for the training half)."""
+"""Training and serving steps of the LM stack (counterpart: `repro/train/`)."""
 from .serve_step import greedy_generate, make_decode_step
+from .train_step import make_eval_step, make_train_step, split_microbatches, train_params

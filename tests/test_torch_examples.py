@@ -1,10 +1,11 @@
-"""The port's four examples (`examples/torch_*.py`) run end to end on the
+"""The port's five examples (`examples/torch_*.py`) run end to end on the
 CPU at small sizes, each in a process of its own with a timeout: the
 quickstart's three selectors, the database scenario's sections, the
-distributed example over 2 gloo ranks, and the LM serving scenario's three
-models.  Without a CUDA device and without `--device`, an example exits
-non-zero.  On a card the first three run at full size in chip_smoke.py's
-phase I; phase L drives the LM serving path itself.
+distributed example over 2 gloo ranks, the LM serving scenario's three
+models and the LM training scenario's tiny model.  Without a CUDA device
+and without `--device`, an example exits non-zero.  On a card the first
+three run at full size in chip_smoke.py's phase I; phases L and R drive the
+LM serving and training paths themselves.
 """
 import os
 import subprocess
@@ -32,6 +33,10 @@ RUNS = {
                           ["[llama3.2-1b       ] generated 2x10 tokens",
                            "[falcon-mamba-7b   ] generated 2x10 tokens",
                            "[whisper-base      ] generated 2x10 tokens"]),
+    "torch_train_lm.py": (["--tiny", "--steps", "4", "--batch", "2", "--seq", "32"],
+                          ["[example] demo-tiny: 0.8M params on cpu", "step    0  loss",
+                           "step    3  loss", "over 4 recorded steps; checkpoints at [4]",
+                           "[example] done"]),
 }
 
 

@@ -243,10 +243,16 @@ def test_port_imports_neither_jax_nor_repro():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert [p.name for p in examples] == ["torch_aqp_database.py",
                                           "torch_distributed_bandwidth.py",
-                                          "torch_quickstart.py", "torch_serve_lm.py"]
+                                          "torch_quickstart.py", "torch_serve_lm.py",
+                                          "torch_train_lm.py"]
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + examples)
     assert len(files) > 10
+    walked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files
+              if "repro_torch" in p.parts}
+    assert {"optim/adamw.py", "optim/grad_compress.py", "data/pipeline.py",
+            "checkpoint/__init__.py", "checkpoint/checkpoint.py", "checkpoint/elastic.py",
+            "train/train_step.py", "launch/train.py"} <= walked
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
