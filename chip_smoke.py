@@ -142,7 +142,24 @@ non-zero and prints no result line):
      checkpoint bits as an uninterrupted run; (e) `compressed_psum` on one
      NCCL rank, each leaf the quantise-dequantise of g + e, the residual
      carried into a second call;
- 15. every kernel against its plain PyTorch version on the card, on the
+ 15. phase M, the LM stack on a device mesh (no hand kernel; launch counts
+     read, none expected): (a) llama3.2-1b at full size, phase R (a)'s
+     batch, its parameters DTensors on a 1 x 1 NCCL mesh (one rank, a file
+     store) under the train specs with `param_constraint` the serve specs,
+     2 steps from seed 0 with the same loss, grad-norm and parameter bits
+     as `run_train`'s unsharded steps on the same batches (else the op and
+     the largest difference are printed and phase R (b)'s tolerances
+     hold), and the steps' peak memory; (b) `spmd_pipeline` on that rank,
+     one stage of its 16 blocks at full width, 4 microbatches, the same
+     bits as the blocks applied in order; (c) `python -m
+     repro_torch.launch.dryrun` for llama3.2-1b x train_4k and x
+     decode_32k on the 16 x 16 mesh, granite-moe-1b-a400m x decode_32k on
+     2 x 16 x 16 and `--kde 1048576,4,150`, each a process of its own
+     started before (a), every record ok; (d) `dryrun.lower_cell` on a
+     fake 1 x 1 mesh at (a)'s shape, its argument + temp bytes within 15 %
+     of (a)'s measured peak, the H100 roofline terms of that step beside
+     its measured time;
+ 16. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -152,7 +169,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
- 16. kernel and plain-version times (CUDA events, median of warm runs) on
+ 17. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
@@ -174,6 +191,9 @@ depth, times and error, the CLI's line, the card), a {"phase_r": {...}}
 line (the steps' losses, grad norms and times, the step's parts against
 their bounds, peak memory, the float32 copy's differences, each other
 architecture's depth and steps, the restart's times, the card), a
+{"phase_m": {...}} line (the sharded steps' losses, times and peak, the
+pipeline's time, each dry-run cell's dominant term, GB a device and trace
+seconds, the traced bytes against the peak, the card), a
 {"path_f_kernels":
 [...]} line (the path-F kernels at n = 4 096),
 a {"kernels": [...]} JSON line, the card's name and power limit, and last
@@ -2926,6 +2946,264 @@ def phase_r(torch, rt) -> dict:
     return summary
 
 
+M_STEPS = 2                                 # (a): sharded steps against run_train's
+M_PIPE_MICRO = 4                            # (b): microbatches of R_BATCH rows
+M_MEM_GAP = 0.15                            # (d): the dry run's bytes against the peak
+# (c): the dry run's cells, each `python -m repro_torch.launch.dryrun` of its own
+M_DRYRUN = (("--arch", "llama3.2-1b", "--shape", "train_4k"),
+            ("--arch", "llama3.2-1b", "--shape", "decode_32k"),
+            ("--arch", "granite-moe-1b-a400m", "--shape", "decode_32k", "--multi-pod"),
+            ("--kde", "1048576,4,150"))
+
+
+def m_sharded(torch, rt, mesh) -> dict:
+    """(a) llama3.2-1b at full width, phase R (a)'s batch (R_BATCH x R_SEQ in
+    R_MICRO microbatches, remat "nothing"), its parameters DTensors on the
+    1 x 1 mesh under the train specs and `param_constraint` the serve specs:
+    M_STEPS steps from seed 0 against run_train's unsharded steps on the
+    same batches (the same loss, grad-norm and parameter bits; otherwise
+    the op and the largest difference are printed and phase R (b)'s
+    tolerances hold); the sharded steps' peak device memory."""
+    from repro_torch import sharding
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.models import batch_specs, build_model, param_specs_with_dp
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step, train_params
+
+    plain = train_mod.run_train(r_args(steps=M_STEPS))
+    want = {"losses": plain["losses"], "grad_norms": plain["grad_norms"],
+            "params": {k: p.detach().cpu() for k, p in plain["params"].items()},
+            "m": {k: t.cpu() for k, t in plain["opt_state"].m.items()},
+            "v": {k: t.cpu() for k, t in plain["opt_state"].v.items()}}
+    cfg = plain["cfg"]
+    del plain
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    dp = dp_axes(mesh)
+    model = build_model(cfg, DEV, torch.Generator(device=DEV).manual_seed(0))
+    model.requires_grad_(True)
+    sharding.distribute_model(model, param_specs_with_dp(model, "train", dp), mesh)
+    params = train_params(model)
+    state = adamw.init(params)
+    opt_cfg = adamw.AdamWConfig(lr=R_LR, warmup_steps=max(M_STEPS // 10, 1),
+                                total_steps=M_STEPS)
+    step = make_train_step(model, opt_cfg, R_MICRO,
+                           param_constraint=param_specs_with_dp(model, "serve", dp))
+    pipe = TokenPipeline(cfg.vocab_size, R_BATCH, R_SEQ, device=DEV)
+    batches = [sharding.distribute(pipe.next(), batch_specs(cfg, dp), mesh)
+               for _ in range(M_STEPS)]
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for b in batches:
+        (params, state, met), sec = synced_s(torch, lambda: step(params, state, b))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        secs.append(sec)
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    got = {"losses": losses, "grad_norms": norms,
+           "params": {k: p.detach().full_tensor().cpu() for k, p in params.items()},
+           "m": {k: t.full_tensor().cpu() for k, t in state.m.items()},
+           "v": {k: t.full_tensor().cpu() for k, t in state.v.items()}}
+    placements = sorted({str(p.placements) for p in params.values()})
+    del model, params, state, step, batches
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"phase M (a): non-finite loss or grad norm {losses} {norms}")
+    other = [k for k in want["params"] if not torch.equal(got["params"][k], want["params"][k])]
+    same = (not other and got["losses"] == want["losses"]
+            and got["grad_norms"] == want["grad_norms"])
+    finding = None
+    if not same:
+        worst = max(want["params"], key=lambda k: float(
+            (got["params"][k].float() - want["params"][k].float()).abs().max()))
+        diff = float((got["params"][worst].float() - want["params"][worst].float()).abs().max())
+        finding = (f"DTensor's dispatch changed the bits: {len(other)} parameters differ, "
+                   f"the largest in {worst} by {diff:.3g}; losses {got['losses']} / "
+                   f"{want['losses']}, grad norms {got['grad_norms']} / {want['grad_norms']}")
+        print(f"phase M (a) {finding}; held to phase R (b)'s tolerances")
+        for a, b in zip(got["losses"] + got["grad_norms"], want["losses"] + want["grad_norms"]):
+            held(a, b, R_RTOL, 0.0, "phase M (a): sharded loss / grad norm")
+        r_state_held(torch, got, want, R_LR, "phase M (a): sharded against unsharded")
+    print(f"phase M (a) {cfg.name} on the 1 x 1 mesh ({len(placements)} placements: "
+          f"{placements}), param_constraint the serve specs, batch {R_BATCH} x {R_SEQ}, "
+          f"{R_MICRO} microbatches: {M_STEPS} steps, losses {losses}, grad norms {norms}, "
+          f"{'the same bits as' if same else 'held to'} run_train's unsharded steps; "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in secs)} ms a step; peak {peak / 1e9:.2f} GB")
+    return {"losses": losses, "grad_norms": norms, "step_s": secs, "peak_bytes": peak,
+            "same_bits": same, "finding": finding, "placements": placements}
+
+
+def m_pipeline(torch, rt) -> dict:
+    """(b) `spmd_pipeline` on the one-rank group, one stage: llama3.2-1b's
+    blocks at full width as stage_fn on its embedded batch in M_PIPE_MICRO
+    microbatches, the same bits as the blocks applied in order."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.pipeline import spmd_pipeline
+    from repro_torch.models import build_model
+
+    cfg = l_config(L_ARCH)
+    model = build_model(cfg, DEV, torch.Generator(device=DEV).manual_seed(0))
+    tokens = TokenPipeline(cfg.vocab_size, R_BATCH, R_SEQ, device=DEV).next()["tokens"]
+    positions = torch.arange(R_SEQ, device=DEV)
+
+    def tree(pt):
+        return {k: tree(pt[k]) if hasattr(pt[k], "_keys") else pt[k] for k in pt._keys}
+
+    stage = [tree(lp) for lp in model.layers]
+    stacked = [{k: _unsqueezed(v) for k, v in lp.items()} for lp in stage]
+
+    def stage_fn(layers, x):
+        for lp in layers:
+            x = model._block(x, lp, positions)[0]
+        return x
+
+    with torch.no_grad():
+        xs = model.embed["w"][tokens].reshape(M_PIPE_MICRO, R_BATCH // M_PIPE_MICRO, R_SEQ, -1)
+        out, sec = synced_s(torch, lambda: spmd_pipeline(stage_fn, stacked, xs))
+        want = torch.stack([stage_fn(stage, x) for x in xs])
+    check(torch.equal(out, want), "phase M (b): the pipeline's outputs are not the blocks' "
+                                  "applied in order, bit for bit")
+    check(bool(torch.isfinite(out.float()).all()), "phase M (b): non-finite outputs")
+    print(f"phase M (b) spmd_pipeline, 1 stage of {cfg.n_layers} {cfg.name} blocks at width "
+          f"{cfg.d_model}, {M_PIPE_MICRO} microbatches of {R_BATCH // M_PIPE_MICRO} x {R_SEQ}: "
+          f"the same bits as the blocks in order; {sec * 1e3:.1f} ms")
+    del model
+    return {"stages": 1, "layers": cfg.n_layers, "n_micro": M_PIPE_MICRO, "seconds": sec,
+            "same_bits": True}
+
+
+def _unsqueezed(v):
+    """A layer's tree with every tensor given a leading stage axis of 1."""
+    if isinstance(v, dict):
+        return {k: _unsqueezed(x) for k, x in v.items()}
+    return v.unsqueeze(0)
+
+
+def m_dryruns_started(tmp: str) -> list:
+    """(c) each cell of M_DRYRUN as a process of its own, all started
+    together (they trace on the host while (a) and (b) run on the card)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH")
+                                             else "")
+    procs = []
+    for i, argv in enumerate(M_DRYRUN):
+        out = os.path.join(tmp, f"dry_{i}.jsonl")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--out", out]
+        if DEV != "cuda":
+            cmd += ["--device", DEV]
+        procs.append((argv, out, time.perf_counter(), subprocess.Popen(
+            cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    return procs
+
+
+def m_dryruns_done(procs: list) -> dict:
+    """(c) every record ok; its dominant term, per-device GB and trace
+    seconds."""
+    cells = []
+    for argv, out, t0, proc in procs:
+        rc, text = r_done(proc)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"phase M (c): dryrun {' '.join(argv)} exited {rc}:\n{text[-3000:]}")
+        with open(out) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        check(rec["ok"], f"phase M (c): dryrun {' '.join(argv)} record not ok: {rec}")
+        mem = rec["memory"]
+        gb = mem["argument_gb_per_dev"] + mem["temp_gb_per_dev"]
+        cell = {"cell": f"{rec['arch']} x {rec['shape']}", "mesh": rec["mesh"],
+                "dominant": rec["roofline"]["dominant"], "gb_per_dev": gb,
+                "argument_gb": mem["argument_gb_per_dev"], "temp_gb": mem["temp_gb_per_dev"],
+                "trace_s": rec["compile_s"], "wall_s": wall, "terms": rec["roofline"],
+                "dot_flops_per_dev": rec["hlo_dot_flops_per_dev"],
+                "collective_by_kind": rec["collective_by_kind"]}
+        cells.append(cell)
+        print(f"phase M (c) dryrun {cell['cell']} on {rec['mesh']}: dominant "
+              f"{cell['dominant']}, {gb:.2f} GB a device (argument "
+              f"{mem['argument_gb_per_dev']:.2f} + temp {mem['temp_gb_per_dev']:.2f}), trace "
+              f"{rec['compile_s']} s ({wall:.1f} s from its start)")
+    return {"cells": cells}
+
+
+def m_memory(torch, a: dict) -> dict:
+    """(d) `lower_cell` on a fake "1,1" mesh at (a)'s shape: its argument +
+    temp bytes within M_MEM_GAP of (a)'s measured peak; the roofline terms
+    of that step beside its measured time (a printed ratio)."""
+    from repro_torch import roofline
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_from_spec
+
+    cfg = l_config(L_ARCH)
+    shape = ShapeConfig("train_r", R_SEQ, R_BATCH, "train")
+    mesh = make_mesh_from_spec("1,1", device_type="cuda" if DEV == "cuda" else "cpu")
+    try:
+        meta = dryrun.lower_cell(cfg, shape, mesh, n_micro=R_MICRO)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    mem, tc = meta["memory"], meta["cost"]
+    traced = mem["argument"] + mem["temp"]
+    peak = a["peak_bytes"]
+    gap = abs(traced - peak) / peak if peak else float("nan")
+    if DEV == "cuda":
+        check(gap <= M_MEM_GAP, f"phase M (d): the dry run's {traced / 1e9:.3f} GB (argument "
+                                f"{mem['argument'] / 1e9:.3f} + temp {mem['temp'] / 1e9:.3f}) "
+                                f"against the measured peak {peak / 1e9:.3f} GB: {gap:.1%}")
+    coll, _ = tc.collective_bytes()
+    terms = roofline.terms(tc.dot_flops, roofline.hbm_bytes(cfg, shape, R_MICRO), coll, 1)
+    step_s = a["step_s"][-1]                      # the warm step
+    bound = max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+    print(f"phase M (d) lower_cell on 1,1 at batch {R_BATCH} x {R_SEQ}, {R_MICRO} "
+          f"microbatches: argument {mem['argument'] / 1e9:.3f} + temp {mem['temp'] / 1e9:.3f} = "
+          f"{traced / 1e9:.3f} GB against (a)'s peak {peak / 1e9:.3f} GB ({gap:.1%}); trace "
+          f"{meta['seconds']:.1f} s; H100 roofline of the step: compute "
+          f"{terms['compute_s'] * 1e3:.2f} ms ({tc.dot_flops:.4g} dot FLOPs), memory "
+          f"{terms['memory_s'] * 1e3:.2f} ms, collective {terms['collective_s'] * 1e3:.3f} ms "
+          f"(dominant {terms['dominant']}) beside the warm step's {step_s * 1e3:.1f} ms "
+          f"measured ({step_s / bound:.2f} x the bound)")
+    return {"argument_bytes": mem["argument"], "temp_bytes": mem["temp"], "traced_bytes": traced,
+            "peak_bytes": peak, "gap": gap, "trace_s": meta["seconds"], "terms": terms,
+            "dot_flops": tc.dot_flops, "step_s": step_s, "step_over_bound": step_s / bound}
+
+
+def phase_m(torch, rt) -> dict:
+    """Phase M: the LM stack on a device mesh, with every launch count set
+    to 0 just before it and read just after."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    ops = rt["ops"]
+    ops.reset_launch_counts()
+    summary = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c)'s processes trace on the host while (a) and (b) run on the card
+        t_c = time.perf_counter()
+        dry = m_dryruns_started(tmp)
+        rt["distributed"].init_group(os.path.join(tmp, "store"), 0, 1, device=DEV,
+                                     timeout_s=120)
+        try:
+            mesh = make_host_mesh(1, 1, device_type="cuda" if DEV == "cuda" else "cpu")
+            summary["sharded"] = m_sharded(torch, rt, mesh)
+            summary["pipeline"] = m_pipeline(torch, rt)
+            summary["backend"] = rt["dist"].get_backend()
+        except BaseException:
+            for *_, proc in dry:
+                proc.kill()
+            raise
+        finally:
+            rt["dist"].destroy_process_group()
+        summary["memory"] = m_memory(torch, summary["sharded"])
+        summary["dryrun"] = m_dryruns_done(dry)
+        summary["dryrun"]["wall_s"] = time.perf_counter() - t_c
+    summary["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not summary["launches"], f"phase M: hand kernels launched {summary['launches']}")
+    print("phase M launches of hand kernels: none")
+    return summary
+
+
 def child_main(args) -> int:
     """The second processes of phase T (`--child tuned`: the main path's
     store under a tuned cache) and path H (`--child restore`: the saved
@@ -3957,6 +4235,11 @@ def main() -> int:
     print(f"phase R: {time.perf_counter() - t_r:.1f} s; through phase R: "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_r": summary_r}))
+    t_m = time.perf_counter()
+    summary_m = phase_m(torch, rt)
+    print(f"phase M: {time.perf_counter() - t_m:.1f} s; through phase M: "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_m": summary_m}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))

@@ -22,7 +22,16 @@ mapping's key, a tuple's or a list's index, a NamedTuple's field as
 `restore(step, template)` reads a step into the template's structure, each
 leaf in the template leaf's dtype and on its device; `restore_flat(step)`
 reads one without a template (what `TelemetryStore.save` / `load` use).
-The reference's `shardings` argument waits for the port's mesh.
+
+On a device mesh the leaves are DTensors.  `save` gathers each one whole
+(a collective: every rank of the mesh calls it) and writes the whole
+tensors, so a checkpoint does not depend on the mesh it was written on.
+`restore(step, template, shardings)` places each leaf on a mesh:
+`shardings` is a tree of `(mesh, placements)` in the template's structure,
+which may be another mesh than the one that wrote the step (elastic
+restore); without it a DTensor template leaf comes back on its own mesh
+and placements.  Each rank keeps its own shard of the whole tensor it
+read, so nothing is sent.
 """
 from __future__ import annotations
 
@@ -34,8 +43,15 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 BF16 = ".bf16"
+
+
+def _whole(value):
+    """A DTensor gathered whole (every rank must call this); anything else
+    as it is."""
+    return value.full_tensor() if isinstance(value, DTensor) else value
 
 
 def _host(value) -> np.ndarray:
@@ -65,6 +81,7 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     for key, value in _items(tree):
         path = f"{prefix}{key}"
+        value = _whole(value)
         if not _is_leaf(value):
             flat.update(_flatten(value, path + "/"))
         elif isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16:
@@ -74,8 +91,11 @@ def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _leaf_from(arrays: Mapping[str, np.ndarray], path: str, like: torch.Tensor):
-    """The stored leaf at `path` as a tensor of `like`'s dtype on its device."""
+def _leaf_from(arrays: Mapping[str, np.ndarray], path: str, like: torch.Tensor,
+               placed=None):
+    """The stored leaf at `path` as a tensor of `like`'s dtype on its
+    device; as a DTensor on `placed` = (mesh, placements), or on `like`'s
+    own mesh and placements when it is a DTensor."""
     if path + BF16 in arrays:
         t = torch.from_numpy(np.array(arrays[path + BF16]).view(np.int16)).view(torch.bfloat16)
     else:
@@ -83,19 +103,39 @@ def _leaf_from(arrays: Mapping[str, np.ndarray], path: str, like: torch.Tensor):
     if tuple(t.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint leaf {path!r} has shape {tuple(t.shape)}, the "
                          f"template {tuple(like.shape)}")
-    return t.to(device=like.device, dtype=like.dtype)
+    t = t.to(device=like.device, dtype=like.dtype)
+    if placed is None and isinstance(like, DTensor):
+        placed = (like.device_mesh, like.placements)
+    if placed is None:
+        return t
+    mesh, placements = placed
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
 
-def _unflatten_into(template, arrays: Mapping[str, np.ndarray], prefix: str = ""):
+def _is_placed(x) -> bool:
+    return (isinstance(x, tuple) and len(x) == 2 and not hasattr(x, "_fields")
+            and hasattr(x[0], "mesh_dim_names"))
+
+
+def _unflatten_into(template, arrays: Mapping[str, np.ndarray], prefix: str = "",
+                    shardings=None):
     if _is_leaf(template):
-        return _leaf_from(arrays, prefix[:-1], template)
-    children = [(k, _unflatten_into(v, arrays, f"{prefix}{k}/")) for k, v in _items(template)]
+        return _leaf_from(arrays, prefix[:-1], template, shardings)
+    placed = dict(_items(shardings)) if shardings is not None else {}
+    children = [(k, _unflatten_into(v, arrays, f"{prefix}{k}/", _sub(placed, k)))
+                for k, v in _items(template)]
     if isinstance(template, Mapping):
         return type(template)((k, v) for k, v in zip(template, (c for _, c in children)))
     values = [c for _, c in children]
     if isinstance(template, tuple) and hasattr(template, "_fields"):
         return type(template)(*values)
     return type(template)(values)
+
+
+def _sub(placed: dict, key: str):
+    """The shardings subtree under `key` (None where there is none)."""
+    sub = placed.get(key)
+    return sub if sub is None or _is_placed(sub) or not _is_leaf(sub) else None
 
 
 class CheckpointManager:
@@ -164,13 +204,15 @@ class CheckpointManager:
             manifest = json.load(f)
         return flat, manifest["extra"]
 
-    def restore(self, step: int, template: Any) -> Tuple[Any, Dict]:
+    def restore(self, step: int, template: Any, shardings: Any = None) -> Tuple[Any, Dict]:
         """(tree, extra) of one step, in the structure of `template` (a
         tree of tensors), each leaf in the template leaf's dtype and on its
-        device."""
+        device.  `shardings`: a tree of (mesh, placements) in the
+        template's structure; each leaf is distributed onto its mesh (any
+        mesh: the elastic restore)."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with np.load(os.path.join(path, "arrays.npz")) as z:
             arrays = {k: z[k] for k in z.files}
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        return _unflatten_into(template, arrays), manifest["extra"]
+        return _unflatten_into(template, arrays, shardings=shardings), manifest["extra"]

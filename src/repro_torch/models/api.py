@@ -8,8 +8,11 @@ Batch dict conventions (integer tokens):
                   [, "enc_frames"]}
   decode:        tokens (B, 1) + cache dict + pos (an int)
 
-The mesh specs (`param_specs`, `cache_specs`, `batch_specs`) wait for the
-training half's mesh.
+The mesh specs: each model's `param_specs(mode)` / `cache_specs()`, and
+here `batch_specs`, `param_specs_with_dp` and `cache_specs_with_dp`, which
+widen the "data" axis to a mesh's data-parallel axes (`launch.mesh.dp_axes`).
+Specs are `repro_torch.sharding.P`; parameter specs are keyed by
+`state_dict()` key.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike
+from repro_torch.sharding import P, swap_dp
 
 from .hybrid import HybridLM
 from .ssm import MambaLM
@@ -58,6 +62,47 @@ def batch_struct(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Struct]:
     if cfg.family == "encdec":
         batch["enc_frames"] = ((B, cfg.enc_seq, cfg.d_model), torch.bfloat16)
     return batch
+
+
+def _dp(dp_axes):
+    return tuple(dp_axes) if len(dp_axes) > 1 else dp_axes[0]
+
+
+def batch_specs(cfg: ModelConfig, dp_axes) -> Dict[str, P]:
+    """Specs of `batch_struct`'s tensors: the batch dim over `dp_axes`, e.g.
+    ("data",) or ("pod", "data")."""
+    dp = _dp(dp_axes)
+    specs = {"tokens": P(dp, None), "labels": P(dp, None)}
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = P(dp, None, None)
+    if cfg.family == "encdec":
+        specs["enc_frames"] = P(dp, None, None)
+    return specs
+
+
+def param_specs_with_dp(model, mode: str, dp_axes) -> Dict[str, P]:
+    """The model's parameter specs with the FSDP axis widened to dp_axes
+    (multi-pod meshes)."""
+    dp = _dp(dp_axes)
+    return {k: swap_dp(s, dp) for k, s in model.param_specs(mode).items()}
+
+
+def cache_specs_with_dp(model, dp_axes, batch_size: int = 0) -> Dict[str, P]:
+    """The model's cache specs with the 'data' batch axis swapped for
+    dp_axes; a batch of 1 (long_500k) is replicated."""
+    dp = _dp(dp_axes)
+    return {k: swap_dp(s, dp, replicate=batch_size == 1)
+            for k, s in model.cache_specs().items()}
+
+
+def param_structs(cfg: ModelConfig) -> Dict[str, Struct]:
+    """Shapes and dtypes of the model's parameters by `state_dict()` key,
+    from a model built on fake tensors (nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        model = build_model(cfg, device="cpu")
+        return {k: (tuple(p.shape), p.dtype) for k, p in model.named_parameters()}
 
 
 def decode_struct(cfg: ModelConfig, shape: ShapeConfig):

@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 
+from repro_torch.sharding import P, flat_specs
+
 from . import layers as L
 from .module import LM, generator_for, param_dtype
 from .ssm import causal_conv, conv_tail
@@ -65,6 +67,38 @@ class HybridLM(LM):
             "out_proj": L.dense_init(gen, (di, cfg.d_model), dt),
         }
 
+    def param_specs(self, mode: str = "train") -> dict:
+        fsdp = "data" if mode == "train" else None
+        mamba = {
+            "norm": {"w": P(None)},
+            "in_proj": P(fsdp, "model"),
+            "conv_w": P(None, "model"),
+            "conv_b": P("model"),
+            "bcdt_proj": P("model", fsdp),
+            "dt_bias": P(None),
+            "a_log": P(None),
+            "D": P(None),
+            "out_proj": P("model", fsdp),
+        }
+        attn = {
+            "ln1": {"w": P(None)},
+            "attn": {"wq": P(fsdp, "model"), "wk": P(fsdp, "model"),
+                     "wv": P(fsdp, "model"), "wo": P("model", fsdp)},
+            "ln2": {"w": P(None)},
+            "mlp": {"wg": P(fsdp, "model"), "wu": P(fsdp, "model"), "wd": P("model", fsdp)},
+        }
+        return flat_specs({"embed": {"w": P("model", fsdp)}, "mamba": mamba,
+                           "shared_attn": attn, "ln_f": {"w": P(None)},
+                           "lm_head": {"w": P(fsdp, "model")}},
+                          {"mamba": self.cfg.n_layers})
+
+    @staticmethod
+    def cache_specs() -> dict:
+        return {"conv": P(None, "data", None, "model"),
+                "ssm": P(None, "data", "model", None, None),
+                "k": P(None, "data", "model", None, None),
+                "v": P(None, "data", "model", None, None)}
+
     def _sites(self):
         """(layer index, attention slot or None): every SSM layer in order,
         with the slot of the shared-attention call that follows it."""
@@ -80,10 +114,9 @@ class HybridLM(LM):
         di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         Ph = di // H
         h = L.rmsnorm(x, lp["norm"]["w"])
-        xz = h @ lp["in_proj"]
-        xi, z = xz[..., :di], xz[..., di:]
+        xi, z = L.project_halves(h, lp["in_proj"], di)
         xc = F.silu(causal_conv(xi, lp["conv_w"], lp["conv_b"]))
-        bcdt = xc @ lp["bcdt_proj"]
+        bcdt = L.batch_sharded(xc @ lp["bcdt_proj"])
         Bm = bcdt[..., :N].float()
         Cm = bcdt[..., N:2 * N].float()
         dtv = F.softplus(bcdt[..., 2 * N:].float() + lp["dt_bias"])   # (B, S, H)
@@ -91,29 +124,28 @@ class HybridLM(LM):
         B_, S = x.shape[0], x.shape[1]
         xh = xc.reshape(B_, S, H, Ph).float()
         state = torch.zeros((B_, H, Ph, N), dtype=torch.float32, device=x.device)
-        ys = []
-        for t in range(S):
+
+        def step(state, t):
             dt_t = dtv[:, t]
             da = torch.exp(dt_t * a[None])                            # (B, H)
             upd = (dt_t[..., None, None] * xh[:, t][..., None]) * Bm[:, t][:, None, None, :]
             state = da[..., None, None] * state + upd
-            ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, t]))
-        y = torch.stack(ys, dim=1)                                    # (B, S, H, Ph)
+            return state, torch.einsum("bhpn,bn->bhp", state, Cm[:, t])
+        y, state = L.time_scan(step, state, S)                        # (B, S, H, Ph)
         y = y + lp["D"][None, None, :, None] * xh
         y = y.reshape(B_, S, di).to(x.dtype)
         y = y * F.silu(z)
-        return x + y @ lp["out_proj"], (conv_tail(xi, cfg.d_conv), state)
+        return x + L.batch_sharded(y @ lp["out_proj"]), (conv_tail(xi, cfg.d_conv), state)
 
     def _mamba2_decode(self, x, lp, conv_state, state):
         cfg = self.cfg
         di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         Ph = di // H
         h = L.rmsnorm(x, lp["norm"]["w"])
-        xz = h @ lp["in_proj"]
-        xi, z = xz[..., :di], xz[..., di:]
+        xi, z = L.project_halves(h, lp["in_proj"], di)
         window = torch.cat([conv_state, xi[:, None, :]], dim=1)
         xc = F.silu(torch.einsum("bkd,kd->bd", window, lp["conv_w"]) + lp["conv_b"])
-        bcdt = xc @ lp["bcdt_proj"]
+        bcdt = L.batch_sharded(xc @ lp["bcdt_proj"])
         Bm, Cm = bcdt[..., :N], bcdt[..., N:2 * N]
         dtv = F.softplus(bcdt[..., 2 * N:].float() + lp["dt_bias"])
         a = -torch.exp(lp["a_log"])
@@ -124,7 +156,7 @@ class HybridLM(LM):
         y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
         y = y + lp["D"][None, :, None] * xh
         y = y.reshape(-1, di).to(x.dtype) * F.silu(z)
-        return x + y @ lp["out_proj"], window[:, 1:, :], state
+        return x + L.batch_sharded(y @ lp["out_proj"]), window[:, 1:, :], state
 
     # ---------------------------------------------------------- attention --
     def _attn_block(self, x, positions, window: int = 0, cache=None, g: int = 0,
@@ -141,8 +173,8 @@ class HybridLM(LM):
             o = L.attention_core(q, k, v, causal=True, window=window, q_chunk=cfg.q_chunk)
         else:
             ck, cv = cache["k"][g], cache["v"][g]
-            ck[:, pos:pos + 1] = k
-            cv[:, pos:pos + 1] = v
+            L.write_slot(ck, k, pos)
+            L.write_slot(cv, v, pos)
             o = L.attention_core(q, ck, cv, causal=True, q_offset=pos, window=window)
         x = x + L.attn_out(ap["attn"], o)
         h = L.rmsnorm(x, ap["ln2"]["w"])
@@ -192,7 +224,7 @@ class HybridLM(LM):
 
     def decode_step(self, cache, tokens, pos: int, *, window: int = 0):
         """tokens: (B, 1); the cache is updated in place."""
-        x = self.embed["w"][tokens[:, 0]]
+        x = L.gather_rows(self.embed["w"], tokens[:, 0])
         positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                                device=x.device)
         for i, g in self._sites():

@@ -17,9 +17,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 
+from repro_torch.sharding import P, flat_specs
+
 from . import layers as L
 from .module import LM, generator_for, param_dtype
-from .moe import moe_block, moe_params
+from .moe import moe_block, moe_params, moe_specs
 
 
 class TransformerLM(LM):
@@ -56,6 +58,40 @@ class TransformerLM(LM):
             p["mlp"] = L.gelu_mlp_params(gen, cfg.d_model, cfg.d_ff, dt)
         return p
 
+    def param_specs(self, mode: str = "train") -> dict:
+        """{state_dict key: P}, the reference's specs without the layer
+        axis: TP over 'model'; in train mode the large matrices are also
+        FSDP-sharded over 'data'."""
+        cfg = self.cfg
+        fsdp = "data" if mode == "train" else None
+        n = P(None)                              # replicated vector
+        row = P(fsdp, "model")                   # [in, out] -> out over model
+        col = P("model", fsdp)                   # [in, out] -> in over model
+        norm = {"w": n} if cfg.norm == "rmsnorm" else {"w": n, "b": n}
+        attn = {"wq": row, "wk": row, "wv": row, "wo": col}
+        if cfg.qkv_bias:
+            attn.update({"bq": P("model"), "bk": P("model"), "bv": P("model")})
+        layer = {"ln1": dict(norm), "attn": attn, "ln2": dict(norm)}
+        if cfg.family == "moe":
+            layer["moe"] = moe_specs(cfg, fsdp)
+        elif cfg.mlp == "swiglu":
+            layer["mlp"] = {"wg": row, "wu": row, "wd": col}
+        else:
+            layer["mlp"] = {"w1": row, "b1": P("model"), "w2": col, "b2": n}
+        specs = {"embed": {"w": P("model", fsdp)}, "layers": layer, "ln_f": dict(norm)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = {"w": P(fsdp, "model")}
+        if cfg.family == "vlm":
+            specs["vision_proj"] = {"w": P(None, "model")}
+        return flat_specs(specs, {"layers": cfg.n_layers})
+
+    @staticmethod
+    def cache_specs() -> dict:
+        """Batch over data, sequence over model (the reference's choice:
+        the scores and outputs are reduced, the cache never gathered)."""
+        s = P(None, "data", "model", None, None)
+        return {"k": s, "v": s}
+
     # ------------------------------------------------------------ forward --
     def _block(self, x, lp, positions, *, window: int = 0, cache=None, i: int = 0,
                pos: int = 0):
@@ -72,8 +108,8 @@ class TransformerLM(LM):
             o = L.attention_core(q, k, v, causal=True, window=window, q_chunk=cfg.q_chunk)
         else:
             ck, cv = cache["k"][i], cache["v"][i]
-            ck[:, pos:pos + 1] = k
-            cv[:, pos:pos + 1] = v
+            L.write_slot(ck, k, pos)
+            L.write_slot(cv, v, pos)
             o = L.attention_core(q, ck, cv, causal=True, q_offset=pos, window=window)
         x = x + L.attn_out(lp["attn"], o)
         h = L.apply_norm(x, lp["ln2"], cfg.norm)
@@ -138,7 +174,7 @@ class TransformerLM(LM):
     def decode_step(self, cache, tokens, pos: int, *, window: int = 0):
         """One decode step. tokens: (B, 1); pos: the slot written.  Returns
         (logits (B, 1, V), cache), the cache updated in place."""
-        x = self.embed["w"][tokens]
+        x = L.gather_rows(self.embed["w"], tokens)
         positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                                device=x.device)
         for i, lp in enumerate(self.layers):

@@ -19,6 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike
 
+from repro_torch.sharding import P, flat_specs
+
 from . import layers as L
 from .module import LM, generator_for, param_dtype
 
@@ -54,6 +56,29 @@ class EncDecLM(LM):
                            for _ in range(cfg.n_layers)],
             "ln_f": norm(),
         })
+
+    def param_specs(self, mode: str = "train") -> dict:
+        cfg = self.cfg
+        fsdp = "data" if mode == "train" else None
+        norm = {"w": P(None), "b": P(None)}
+        attn = {"wq": P(fsdp, "model"), "wk": P(fsdp, "model"),
+                "wv": P(fsdp, "model"), "wo": P("model", fsdp)}
+        mlp = {"w1": P(fsdp, "model"), "b1": P("model"), "w2": P("model", fsdp),
+               "b2": P(None)}
+        enc = {"ln1": dict(norm), "attn": dict(attn), "ln2": dict(norm), "mlp": dict(mlp)}
+        dec = {"ln1": dict(norm), "self_attn": dict(attn), "ln2": dict(norm),
+               "cross_attn": dict(attn), "ln3": dict(norm), "mlp": dict(mlp)}
+        return flat_specs({"embed": {"w": P("model", fsdp)}, "enc_layers": enc,
+                           "ln_enc": dict(norm), "dec_layers": dec, "ln_f": dict(norm)},
+                          {"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers})
+
+    @staticmethod
+    def cache_specs() -> dict:
+        """Self-attention cache: sequence over model; cross cache: enc_seq
+        (1 500) does not divide by 16, so it stays head_dim-sharded."""
+        s = P(None, "data", "model", None, None)
+        c = P(None, "data", None, None, "model")
+        return {"k": s, "v": s, "ck": c, "cv": c}
 
     # ------------------------------------------------------------ encoder --
     def encode(self, enc_frames):
@@ -91,9 +116,9 @@ class EncDecLM(LM):
         b, s, _ = h.shape
         se = enc_out.shape[1]
         ca = lp["cross_attn"]
-        qc = (h @ ca["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim_)
-        kc = (enc_out @ ca["wk"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim_)
-        vc = (enc_out @ ca["wv"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim_)
+        qc = L.split_heads(h @ ca["wq"], cfg.n_heads, cfg.head_dim_)
+        kc = L.split_heads(enc_out @ ca["wk"], cfg.n_kv_heads, cfg.head_dim_)
+        vc = L.split_heads(enc_out @ ca["wv"], cfg.n_kv_heads, cfg.head_dim_)
         oc = L.attention_core(qc, kc, vc, causal=False, q_chunk=cfg.q_chunk)
         x = x + L.attn_out(ca, oc)
         h = L.apply_norm(x, lp["ln3"], cfg.norm)
@@ -149,13 +174,12 @@ class EncDecLM(LM):
             q, k, v = L.attn_qkv(lp["self_attn"], h, cfg.n_heads, cfg.n_kv_heads,
                                  cfg.head_dim_)
             ck, cv = cache["k"][i], cache["v"][i]
-            ck[:, pos:pos + 1] = k
-            cv[:, pos:pos + 1] = v
+            L.write_slot(ck, k, pos)
+            L.write_slot(cv, v, pos)
             o = L.attention_core(q, ck, cv, causal=True, q_offset=pos)
             x = x + L.attn_out(lp["self_attn"], o)
             h = L.apply_norm(x, lp["ln2"], cfg.norm)
-            qc = (h @ lp["cross_attn"]["wq"]).reshape(h.shape[0], 1, cfg.n_heads,
-                                                      cfg.head_dim_)
+            qc = L.split_heads(h @ lp["cross_attn"]["wq"], cfg.n_heads, cfg.head_dim_)
             oc = L.attention_core(qc, cache["ck"][i], cache["cv"][i], causal=False)
             x = x + L.attn_out(lp["cross_attn"], oc)
             h = L.apply_norm(x, lp["ln3"], cfg.norm)

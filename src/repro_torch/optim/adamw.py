@@ -57,11 +57,19 @@ def like(tree: Tree, values: Sequence[torch.Tensor]) -> Tree:
 
 
 def init(params: Tree) -> AdamWState:
-    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves(params)]
+    # zeros_like: a DTensor parameter gets moments of its placements
+    zeros = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(params)]
     device = zeros[0].device if zeros else None
     return AdamWState(m=like(params, zeros),
                       v=like(params, [torch.zeros_like(z) for z in zeros]),
                       count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def state_specs(param_specs) -> AdamWState:
+    """The moments shard as the parameters do (ZeRO-style sharding comes
+    from the FSDP axis of the parameter specs); the count is replicated."""
+    from repro_torch.sharding import P
+    return AdamWState(m=dict(param_specs), v=dict(param_specs), count=P())
 
 
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

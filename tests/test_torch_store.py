@@ -252,7 +252,8 @@ def test_port_imports_neither_jax_nor_repro():
               if "repro_torch" in p.parts}
     assert {"optim/adamw.py", "optim/grad_compress.py", "data/pipeline.py",
             "checkpoint/__init__.py", "checkpoint/checkpoint.py", "checkpoint/elastic.py",
-            "train/train_step.py", "launch/train.py"} <= walked
+            "train/train_step.py", "launch/train.py", "launch/mesh.py", "launch/pipeline.py",
+            "launch/dryrun.py", "roofline.py", "sharding.py"} <= walked
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
