@@ -43,7 +43,8 @@ non-zero and prints no result line):
      8 CI chunks); bit-identical repeats;
   7. path E, `kde_eval` at 4 096 points on a 1-D sample and on the joint,
      and the trapezoid forms of eqs. 9-10 on 64 ranges against the closed
-     forms (kde_eval launches);
+     forms (kde_eval launches); a point's density has the same bits alone
+     and inside its grid;
   8. path F, progressive serving: a second store fed the same stream in the
      same batches, laid out as launch/serve.py's (four-tier reservoirs of
      4 096 to 32 768 rows on loss, latency_ms and the joint, a count-min
@@ -107,9 +108,13 @@ non-zero and prints no result line):
      against one whole pairwise (K6, K4) and lscv_grid launch, with one
      share's time beside the whole's; the distributed selectors
      (`core/distributed.py`) on "cuda" over NCCL with one rank and a file
-     store, each call's launches counted (2 pairwise; 1 sv_matrix and 1
-     lscv_grid), no plain version, against the single-device kernels; and
-     the three torch examples, each a process of its own;
+     store, each call's launches counted (2 pairwise; one sv_matrix slab
+     and one lscv_grid launch a run of the slab walk), no plain version,
+     against the single-device kernels; the slabbed LSCV_h at n = 163 840
+     (a whole S of 107 GB) within the slab budget plus 1 GB of peak memory,
+     its g at n = 65 536 against the "torch" backend's, a slab against the
+     whole S's bits, its two launches timed beside their bounds; and the
+     three torch examples, each a process of its own;
  13. phase L, LM serving (the LM stack reaches no hand kernel: every launch
      count stays 0): (a) `launch/serve.run_lm` on llama3.2-1b at its full
      published config in bf16, batch 4, prompt 128, 32 new tokens, twice,
@@ -155,10 +160,11 @@ non-zero and prints no result line):
      repro_torch.launch.dryrun` for llama3.2-1b x train_4k and x
      decode_32k on the 16 x 16 mesh, granite-moe-1b-a400m x decode_32k on
      2 x 16 x 16 and `--kde 1048576,4,150`, each a process of its own
-     started before (a), every record ok; (d) `dryrun.lower_cell` on a
-     fake 1 x 1 mesh at (a)'s shape, its argument + temp bytes within 15 %
-     of (a)'s measured peak, the H100 roofline terms of that step beside
-     its measured time;
+     started before (a), every record ok, llama3.2-1b decode_32k under
+     10 MB of collectives a device (the vocab-parallel embedding lookup);
+     (d) `dryrun.lower_cell` on a fake 1 x 1 mesh at (a)'s shape, its
+     argument + temp bytes within 15 % of (a)'s measured peak, the H100
+     roofline terms of that step beside its measured time;
  16. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
@@ -184,8 +190,8 @@ CLI's line, the card), a {"phase_t": {...}} line (each sweep's winner and
 constants with their device times, the card), a {"path_h": {...}} line
 (save ms, load ms, the snapshot's bytes, the restored launches, the serve
 runs, the card), a {"phase_i": {...}} line (the binned and exact PLUGIN
-times, the shares and their times, the distributed calls, the examples'
-seconds, the card), a {"phase_l": {...}} line (run_lm's times, tokens/s and
+times, the shares and their times, the distributed calls, the slabbed
+LSCV_h's peak, runs and times, the examples' seconds, the card), a {"phase_l": {...}} line (run_lm's times, tokens/s and
 bounds, the float32 copy's card-CPU difference, each other architecture's
 depth, times and error, the CLI's line, the card), a {"phase_r": {...}}
 line (the steps' losses, grad norms and times, the step's parts against
@@ -2069,6 +2075,9 @@ def path_h(torch, rt, args, g_ctx):
 I_GRID = 1024                           # bins of the binned PLUGIN (the reference's default)
 I_WORLD = 4                             # the shares launched in one process
 I_D4 = (3000, 50)                       # the distributed example's LSCV_h: n, n_h (d = 4)
+I_SLAB_N = 163_840                      # the slabbed LSCV_h: a whole S of 107 GB
+I_CMP_N = 65_536                        # its g against the "torch" backend's at this n
+G_F32_RES = 4 * 2.0 ** -24              # 4 float32 ulps of g, relative
 I_EXAMPLES = (("torch_quickstart.py",), ("torch_aqp_database.py",),
               ("torch_distributed_bandwidth.py", "--world", "1"))
 
@@ -2241,11 +2250,13 @@ def i_distributed(torch, rt, stream) -> dict:
             backend = rt["dist"].get_backend()
         finally:
             rt["dist"].destroy_process_group()
+    runs = {n: len(list(rt["lscv_grid"].slab_walk(n, None, D.SLAB_BYTES)))
+            for n in (CAPACITY, I_D4[0])}
     for what, made, want in (("sharded_plugin_psi_sums", c_psi, {"pairwise_scaled_ksum": 2}),
                              ("distributed_lscv_h d=1", c_l1,
-                              {"sv_matrix": 1, "lscv_grid_sums": 1}),
+                              {"sv_matrix": runs[CAPACITY], "lscv_grid_sums": runs[CAPACITY]}),
                              ("distributed_lscv_h d=4", c_l4,
-                              {"sv_matrix": 1, "lscv_grid_sums": 1})):
+                              {"sv_matrix": runs[I_D4[0]], "lscv_grid_sums": runs[I_D4[0]]})):
         check(made == want, f"phase I: {what} launched {made}, expected {want}")
     held(float(s6), float(ops.pairwise_scaled_ksum(x, g1, "k6")), PAIR_RTOL, 0.0,
          "phase I: sharded Psi6 sum against one pairwise launch")
@@ -2261,12 +2272,152 @@ def i_distributed(torch, rt, stream) -> dict:
     print(f"phase I distributed on {backend}, 1 rank: Psi sums {float(s6):.4f} / "
           f"{float(s4):.4f} (2 pairwise launches, {t_psi0 * 1e3:.1f} ms first, "
           f"{t_psi * 1e3:.2f} ms warm); LSCV_h d=1 n={CAPACITY} h={float(h1):.6f} in "
-          f"{t_l1 * 1e3:.1f} ms, d=4 n={I_D4[0]} h={float(h4):.6f} in {t_l4 * 1e3:.1f} ms (1 "
-          f"sv_matrix + 1 lscv_grid each), the single device's h; sharded K4 sum "
+          f"{t_l1 * 1e3:.1f} ms ({runs[CAPACITY]} slabs of S: as many sv_matrix and lscv_grid "
+          f"launches), d=4 n={I_D4[0]} h={float(h4):.6f} in {t_l4 * 1e3:.1f} ms "
+          f"({runs[I_D4[0]]} slab), the single device's h; sharded K4 sum "
           f"{float(sk4):.4f} against {plain_k4:.4f} in {t_sk4 * 1e3:.1f} ms")
     out.update(backend=backend, psi_first_ms=t_psi0 * 1e3, psi_ms=t_psi * 1e3,
                lscv_d1_ms=t_l1 * 1e3, lscv_d4_ms=t_l4 * 1e3, sharded_k4_ms=t_sk4 * 1e3,
                h_d1=float(h1), h_d4=float(h4))
+    return out
+
+
+def oracle_lscv_g(torch, x, m, hg, idx, c_k, c_kk, r_k, rows: int = 256):
+    """float64 g(h) of LSCV_h (eq. 43's sums over i < j) at the grid points
+    `idx` of hg, on the same float32 x, M, grid and constants."""
+    xd, md = x.double(), m.double()
+    n, d = xd.shape
+    h = hg.double()[idx]
+    acc = torch.zeros(len(idx), dtype=torch.float64, device=x.device)
+    j = torch.arange(n, device=x.device)
+    for a in range(0, n, rows):
+        v = xd[a:a + rows, None, :] - xd[None, :, :]
+        s = torch.einsum("rnd,de,rne->rn", v, md, v)
+        i = torch.arange(a, min(n, a + rows), device=x.device)
+        s = torch.where(i[:, None] < j[None, :], s, torch.inf)[None]
+        acc += (float(c_kk) * torch.exp(-s * (0.25 / h ** 2)[:, None, None])
+                - 2.0 * float(c_k) * torch.exp(-s * (0.5 / h ** 2)[:, None, None])).sum(dim=(1, 2))
+    return h ** (-d) * (2.0 / (n * n) * acc + float(r_k) / n)
+
+
+def i_slabs(torch, rt, stream) -> dict:
+    """The "cuda" distributed LSCV_h at I_SLAB_N rows of `loss`, whose whole
+    S would not fit the card, on one NCCL rank: its peak memory within the
+    slab budget plus 1 GB, one sv_matrix and one lscv_grid launch a run of
+    the walk, no plain version; at I_CMP_N its g values against the
+    "torch" backend (rtol 1e-3); at both n its h a float64 oracle's best
+    grid point, or one whose float64 g lies within float32 resolution of it
+    (the oracle taken over the grid points around both backends' picks; the
+    two backends' h may differ: the g of neighbouring grid points differ by
+    about 1e-7 there, and the "torch" backend's float32 slab sums are 2e-6
+    from float64 where the kernels' are 4e-7: PERF.md §6,
+    `scripts/lscv_argmin_check.py`); the largest run's slab against the
+    whole S's bits and its sums against the same tiles over the whole S at
+    CAPACITY; the largest run's two launches at I_SLAB_N timed beside their
+    bounds."""
+    D, lscv, G, tri = rt["distributed"], rt["lscv"], rt["gaussian"], rt["triangle"]
+    ops, ref, klg = rt["ops"], rt["ref"], rt["lscv_grid"]
+    xb = torch.as_tensor(stream["loss"][:I_SLAB_N], device=DEV)
+    runs = list(klg.slab_walk(I_SLAB_N, None, D.SLAB_BYTES))
+    with tempfile.TemporaryDirectory() as tmp:
+        D.init_group(os.path.join(tmp, "store"), 0, 1, device=DEV, timeout_s=120)
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with plain_calls(ref) as plain:
+                (h, _g, gv), t_big, made = i_counted(
+                    torch, ops, f"phase I slabbed distributed_lscv_h n={I_SLAB_N}",
+                    lambda: D.distributed_lscv_h(xb, n_h=150))
+                peak = torch.cuda.max_memory_allocated() - base
+                x_c = torch.as_tensor(stream["loss"][:I_CMP_N], device=DEV)
+                (h_c, _g, gv_c), t_c, made_c = i_counted(
+                    torch, ops, f"phase I slabbed distributed_lscv_h n={I_CMP_N}",
+                    lambda: D.distributed_lscv_h(x_c, n_h=150))
+            check(sum(plain.values()) == 0, f"phase I: the slabbed calls ran plain versions "
+                                            f"{ {k: v for k, v in plain.items() if v} }")
+            (h_t, _g, gv_t), t_t = synced_s(
+                torch, lambda: D.distributed_lscv_h(x_c, n_h=150, backend="torch"))
+        finally:
+            rt["dist"].destroy_process_group()
+    whole_gb = 4 * I_SLAB_N ** 2 / 1e9
+    check(peak <= D.SLAB_BYTES + (1 << 30),
+          f"phase I: the slabbed LSCV_h at n={I_SLAB_N} peaked at {peak / 1e9:.3f} GB above "
+          f"its inputs, beyond the {D.SLAB_BYTES / 1e9:.3f} GB slab budget plus 1 GB")
+    want = {"sv_matrix": len(runs), "lscv_grid_sums": len(runs)}
+    check(made == want, f"phase I: the slabbed LSCV_h launched {made}, expected {want}")
+    check(bool(torch.isfinite(gv).all()), "phase I: the slabbed LSCV_h's g values not finite")
+    held(gv_c.cpu(), gv_t.cpu(), 1e-3, 0.0,
+         f"phase I: slabbed LSCV_h g at n={I_CMP_N} against the torch backend")
+    argmins = {}
+    for n_, xs, g_cuda, g_torch in ((I_CMP_N, x_c, gv_c, gv_t), (I_SLAB_N, xb, gv, None)):
+        xs = xs[:, None]
+        sigma = lscv.covariance(xs)
+        c_k, c_kk, r_k = G.lscv_h_consts(1, torch.linalg.det(sigma))
+        hg_ = lscv.h_grid_for(n_, 1, 150, device=DEV)
+        ks = [int(torch.argmin(g)) for g in (g_cuda, g_torch) if g is not None]
+        idx = list(range(max(0, min(ks) - 2), min(150, max(ks) + 3)))
+        g64 = oracle_lscv_g(torch, xs, lscv._inv(sigma), hg_, idx, c_k, c_kk, r_k)
+        best = float(g64.min())
+        gaps = [(float(g64[idx.index(k)]) - best) / abs(best) for k in ks]
+        k64 = idx[int(torch.argmin(g64))]
+        # the kernels' pick is the float64 minimum, or a grid point whose
+        # float64 g lies within float32 resolution (4 ulps) of it
+        check(gaps[0] <= G_F32_RES, f"phase I: slabbed LSCV_h at n={n_} picks grid point "
+                                    f"{ks[0]}, the float64 oracle {k64}: its g {gaps[0]:.3g} "
+                                    f"above the minimum, relative")
+        argmins[n_] = {"cuda": ks[0], "torch": ks[1] if len(ks) > 1 else None,
+                       "float64": k64, "gaps": gaps}
+    # the largest run of the walk at CAPACITY: bits against the whole S
+    x = torch.as_tensor(stream["loss"][:CAPACITY], device=DEV)[:, None]
+    m = lscv._inv(lscv.covariance(x))
+    hg = lscv.h_grid_for(CAPACITY, 1, 150, device=DEV)
+    c_k, c_kk, _ = G.lscv_h_consts(1, torch.linalg.det(lscv.covariance(x)))
+    b, c, c0, c1 = max(klg.slab_walk(CAPACITY, None, D.SLAB_BYTES),
+                       key=lambda r: (r[3] - r[2]) * r[3])
+    whole = ops.sv_matrix(x, m)
+    slab = ops.sv_matrix(x, m, cols=(c0, c1))
+    check(torch.equal(slab, whole[:c1, c0:c1]),
+          f"phase I: sv_matrix's slab of columns {c0}..{c1} differs from the whole S's bits")
+    check(torch.equal(ops.lscv_grid_sums_from_s(slab, hg, c_k, c_kk, blocks=(b, c),
+                                                slab=(c0, CAPACITY)),
+                      ops.lscv_grid_sums_from_s(whole, hg, c_k, c_kk, blocks=(b, c))),
+          f"phase I: lscv_grid over the slab of tiles {b}..{b + c} differs from the whole S's")
+    held_dev(torch, slab, ref.sv_matrix(x, m, cols=(c0, c1)), SV_RTOL, SV_ATOL,
+             f"phase I: sv_matrix slab of columns {c0}..{c1} against its plain version")
+    del whole, slab
+    # the largest run at I_SLAB_N, each launch timed beside its bound
+    xb2 = xb[:, None]
+    mb = lscv._inv(lscv.covariance(xb2))
+    hgb = lscv.h_grid_for(I_SLAB_N, 1, 150, device=DEV)
+    b, c, c0, c1 = max(runs, key=lambda r: (r[3] - r[2]) * r[3])
+    sv_ms = time_ms(torch, lambda: ops.sv_matrix(xb2, mb, cols=(c0, c1)), reps=5, warm=1)
+    slab = ops.sv_matrix(xb2, mb, cols=(c0, c1))
+    gr_ms = time_ms(torch, lambda: ops.lscv_grid_sums_from_s(
+        slab, hgb, c_k, c_kk, blocks=(b, c), slab=(c0, I_SLAB_N)), reps=5, warm=1)
+    del slab
+    pairs = (c0 + c1 - 1) * (c1 - c0) // 2                 # i < j, j in [c0, c1)
+    sv_bytes = 4 * ((c1 - c0) * c1 + I_SLAB_N + 1)
+    sv_bound = max(sv_bytes / PEAK_BYTES, 3 * pairs / PEAK_FP32) * 1e3
+    run_pairs = share_fraction(torch, tri, I_SLAB_N, klg.TILE, (b, c)) * (
+        I_SLAB_N * (I_SLAB_N - 1) // 2)
+    gr_bound = max(4 * run_pairs / PEAK_BYTES, 6 * 150 * run_pairs / PEAK_FP32) * 1e3
+    out = {"n": I_SLAB_N, "whole_s_gb": whole_gb, "slab_budget_bytes": D.SLAB_BYTES,
+           "peak_bytes": peak, "runs": len(runs), "seconds": t_big, "h": float(h),
+           "cmp_n": I_CMP_N, "cmp_cuda_s": t_c, "cmp_torch_s": t_t, "argmins": argmins,
+           "cmp_launches": made_c, "largest_run": [b, c, c0, c1],
+           "sv_slab_ms": sv_ms, "sv_slab_bound_ms": sv_bound,
+           "grid_slab_ms": gr_ms, "grid_slab_bound_ms": gr_bound}
+    print(f"phase I slabbed LSCV_h on 1 rank, n={I_SLAB_N} (whole S {whole_gb:.1f} GB): "
+          f"{len(runs)} runs of the walk, as many sv_matrix and lscv_grid launches, "
+          f"{t_big:.2f} s, peak {peak / 1e9:.3f} GB above its inputs (budget "
+          f"{D.SLAB_BYTES / 1e9:.3f} GB + 1 GB), h={float(h):.6f}; at n={I_CMP_N} g within "
+          f"1e-3 of the torch backend ({t_c:.2f} s against {t_t:.2f} s); grid points picked "
+          f"(cuda / torch / float64 oracle) {argmins}; the "
+          f"largest run's slab at n={CAPACITY} the whole S's bits, its sums the same tiles' "
+          f"over the whole S; at n={I_SLAB_N} the largest run ({c} tiles, slab of columns "
+          f"{c0}..{c1}) sv_matrix {sv_ms:.3f} ms (bound {sv_bound:.3f}, bytes) and "
+          f"lscv_grid {gr_ms:.3f} ms (bound {gr_bound:.3f}, operations), median of 5")
     return out
 
 
@@ -2295,6 +2446,7 @@ def phase_i(torch, rt, stream) -> dict:
     selectors' kernel shares and NCCL calls, and the three torch examples."""
     summary = {"binned": i_binned(torch, rt, stream),
                "distributed": i_distributed(torch, rt, stream),
+               "slabs": i_slabs(torch, rt, stream),
                "examples_s": i_examples(), "card": card_line()}
     return summary
 
@@ -2949,6 +3101,7 @@ def phase_r(torch, rt) -> dict:
 M_STEPS = 2                                 # (a): sharded steps against run_train's
 M_PIPE_MICRO = 4                            # (b): microbatches of R_BATCH rows
 M_MEM_GAP = 0.15                            # (d): the dry run's bytes against the peak
+M_DECODE_COLL = 10e6                        # (c): llama3.2-1b decode_32k's collective bytes
 # (c): the dry run's cells, each `python -m repro_torch.launch.dryrun` of its own
 M_DRYRUN = (("--arch", "llama3.2-1b", "--shape", "train_4k"),
             ("--arch", "llama3.2-1b", "--shape", "decode_32k"),
@@ -3119,11 +3272,19 @@ def m_dryruns_done(procs: list) -> dict:
                 "argument_gb": mem["argument_gb_per_dev"], "temp_gb": mem["temp_gb_per_dev"],
                 "trace_s": rec["compile_s"], "wall_s": wall, "terms": rec["roofline"],
                 "dot_flops_per_dev": rec["hlo_dot_flops_per_dev"],
+                "collective_bytes_per_dev": rec["collective_bytes_per_dev"],
                 "collective_by_kind": rec["collective_by_kind"]}
+        if cell["cell"] == "llama3.2-1b x decode_32k":
+            # the vocab-parallel lookup: no table bytes move, one all_reduce of rows
+            check(rec["collective_bytes_per_dev"] < M_DECODE_COLL,
+                  f"phase M (c): llama3.2-1b decode_32k moves "
+                  f"{rec['collective_bytes_per_dev'] / 1e6:.3f} MB of collectives a device, "
+                  f"not under {M_DECODE_COLL / 1e6:.0f} MB: {rec['collective_by_kind']}")
         cells.append(cell)
         print(f"phase M (c) dryrun {cell['cell']} on {rec['mesh']}: dominant "
               f"{cell['dominant']}, {gb:.2f} GB a device (argument "
-              f"{mem['argument_gb_per_dev']:.2f} + temp {mem['temp_gb_per_dev']:.2f}), trace "
+              f"{mem['argument_gb_per_dev']:.2f} + temp {mem['temp_gb_per_dev']:.2f}), "
+              f"collectives {rec['collective_bytes_per_dev'] / 1e6:.3f} MB a device, trace "
               f"{rec['compile_s']} s ({wall:.1f} s from its start)")
     return {"cells": cells}
 
@@ -3853,6 +4014,15 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
         check(torch.equal(ops.kde_eval(*args), ops.kde_eval(*args)),
               f"kde_eval {call_shape('kde_eval', args, kw)}: two launches on the same "
               f"inputs differ")
+    # a point's density has the same bits alone and inside its grid (the
+    # launcher cuts the sample from n alone, each point is its own centre)
+    for args, kw in made[:3]:
+        pts, x, h = args
+        whole = ops.kde_eval(*args, **kw)
+        for i in (0, pts.shape[0] // 3, pts.shape[0] - 1):
+            check(torch.equal(ops.kde_eval(pts[i:i + 1].contiguous(), x, h, **kw), whole[i:i + 1]),
+                  f"kde_eval {call_shape('kde_eval', args, kw)}: point {i} alone differs from "
+                  f"its bits in the grid")
     for pts, x, h in (made[0][0], made[1][0]):
         ps = pts[:256].contiguous()
         k = ops.kde_eval(ps, x, h)
@@ -3863,7 +4033,7 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
                 * torch.exp(-0.5 * torch.sum(diff * diff, -1)).mean(1))
         held(k.cpu(), want.cpu(), KDE_RTOL, KDE_ATOL, f"kde_eval d={d} vs float64")
     # data far from 0 (|x| / h near 1e4): the folded exponent's rounding
-    # follows |x - o| / h about the warp's first point o, not |x| / h
+    # follows |x - p| / h about each point p, not |x| / h
     for d in (1, 3):
         xs = rng.normal(2000.0, 1.0, (4097, d)).astype(np.float32)
         ps = (2000.0 + np.sort(rng.normal(0.0, 1.5, (1024, d)), axis=0)).astype(np.float32)
@@ -3879,7 +4049,7 @@ def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):
         kde_pair(args, f"kde_eval m={m} n={n} d={d}")
     print(f"kde_eval: all {len(made)} path-E calls (two grids, {len(made) - 2} trapezoid "
           f"grids) match plain, max |err| {out['kde_eval']:.3g}; two launches give the same "
-          f"bits (both grids, a trapezoid grid); 256 points against the full sample, and "
+          f"bits, and a point alone its bits in the grid (both grids, a trapezoid grid); 256 points against the full sample, and "
           f"1024 points on data at |x|/h = 1e4, within tolerance of float64 (d=1, 3); edge "
           f"shapes m=0/1/513, n=1, d=16 match plain")
     torch.cuda.synchronize()

@@ -23,8 +23,8 @@ prints, for every kernel function of every library built, its SFU (MUFU)
 instructions by kind from `cuobjdump -sass`.
 
 Prints one JSON line: kernel times (median of CUDA-event windows), the
-sums (lscv_grid's 150 also as a sha256 of their bytes, to compare two
-checkouts' bits), the share of lscv_grid's (tile, h) pairs whose every term flushes to
+sums (lscv_grid's 150 also as a sha256 of their bytes, and the joint's
+whole S as a sha256 of its bytes, to compare two checkouts' bits), the share of lscv_grid's (tile, h) pairs whose every term flushes to
 0, the card's name, power limit and SM clock sampled after each window.
 Needs a CUDA device; exits non-zero without one.
 """
@@ -176,6 +176,7 @@ def main() -> int:
 
         sigma = lscv.covariance(x3)
         s_mat = ops.sv_matrix(x3, torch.linalg.inv(sigma).contiguous())
+        res["sv_matrix_sha256"] = hashlib.sha256(s_mat.cpu().numpy().tobytes()).hexdigest()
         hg = lscv.h_grid_for(N, 3, N_H, device=dev)
         c_k, c_kk, _ = gaussian.lscv_h_consts(3, torch.linalg.det(sigma))
         t = time_ms(torch, lambda: ops.lscv_grid_sums_from_s(s_mat, hg, c_k, c_kk),

@@ -24,8 +24,14 @@ leaf in the template leaf's dtype and on its device; `restore_flat(step)`
 reads one without a template (what `TelemetryStore.save` / `load` use).
 
 On a device mesh the leaves are DTensors.  `save` gathers each one whole
-(a collective: every rank of the mesh calls it) and writes the whole
-tensors, so a checkpoint does not depend on the mesh it was written on.
+(a collective: every rank of the mesh calls it), and rank 0 of the default
+process group alone writes the whole tensors, renames the step into place
+and drops old steps; every rank then waits at a barrier until the rename
+is done (before `save` returns, or with `async_save` in `wait()`, on the
+calling thread: the write thread runs no collective).  So several ranks
+save into one directory, and a checkpoint does not depend on the mesh it
+was written on.  A tree without DTensors is written by the process that
+saves it, as the reference's one process writes.
 `restore(step, template, shardings)` places each leaf on a mesh:
 `shardings` is a tree of `(mesh, placements)` in the template's structure,
 which may be another mesh than the one that wrote the step (elastic
@@ -43,7 +49,9 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.utils._pytree import tree_leaves
 
 BF16 = ".bf16"
 
@@ -52,6 +60,20 @@ def _whole(value):
     """A DTensor gathered whole (every rank must call this); anything else
     as it is."""
     return value.full_tensor() if isinstance(value, DTensor) else value
+
+
+def _collective(tree) -> bool:
+    """Whether saving `tree` is a collective: it holds a DTensor and the
+    default process group has more than one rank.  A DTensor's mesh must
+    then span that group."""
+    meshes = [t.device_mesh for t in tree_leaves(tree) if isinstance(t, DTensor)]
+    if not meshes or not dist.is_initialized() or dist.get_world_size() == 1:
+        return False
+    for mesh in meshes:
+        if mesh.size() != dist.get_world_size():
+            raise ValueError("a checkpoint of DTensors needs meshes that span the default "
+                             "process group")
+    return True
 
 
 def _host(value) -> np.ndarray:
@@ -146,6 +168,7 @@ class CheckpointManager:
         self._pool: Optional[ThreadPoolExecutor] = (
             ThreadPoolExecutor(max_workers=1) if async_save else None)
         self._pending: Optional[Future] = None
+        self._barrier = False           # a collective save's barrier is still owed
 
     # -- write ---------------------------------------------------------------
     def _write(self, step: int, flat: Dict[str, np.ndarray], extra: Dict) -> None:
@@ -162,19 +185,32 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
         """Copy `tree` to the host now, write it now or, with `async_save`,
-        on the manager's thread (at most one write outstanding)."""
+        on the manager's thread (at most one write outstanding).  A tree of
+        DTensors on several ranks: every rank calls this, rank 0 writes."""
         self.wait()
+        collective = _collective(tree)
         flat = _flatten(tree)
         extra = extra or {}
+        if not collective or dist.get_rank() == 0:
+            if self._pool is None:
+                self._write(step, flat, extra)
+            else:
+                self._pending = self._pool.submit(self._write, step, flat, extra)
+        self._barrier = collective
         if self._pool is None:
-            self._write(step, flat, extra)
-        else:
-            self._pending = self._pool.submit(self._write, step, flat, extra)
+            self.wait()
 
     def wait(self) -> None:
-        if self._pending is not None:
-            self._pending.result()
-            self._pending = None
+        """Until the last write is done (and, after a collective save, on
+        every rank)."""
+        try:
+            if self._pending is not None:
+                self._pending, pending = None, self._pending
+                pending.result()
+        finally:
+            if self._barrier:        # reached even when rank 0's write failed
+                self._barrier = False
+                dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()

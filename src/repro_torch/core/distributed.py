@@ -16,11 +16,14 @@ takes an arbitrary callable and stays on this path on every backend.
 
 Backend "cuda" runs the hand kernels on each rank's contiguous share of the
 kernel's triangle tiles (`kernels.triangle.share`): PLUGIN's Psi sums on
-the pairwise kernel, and the LSCV_h grid on the lscv_grid kernel over the S
-that each rank forms whole with the sv_precompute kernel (n^2 floats a
-rank, the budget of the single-device `lscv_h`).  The sums are the same
-sums with the kernels' rounding.  Every rank must cut the same tiles, so
-the tile and the shapes are checked across ranks before any launch.
+the pairwise kernel, and the LSCV_h grid on the lscv_grid kernel.  A rank
+never holds S whole: it walks its share in runs of whole tile columns
+(`kernels.lscv_grid.slab_walk`) whose column block of S (the sv_precompute
+kernel's `cols=`) fits `slab_bytes` (SLAB_BYTES by default), one
+sv_precompute and one lscv_grid launch a run, and adds the runs' sums in
+order: O(slab_bytes + n d) bytes a rank where S takes n^2 floats.  The sums are the same sums with the kernels' rounding.  Every
+rank must cut the same tiles, so the tile and the shapes are checked
+across ranks before any launch.
 
 `init_group` starts a group from a `file://` store: gloo on the CPU, NCCL
 with one rank per card.
@@ -40,6 +43,8 @@ from .lscv import _as_rows, _inv, covariance, h_grid_for
 
 # the sv_precompute kernel's name for each of the reference's two forms of S
 _SV_ALGORITHM = {"mxu": "mxu", "einsum": "paper"}
+# the most bytes of S a rank of the "cuda" LSCV_h grid holds at once
+SLAB_BYTES = 512 << 20
 
 
 def init_group(store_path: str, rank: int, world_size: int, device: DeviceLike = None,
@@ -175,12 +180,13 @@ def _strided_grid_partial(x: torch.Tensor, sigma_inv: torch.Tensor, inv2: torch.
 
 def sharded_lscv_h_grid(x, sigma_inv, h_grid, c_k, c_kk, group=None, chunk: int = 64,
                         h_chunk: int = 8, algorithm: str = "mxu",
-                        backend: Optional[str] = None, device: DeviceLike = None
-                        ) -> torch.Tensor:
+                        backend: Optional[str] = None, device: DeviceLike = None,
+                        slab_bytes: int = SLAB_BYTES) -> torch.Tensor:
     """Distributed LSCV_h grid: for every h, sum_{i<j} T~(S_ij; h) over the
     group (x: (n, d) replicated).  `algorithm` "einsum" forms each pair's
     quadratic form, "mxu" the expanded form with one matrix product a slab
-    (on "cuda", the sv_precompute kernel's "paper" / "mxu" forms of S)."""
+    (on "cuda", the sv_precompute kernel's "paper" / "mxu" forms of S, in
+    slabs of at most `slab_bytes`)."""
     if algorithm not in _SV_ALGORITHM:
         raise ValueError(f"unknown algorithm {algorithm!r}; expected one of "
                          f"{sorted(_SV_ALGORITHM)}")
@@ -203,10 +209,14 @@ def sharded_lscv_h_grid(x, sigma_inv, h_grid, c_k, c_kk, group=None, chunk: int 
     from repro_torch.kernels import ops
     from repro_torch.kernels.triangle import n_tri_tiles, share
     _same_on_every_rank({"n": n, "d": x.shape[1], "n_h": n_h}, group, dev)
-    blocks = share(n_tri_tiles(-(-n // klg.TILE)), p, n_dev)
-    s_mat = ops.sv_matrix(x, sigma_inv.contiguous(), algorithm=_SV_ALGORITHM[algorithm])
-    part = ops.lscv_grid_sums_from_s(s_mat, h_grid, c_k, c_kk, blocks=blocks)
-    del s_mat
+    sigma_inv = sigma_inv.contiguous()
+    part = torch.zeros((n_h,), dtype=DTYPE, device=dev)
+    for begin, count, c0, c1 in klg.slab_walk(n, share(n_tri_tiles(-(-n // klg.TILE)), p, n_dev),
+                                              slab_bytes):
+        slab = ops.sv_matrix(x, sigma_inv, algorithm=_SV_ALGORITHM[algorithm], cols=(c0, c1))
+        part = part + ops.lscv_grid_sums_from_s(slab, h_grid, c_k, c_kk,
+                                                blocks=(begin, count), slab=(c0, n))
+        del slab
     return _all_sum(part, group)
 
 

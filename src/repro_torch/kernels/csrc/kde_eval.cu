@@ -19,26 +19,27 @@
 //  - a warp holds kPts points in registers (the same points in every lane,
 //    kPts from d so that they stay in registers) and its lanes split a range
 //    of rows (lane l takes rows l, l + 32, ...): one row load feeds kPts
-//    independent pairs, and the row ranges are cut at call time from the SM
-//    count and the occupancy so that the grid fills, and stays within, one
-//    wave of resident blocks at any m (_launch.point_range; two waves, with
-//    blocks half as long, took 10 % longer at m = 513);
+//    independent pairs, and the row ranges are cut from n alone
+//    (_launch.fixed_range, RANGES in the launcher: about one wave of
+//    resident blocks at m = 513), so a point's partials, and its density's
+//    bits, do not depend on the other points of the launch or on the card;
 //  - the exponent is folded into the data: with c = sqrt(log2(e) / 2) / h,
-//    formed in each thread from h in device memory (no host sync), points and rows
-//    are scaled by c as they enter registers, so a term is
-//    ex2.approx.ftz(-sum v^2) (common.cuh) and a pair at d = 1 costs a
-//    subtraction, a multiply, the MUFU op and the add.  Both are scaled
-//    about the warp's first point o (fmaf(c, v, -c o), the same rounded c o
-//    for points and rows), so the rounding of the fold is relative to
-//    |v - o| / h, not to |v| / h: scaling about 0 loses the tolerance once
-//    |x| / h reaches 1e4 (tests/test_torch_kde_eval.py), and the centre costs
-//    nothing, an FMA where the scale took a multiply;
+//    formed in each thread from h in device memory (no host sync), a term is
+//    ex2.approx.ftz(-sum v^2) (common.cuh) with v = c x - c p, and a pair at
+//    d = 1 costs an FMA, a subtraction, a multiply, the MUFU op and the add.
+//    Each point is its own centre: c p is held as its rounded product and
+//    that product's exact error (two registers a coordinate), v =
+//    fmaf(c, x, -(c p)_rounded) - error, so the rounding of the fold is
+//    relative to |x - p| / h, not to |x| / h (scaling about 0 loses the
+//    tolerance once |x| / h reaches 1e4, tests/test_torch_kde_eval.py), and
+//    depends on no other point of the launch;
 //  - each warp adds its lanes by a fixed shuffle tree and writes one partial
 //    per (point, range); the second kernel adds a point's partials in
 //    float64 (lane-strided, then a fixed shuffle tree) and applies
 //    (2 pi)^(-d/2) h^(-d) / n in double, h^d from h in device memory,
 //    writing every output.  No float atomics: two launches give the same
-//    bits.  One call is these two kernels and nothing else.
+//    bits, and a point's bits are the same alone and in any batch.  One call
+//    is these two kernels and nothing else.
 // d is a template parameter (1..16), so the points stay in registers.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,30 +75,34 @@ kde_tiles(const float* __restrict__ pts, int m, const float* __restrict__ x, int
   const int p0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * P;
   if (p0 >= m) return;                         // a whole warp past the points
   const float c = kSqrtHalfLog2e / h[0];
-  float nco[D], pc[P][D], acc[P];
-#pragma unroll
-  for (int k = 0; k < D; ++k) nco[k] = -(c * pts[(size_t)p0 * D + k]);
+  // c p = -(nhi + lo) exactly: nhi the rounded product negated, lo its error
+  float nhi[P][D], lo[P][D], acc[P];
 #pragma unroll
   for (int r = 0; r < P; ++r) {
     const size_t pi = (size_t)min(p0 + r, m - 1);
 #pragma unroll
-    for (int k = 0; k < D; ++k) pc[r][k] = fmaf(c, pts[pi * D + k], nco[k]);
+    for (int k = 0; k < D; ++k) {
+      const float pk = pts[pi * D + k];
+      nhi[r][k] = -(c * pk);
+      lo[r][k] = fmaf(c, pk, nhi[r][k]);
+    }
     acc[r] = 0.0f;
   }
   const int begin = blockIdx.y * range_rows;
   const int end = min(n, begin + range_rows);
 #pragma unroll kRowUnroll
   for (int i = begin + lane; i < end; i += 32) {
-    float xr[D];
+    float xv[D];
 #pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = fmaf(c, __ldg(x + (size_t)i * D + k), nco[k]);
+    for (int k = 0; k < D; ++k) xv[k] = __ldg(x + (size_t)i * D + k);
 #pragma unroll
     for (int r = 0; r < P; ++r) {
-      const float v0 = pc[r][0] - xr[0];
+      // v = c x - c p, rounded relative to |x - p| / h
+      const float v0 = fmaf(c, xv[0], nhi[r][0]) - lo[r][0];
       float s = -v0 * v0;                      // -sum v^2, the negations free
 #pragma unroll
       for (int k = 1; k < D; ++k) {
-        const float v = pc[r][k] - xr[k];
+        const float v = fmaf(c, xv[k], nhi[r][k]) - lo[r][k];
         s = fmaf(-v, v, s);
       }
       acc[r] += ex2_ftz(s);
@@ -149,11 +154,6 @@ cudaError_t launch_d(const float* pts, int m, const float* x, int n, const float
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t blocks_d(int* blocks) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kde_tiles<D>, kThreads, 0);
-}
-
 // Calls f with std::integral_constant<int, d> for 1 <= d <= 16.
 template <int D = 1, class F>
 int with_d(int d, F f) {
@@ -163,13 +163,6 @@ int with_d(int d, F f) {
 }
 
 }  // namespace repro_torch
-
-// Blocks of kde_tiles<d> one SM holds at once, into *blocks.  Returns the
-// cudaError_t.
-extern "C" int kde_eval_blocks_per_sm(int d, int* blocks) {
-  using namespace repro_torch;
-  return with_d(d, [&](auto dd) { return blocks_d<decltype(dd)::value>(blocks); });
-}
 
 // pts: (m, d), x: (n, d) row-major, h: one float on the device; m, n >= 1,
 // 1 <= d <= 16, range_rows >= 1 rows per block; partials holds

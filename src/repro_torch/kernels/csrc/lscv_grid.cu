@@ -79,9 +79,12 @@ __device__ __forceinline__ float exp2_poly(float x) {
 }
 
 // partials: (n_h, count); block b takes triangle tile begin + b and writes
-// column b.
-__global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
-                                const float* __restrict__ a_h, int n_h,
+// column b.  S holds the columns col0 .. col0 + ld - 1 of S, ld floats a row
+// (sv_precompute.cu's column block; the whole (n, n) S is col0 = 0, ld = n):
+// S_ij at S[i * ld + (j - col0)], and every tile launched has its columns in
+// that range.
+__global__ void lscv_grid_tiles(const float* __restrict__ S, int n, long long col0,
+                                int ld, const float* __restrict__ a_h, int n_h,
                                 const float* __restrict__ c_k_ptr,
                                 const float* __restrict__ c_kk_ptr,
                                 long long begin, long long count,
@@ -93,19 +96,20 @@ __global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
   bx_to_ql(begin + blockIdx.x, &q, &l);
   const long long i0 = (long long)q * kGridTile;
   const long long j0 = (long long)l * kGridTile;
-  if (q != l && j0 + kGridTile <= n && (n & 3) == 0 &&
+  if (q != l && j0 + kGridTile <= n && (ld & 3) == 0 &&
       (reinterpret_cast<size_t>(S) & 15) == 0) {
     // every entry of the tile lies in the strict upper triangle: 16-byte loads
+    // (col0 is a multiple of the tile: the rows' starts keep S's alignment)
     for (int e = threadIdx.x; e < kVecs; e += blockDim.x) {
       const long long i = i0 + e / (kGridTile / 4);
       tile4[e] = *reinterpret_cast<const float4*>(
-          S + i * n + j0 + 4 * (e % (kGridTile / 4)));
+          S + i * ld + (j0 - col0) + 4 * (e % (kGridTile / 4)));
     }
   } else {
     for (int e = threadIdx.x; e < kGridTile * kGridTile; e += blockDim.x) {
       const long long i = i0 + e / kGridTile;
       const long long j = j0 + e % kGridTile;
-      tile[e] = (i < j && j < n) ? S[i * n + j] : INFINITY;
+      tile[e] = (i < j && j < n) ? S[i * ld + (j - col0)] : INFINITY;
     }
   }
   __syncthreads();
@@ -134,15 +138,18 @@ __global__ void lscv_grid_tiles(const float* __restrict__ S, int n,
 
 }  // namespace repro_torch
 
-// S: (n, n) row-major (only its strict upper triangle is read); a_h: (n_h,)
-// = -log2(e) / (4 h^2); c_k, c_kk: one float each in device memory.  The
-// launch sums the count triangle tiles begin .. begin + count - 1 of the
-// n_tri = T(T+1)/2, T = ceil(n / 64) (0 and n_tri: the whole triangle; a
-// share of it is one rank's part of a distributed grid); partials: n_h *
-// count floats, count >= 1; out: (n_h,).  `threads` per block (a multiple
-// of 32).  Returns the cudaError_t of the launches.
-extern "C" int lscv_grid_sums_launch(const float* S, int n, const float* a_h,
-                                     int n_h, const float* c_k,
+// S: the columns col0 .. col0 + ld - 1 of the first col0 + ld rows of an
+// n-point S, row-major, ld floats a row (col0 = 0, ld = n: the whole (n, n)
+// S; only its strict upper triangle is read); col0 a multiple of 64; a_h:
+// (n_h,) = -log2(e) / (4 h^2); c_k, c_kk: one float each in device memory.
+// The launch sums the count triangle tiles begin .. begin + count - 1 of
+// the n_tri = T(T+1)/2, T = ceil(n / 64) (0 and n_tri: the whole triangle;
+// a share of it is one rank's part of a distributed grid), whose columns
+// must lie in col0 .. col0 + ld - 1; partials: n_h * count floats, count >=
+// 1; out: (n_h,).  `threads` per block (a multiple of 32).  Returns the
+// cudaError_t of the launches.
+extern "C" int lscv_grid_sums_launch(const float* S, int n, long long col0, int ld,
+                                     const float* a_h, int n_h, const float* c_k,
                                      const float* c_kk, int threads,
                                      long long begin, long long count,
                                      float* partials, float* out,
@@ -152,8 +159,10 @@ extern "C" int lscv_grid_sums_launch(const float* S, int n, const float* a_h,
   const long long n_tiles = (n + kGridTile - 1) / kGridTile;
   const long long n_tri = n_tiles * (n_tiles + 1) / 2;
   if (begin < 0 || count < 1 || begin + count > n_tri) return (int)cudaErrorInvalidValue;
+  if (col0 < 0 || col0 % kGridTile != 0 || ld < 1 || col0 + ld > n)
+    return (int)cudaErrorInvalidValue;
   lscv_grid_tiles<<<(unsigned)count, threads, 0, stream>>>(
-      S, n, a_h, n_h, c_k, c_kk, begin, count, partials);
+      S, n, col0, ld, a_h, n_h, c_k, c_kk, begin, count, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_tile_partials<<<(unsigned)n_h, 256, 0, stream>>>(partials, count, out);

@@ -3,6 +3,11 @@ Gaussian density f^(p) = norm / n * sum_i exp(-||p - x_i||^2 / (2 h^2))
 (paper eq. 3) with norm = (2 pi)^(-d/2) h^(-d), sums and normalisation in
 one call of two kernels.
 Counterpart: `repro/kernels/kde_eval.py` (`kde_eval`).
+
+The sample is cut into ranges from n alone (`_launch.fixed_range`), as the
+range, box and GROUP BY launchers cut theirs, so a point's per-range
+partials, and its density's bits, are the same whatever other points share
+the launch and on any card.
 """
 from __future__ import annotations
 
@@ -12,15 +17,17 @@ from functools import lru_cache
 import torch
 
 from . import _build
-from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, point_range, ptr,
-                      raise_on, scalar_arg, sm_count, stream)
+from ._launch import (GRID_Y_MAX, LaunchCounter, check_tensor, fixed_range, ptr,
+                      raise_on, scalar_arg, stream)
 
 TILE = 4096         # most sample rows per block (a range, split over 32 lanes)
 WARPS = 8           # warps per block (kWarps in the source)
 # points per warp (registers) by the largest d that takes them: kPtsD4,
 # kPtsD8 and kPtsD16 in the source
 PTS_PER_WARP = {4: 8, 8: 4, 16: 2}
-WAVES = 1           # waves of resident blocks the ranges aim at (two: 10 % slower at m = 513)
+# ranges the sample is cut into: about one wave of resident blocks on an
+# H100 (132 SMs x 8) at path E's 513-point grids (9 point tiles)
+RANGES = 96
 MAX_D = 16          # the kernel is instantiated for d = 1..16
 
 
@@ -37,26 +44,15 @@ def _fn():
     return fn
 
 
-@lru_cache(maxsize=None)
-def blocks_per_sm(index: int, d: int) -> int:
-    """Blocks of the d-dimensional kernel that one SM of device `index`
-    holds at once."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        raise_on(_build.load("kde_eval").kde_eval_blocks_per_sm(d, ctypes.byref(out)),
-                 "kde_eval occupancy")
-    return out.value
-
-
 def point_tile(d: int) -> int:
     """Evaluation points per block at dimension d."""
     return WARPS * next(p for top, p in sorted(PTS_PER_WARP.items()) if d <= top)
 
 
-def row_range(n: int, m: int, d: int, sms: int, bps: int, tile: int = TILE) -> int:
-    """Sample rows per block for m points over n rows: the ranges keep the
-    grid (point tiles x ranges) within WAVES waves of resident blocks."""
-    return point_range(n, -(-m // point_tile(d)), sms, bps, WAVES, tile)
+def row_range(n: int, tile: int = TILE) -> int:
+    """Sample rows per block: a multiple of 32 that cuts n into at most
+    RANGES ranges, from n alone (not from the point count or the card)."""
+    return fixed_range(n, RANGES, 32, tile)
 
 
 def kde_eval(points: torch.Tensor, x: torch.Tensor, h, tile: int) -> torch.Tensor:
@@ -79,8 +75,7 @@ def kde_eval(points: torch.Tensor, x: torch.Tensor, h, tile: int) -> torch.Tenso
     m = points.shape[0]
     if m == 0:
         return torch.empty((0,), dtype=torch.float32, device=x.device)
-    index = x.device.index or 0
-    rows = row_range(n, m, d, sm_count(index), blocks_per_sm(index, d), tile)
+    rows = row_range(n, tile)
     n_ranges = -(-n // rows)
     if n_ranges > GRID_Y_MAX:
         raise ValueError(f"n={n} needs {n_ranges} ranges of {rows}; raise the tile")

@@ -124,14 +124,17 @@ def aqp_box_moments(x, h_diag, lo, hi, tgt, tile=None, ranges=None):
                 **shape, tile=tile, q_tile=_abx.Q_TILE, ranges=ranges, moments=5)
 
 
-def sv_matrix(x, m, tile=None, algorithm="mxu"):
+def sv_matrix(x, m, tile=None, algorithm="mxu", cols=None):
+    """`cols=(c0, c1)`: the column block S[:c1, c0:c1] only; None, the
+    whole S."""
     if x.device.type == "cpu":
         if algorithm not in _sv.ALGORITHMS:
             raise ValueError(f"unknown algorithm {algorithm!r}")
-        return ref.sv_matrix(x, m)
+        return ref.sv_matrix(x, m, cols=cols)
     shape = {"n": x.shape[0], "d": _d(x)}
     (tile,) = _tune.resolve("sv_matrix", shape, tile=(tile, _sv.TILE))
-    return _run("sv_matrix", lambda: _sv.sv_matrix(x, m, tile=tile, algorithm=algorithm),
+    return _run("sv_matrix", lambda: _sv.sv_matrix(x, m, tile=tile, algorithm=algorithm,
+                                                   cols=cols),
                 **shape, tile=tile, algorithm=algorithm)
 
 
@@ -144,18 +147,21 @@ def gh_fused_sum(x, h_inv, c_k, c_kk, tile=None):
                 **shape, tile=tile)
 
 
-def lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=None, blocks=None):
+def lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=None, blocks=None, slab=None):
     """`blocks=(begin, count)`: that range of the kernel's S tiles only (one
-    rank's share, `triangle.share`); None, all of them."""
+    rank's share, `triangle.share`); None, all of them.  `slab=(c0, n)`: s
+    is `sv_matrix(x, m, cols=(c0, c1))` of an n-point x, holding every
+    column of those tiles (`lscv_grid.slab_walk`)."""
     if s.device.type == "cpu":
-        if blocks is None:
+        if blocks is None and slab is None:
             return ref.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk)
-        return ref.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, blocks=blocks, tile=_lg.TILE)
-    shape = {"n": s.shape[0], "G": h_grid.shape[0]}
+        return ref.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, blocks=blocks, tile=_lg.TILE,
+                                         slab=slab)
+    shape = {"n": s.shape[0] if slab is None else int(slab[1]), "G": h_grid.shape[0]}
     (h_tile,) = _tune.resolve("lscv_grid_sums", shape, h_tile=(h_tile, _lg.H_TILE))
     return _run("lscv_grid_sums",
                 lambda: _lg.lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=h_tile,
-                                                  blocks=blocks),
+                                                  blocks=blocks, slab=slab),
                 **shape, h_tile=h_tile)
 
 

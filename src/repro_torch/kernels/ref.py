@@ -157,10 +157,23 @@ def _quad_slabs(x: torch.Tensor, m: torch.Tensor):
         yield start, torch.where(i[:, None] < j[None, :], s, torch.inf)
 
 
-def sv_matrix(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def sv_matrix(x: torch.Tensor, m: torch.Tensor, cols=None) -> torch.Tensor:
     """S_ij = (x_i-x_j)^T M (x_i-x_j) on the strict upper triangle, else 0.
-    x: (n, d), m: (d, d) -> (n, n)."""
-    n = x.shape[0]
+    x: (n, d), m: (d, d) -> (n, n).  `cols=(c0, c1)`: the column block
+    S[:c1, c0:c1], each entry formed as the whole S's is."""
+    n, d = x.shape
+    if cols is not None:
+        c0, c1 = (int(v) for v in cols)
+        out = torch.zeros((c1, c1 - c0), dtype=x.dtype, device=x.device)
+        per = max(1, QUAD_SLAB_ELEMS // max(1, (c1 - c0) * d))
+        j = torch.arange(c0, c1, device=x.device)
+        for a in range(0, c1, per):
+            b = min(c1, a + per)
+            v = x[a:b, None, :] - x[None, c0:c1, :]          # v[i, j] = x_i - x_j
+            s = torch.sum((v @ m) * v, dim=-1)
+            i = torch.arange(a, b, device=x.device)
+            out[a:b] = torch.where(i[:, None] < j[None, :], s, 0.0)
+        return out
     out = torch.zeros((n, n), dtype=x.dtype, device=x.device)
     for start, s in _quad_slabs(x, m):
         out[start:start + s.shape[0], start:] = torch.where(
@@ -202,11 +215,23 @@ def lscv_grid_sums(x: torch.Tensor, sigma_inv: torch.Tensor,
 
 
 def lscv_grid_sums_from_s(s_mat: torch.Tensor, h_grid: torch.Tensor, c_k,
-                          c_kk, blocks=None, tile=None) -> torch.Tensor:
+                          c_kk, blocks=None, tile=None, slab=None) -> torch.Tensor:
     """The grid phase alone (§6.2 phase 2): `lscv_grid_sums` over a
     precomputed (n, n) S, reading its strict upper triangle only; with
     `blocks`, the pairs of that range of the kernel's tiles of side `tile`
-    only."""
+    only.  `slab=(c0, n)`: s_mat is `sv_matrix(x, m, cols=(c0, c1))` of an
+    n-point x, and only its pairs count."""
+    if slab is not None:
+        c0, n = (int(v) for v in slab)
+        inv_h2 = 1.0 / (h_grid * h_grid)
+        acc = torch.zeros(h_grid.shape, dtype=s_mat.dtype, device=s_mat.device)
+        j = c0 + torch.arange(s_mat.shape[1], device=s_mat.device)
+        per = max(1, QUAD_SLAB_ELEMS // max(1, s_mat.shape[1]))
+        for a in range(0, s_mat.shape[0], per):
+            i = torch.arange(a, min(s_mat.shape[0], a + per), device=s_mat.device)
+            acc = _grid_fold(acc, torch.where(_upper(i, j, n, blocks, tile), s_mat[a:a + per],
+                                              torch.inf), inv_h2, c_k, c_kk)
+        return acc
     n = s_mat.shape[0]
     inv_h2 = 1.0 / (h_grid * h_grid)
     acc = torch.zeros(h_grid.shape, dtype=s_mat.dtype, device=s_mat.device)

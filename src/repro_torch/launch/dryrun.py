@@ -1,6 +1,7 @@
 """Multi-pod dry run (counterpart: `repro/launch/dryrun.py`): trace every
 (architecture x input shape) cell on the production meshes and extract
-memory, cost and roofline records, in one process and without the cards.
+memory, cost and roofline records without the cards (`--all`: an
+architecture a process, as many at a time as there are cores to use).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all              # 16 x 16
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod  # 2 x 16 x 16
@@ -34,6 +35,9 @@ reference's keys, so its readers (`benchmarks/bench_roofline.py`,
                           `torch.utils.flop_counter` (bytes: None);
   hlo_dot_flops_per_dev   TraceCostModel's dot FLOPs of one device;
   collective_bytes_per_dev / collective_by_kind  its collective bytes;
+  temp_at_peak            what was live near the temp peak, by the op that
+                          made it, and the largest tensors
+                          (`TraceCostModel.peak_breakdown`);
   model_flops, analytic_hbm_bytes  the reference's formulas (`roofline`);
   roofline                the three terms with the H100's figures.
 The SSM families' loops over time are traced one step and scaled by the
@@ -265,6 +269,7 @@ def analyse_cell(arch, shape, mesh, *, n_micro=None, gather_once: bool = False,
         "hlo_dot_flops_global": dot * chips,
         "collective_bytes_per_dev": coll,
         "collective_by_kind": by_kind,
+        "temp_at_peak": tc.peak_breakdown(),
         "model_flops": mf,
         "useful_flops_ratio": mf / max(dot * chips, 1.0),
         "analytic_hbm_bytes": hbm,
@@ -338,6 +343,50 @@ def _append(path: str, rec: dict) -> None:
             f.write(json.dumps(rec) + "\n")
 
 
+def _run_archs(args, cells) -> int:
+    """`cells` traced one process an architecture (each its own fake group
+    and DTensor caches), as many at a time as this process may use CPU
+    cores; their lines printed and their records appended to --out in the
+    architectures' order."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+
+    archs = list(dict.fromkeys(a for a, _ in cells))
+    passthrough = []
+    for flag in ("mesh_shape", "n_micro", "remat_policy", "device"):
+        value = getattr(args, flag)
+        if value not in (None, ""):
+            passthrough += [f"--{flag.replace('_', '-')}", str(value)]
+    passthrough += [f for flag, f in (("multi_pod", "--multi-pod"),
+                                      ("gather_once", "--gather-once")) if getattr(args, flag)]
+    jobs = len(os.sched_getaffinity(0))
+    failures = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        todo, running, outs = list(archs), [], {}
+        while todo or running:
+            while todo and len(running) < jobs:
+                a = todo.pop(0)
+                outs[a] = os.path.join(tmp, f"{len(outs)}.jsonl")
+                shapes = ",".join(s for b, s in cells if b == a)
+                running.append((a, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                     "--shape", shapes, "--out", outs[a]] + passthrough,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            time.sleep(0.5)
+            for a, proc in [r for r in running if r[1].poll() is not None]:
+                running.remove((a, proc))
+                text, _ = proc.communicate()     # a few lines: the pipe never fills
+                failures += proc.returncode != 0
+                print(text.rstrip(), flush=True)
+        for a in archs:
+            if args.out and os.path.exists(outs[a]):
+                with open(outs[a]) as src, open(args.out, "a") as dst:
+                    dst.write(src.read())
+    return failures
+
+
 def run(args) -> int:
     from repro_torch.configs.base import ARCH_IDS, SHAPES, cell_runnable
     from repro_torch.launch.mesh import mesh_shape
@@ -355,7 +404,9 @@ def run(args) -> int:
                     _append(args.out, {"arch": a, "shape": s.name, "mesh": mesh_shape(mesh),
                                        "ok": False, "skipped": True, "reason": why})
     else:
-        cells = [(args.arch, args.shape)]
+        cells = [(args.arch, s) for s in args.shape.split(",")]
+    if args.all and not args.kde:
+        return _run_archs(args, cells)
 
     mesh_tag = "x".join(str(s) for s in mesh.shape)
     if args.kde:
@@ -379,6 +430,7 @@ def run(args) -> int:
             print(f"PASS {tag}: compile={rec['compile_s']}s "
                   f"arg/dev={rec['memory']['argument_gb_per_dev']:.2f}GB "
                   f"temp/dev={rec['memory']['temp_gb_per_dev']:.2f}GB "
+                  f"coll/dev={rec['collective_bytes_per_dev'] / 1e9:.4g}GB "
                   f"dom={rec['roofline']['dominant']}", flush=True)
         except Exception as e:  # noqa: BLE001 - report and continue
             failures += 1
@@ -396,8 +448,18 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Trace the LM cells on a fake production "
                                              "mesh: memory, cost and roofline records")
     ap.add_argument("--arch", default="llama3.2-1b", choices=list(ARCH_IDS))
-    ap.add_argument("--shape", default="train_4k", choices=[s.name for s in SHAPES])
-    ap.add_argument("--all", action="store_true")
+    names = [s.name for s in SHAPES]
+
+    def shape_list(text: str) -> str:
+        if any(s not in names for s in text.split(",")):
+            raise argparse.ArgumentTypeError(f"shapes are {names}, comma-separated")
+        return text
+
+    ap.add_argument("--shape", default="train_4k", type=shape_list,
+                    help=f"one of {names}, or several comma-separated")
+    ap.add_argument("--all", action="store_true",
+                    help="every runnable cell, an architecture a process, as many at a "
+                         "time as there are CPU cores to use")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--n-micro", type=int, default=None)
     ap.add_argument("--mesh-shape", default="",

@@ -119,7 +119,7 @@ class HybridLM(LM):
         bcdt = L.batch_sharded(xc @ lp["bcdt_proj"])
         Bm = bcdt[..., :N].float()
         Cm = bcdt[..., N:2 * N].float()
-        dtv = F.softplus(bcdt[..., 2 * N:].float() + lp["dt_bias"])   # (B, S, H)
+        dtv = L.pointwise(F.softplus, bcdt[..., 2 * N:].float() + lp["dt_bias"])   # (B, S, H)
         a = -torch.exp(lp["a_log"])                                   # (H,)
         B_, S = x.shape[0], x.shape[1]
         xh = xc.reshape(B_, S, H, Ph).float()
@@ -147,7 +147,7 @@ class HybridLM(LM):
         xc = F.silu(torch.einsum("bkd,kd->bd", window, lp["conv_w"]) + lp["conv_b"])
         bcdt = L.batch_sharded(xc @ lp["bcdt_proj"])
         Bm, Cm = bcdt[..., :N], bcdt[..., N:2 * N]
-        dtv = F.softplus(bcdt[..., 2 * N:].float() + lp["dt_bias"])
+        dtv = L.pointwise(F.softplus, bcdt[..., 2 * N:].float() + lp["dt_bias"])
         a = -torch.exp(lp["a_log"])
         da = torch.exp(dtv * a[None])
         xh = xc.reshape(-1, H, Ph).float()

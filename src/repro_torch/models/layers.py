@@ -23,12 +23,17 @@ atomics, so a step on the card gives the same bits run to run.
 On a device mesh the parameters are DTensors (`repro_torch.sharding`) and
 the functions run on DTensor as written, except where each device's part
 runs as plain tensors (a `local_map` by hand, its results and gradients
-carrying the right placements): `gather_rows` from a sharded table (the
-table gathered whole), `cross_entropy` (the vocab dim gathered),
-`attention_core` (by heads, or over a sequence-sharded decode cache with
-the softmax combined across devices) and `write_slot`; `split_heads`,
-`halves` and `project_halves` gather a sharded dim only where a cut needs
-it, and `batch_sharded` keeps the residual stream sharded by batch only.
+carrying the right placements), sharded as the reference's specs shard:
+`gather_rows` from a table sharded by rows over 'model' (a vocab-parallel
+lookup: each device reads the rows of its shard, one all_reduce over
+'model' adds them), `cross_entropy` (vocab-parallel: the max, the sum of
+exponentials and the gold logit each all-reduced over 'model'),
+`attention_core` (by q heads, each device with the kv head its q heads
+read, or over a sequence-sharded decode cache with the softmax combined
+across devices), `project_halves` (each device's columns of both halves,
+one all_to_all of the weight's shard over 'model') and `write_slot`;
+`split_heads` and `halves` gather a sharded dim only where a cut needs it,
+and `batch_sharded` keeps the residual stream sharded by batch only.
 The plain tensors the models make (positions, masks, RoPE frequencies,
 scan states) count as replicated under
 `torch.distributed.tensor.experimental.implicit_replication`, which the
@@ -43,6 +48,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -84,53 +90,121 @@ def full(gen: torch.Generator, shape, value: float, dtype):
 # ---------------------------------------------------------------------------
 
 class _GatherRows(torch.autograd.Function):
+    """table[idx]; with `keep`, 0 where keep is False (those reads add
+    nothing to the table's gradient)."""
+
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, table, idx, keep=None):
+        ctx.save_for_backward(idx, keep)
         ctx.rows = table.shape[0]
-        return table[idx]
+        out = table[idx]
+        if keep is not None:
+            out = torch.where(keep[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                                device=out.device))
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
+        idx, keep = ctx.saved_tensors
         flat = idx.reshape(-1)
         g = grad.reshape(flat.shape[0], -1)
+        shape = (ctx.rows, *grad.shape[idx.dim():])
         if isinstance(grad, FakeTensor):
             # the dry run's fake tensors have no values to cut segments by:
             # the same sum, in some order, with the same shapes
+            if keep is not None:
+                g = g * keep.reshape(-1, 1)
             out = torch.zeros((ctx.rows, g.shape[1]), dtype=torch.float32, device=grad.device)
             out = out.index_add_(0, flat, g.float()).to(grad.dtype)
-            return out.reshape(ctx.rows, *grad.shape[idx.dim():]), None
-        order = torch.sort(flat, stable=True).indices
-        rows, lengths = torch.unique_consecutive(flat[order], return_counts=True)
-        sums = torch.segment_reduce(g[order].float(), "sum", lengths=lengths)
+            return out.reshape(shape), None, None
+        if keep is not None:
+            sel = keep.reshape(-1)
+            flat, g = flat[sel], g[sel]
         out = torch.zeros((ctx.rows, g.shape[1]), dtype=grad.dtype, device=grad.device)
-        out[rows] = sums.to(grad.dtype)
-        return out.reshape(ctx.rows, *grad.shape[idx.dim():]), None
+        if flat.numel():
+            order = torch.sort(flat, stable=True).indices
+            rows, lengths = torch.unique_consecutive(flat[order], return_counts=True)
+            sums = torch.segment_reduce(g[order].float(), "sum", lengths=lengths)
+            out[rows] = sums.to(grad.dtype)
+        return out.reshape(shape), None, None
 
 
-def gather_rows(table, idx):
-    """`table[idx]` (idx any integer shape).  The gradient of a row read k
+class _SumOver(torch.autograd.Function):
+    """Every rank's t summed over `group` (one all_reduce, in the
+    collective's fixed order); the gradient passes unchanged, since each
+    rank's t reaches the sum once and every rank of the group holds the
+    sum's whole gradient (what follows runs alike on each)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over(t, group):
+    return _SumOver.apply(t, group)
+
+
+def model_dim(mesh):
+    """The index of the mesh's 'model' dim, or None."""
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def shard_offset(size: int, mesh, dim: int) -> int:
+    """The first index of this device's chunk of `size` along mesh dim
+    `dim` (DTensor's Shard: chunks of ceil(size / ways))."""
+    return mesh.get_coordinate()[dim] * (-(-size // mesh.size(dim)))
+
+
+def gather_rows(table, idx, keep=None):
+    """`table[idx]` (idx any integer shape); with `keep` (a plain table
+    only), 0 where keep is False, those reads adding nothing to the
+    table's gradient.  The gradient of a row read k
     times is its k gradients summed in float32 in index order (a stable sort
     and a segment sum) and rounded once to the table's dtype, where
     indexing's backward accumulates with float atomics on the card.
 
-    A DTensor table is gathered whole on every device and each device
-    reads the rows of its own indices (idx a DTensor sharded on its
-    leading dim, or a plain tensor every device holds whole); the rows
-    come back sharded as idx is, and the table's gradient is summed over
-    the devices whose indices differ."""
+    A DTensor table sharded by rows over 'model' (the reference's
+    embedding, `P("model", fsdp)`) is read vocab-parallel: its other mesh
+    dims gathered as FSDP gathers any weight, each device reads the rows of
+    its own shard for its indices (idx a DTensor sharded on its leading
+    dim, or a plain tensor every device holds whole) with the others 0, and
+    one all_reduce over 'model' adds them (each row has one nonzero term:
+    the lookup's bits); the rows come back sharded as idx is, and each
+    shard's gradient keeps the sorted segment sum's order.  Any other
+    DTensor table is gathered whole on every device."""
     if not isinstance(table, DTensor):
-        return _GatherRows.apply(table, idx)
+        return _GatherRows.apply(table, idx, keep)
     mesh = table.device_mesh
     idx = sharding.as_dtensor(idx, mesh)
-    split = [isinstance(p, Shard) for p in idx.placements]
     if any(isinstance(p, Shard) and p.dim != 0 for p in idx.placements):
         raise ValueError(f"indices sharded as {idx.placements}; only the leading dim may be")
-    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
-        grad_placements=[Partial() if s else Replicate() for s in split])
-    rows = _GatherRows.apply(whole, idx.to_local())
-    return DTensor.from_local(rows, mesh, idx.placements, run_check=False)
+    tp_dim = model_dim(mesh)
+    if tp_dim is None or mesh.size(tp_dim) == 1 or table.placements[tp_dim] != Shard(0):
+        split = [isinstance(p, Shard) for p in idx.placements]
+        whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial() if s else Replicate() for s in split])
+        rows = _GatherRows.apply(whole, idx.to_local())
+        return DTensor.from_local(rows, mesh, idx.placements, run_check=False)
+    ipl = [Replicate() if i == tp_dim else p for i, p in enumerate(idx.placements)]
+    if ipl != list(idx.placements):
+        idx = idx.redistribute(mesh, ipl)
+    tpl = [Shard(0) if i == tp_dim else Replicate() for i in range(mesh.ndim)]
+    grad = [Shard(0) if i == tp_dim else (Partial() if isinstance(p, Shard) else Replicate())
+            for i, p in enumerate(ipl)]
+    local = table.redistribute(mesh, tpl).to_local(grad_placements=grad)
+    lo = shard_offset(table.shape[0], mesh, tp_dim)
+    il = idx.to_local()
+    keep = (il >= lo) & (il < lo + local.shape[0])
+    rows = _GatherRows.apply(local, torch.where(keep, il - lo, 0), keep)
+    rows = sum_over(rows, mesh.get_group(tp_dim))
+    return DTensor.from_local(rows, mesh, ipl, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -260,24 +334,42 @@ def _attention_sharded(q, k, v, *, causal: bool, q_offset: int, window: int, q_c
     reference's decode layout, `cache_specs`) stays so, each device
     attends over its keys and the softmax is combined by three all-reduces
     (max, sum, output); otherwise q, k and v are sharded by heads where
-    both head counts divide, else whole on every device."""
+    both head counts divide; where the q heads divide and the kv heads
+    divide the devices, q is sharded by heads and each device takes the one
+    kv head its q heads read (q head i reads kv head i // (Hq / Hkv)) from k
+    and v whole over 'model'; else all three are whole on every device."""
     mesh = (q if isinstance(q, DTensor) else k).device_mesh
     q, k, v = (sharding.as_dtensor(t, mesh) for t in (q, k, v))
     tp_dim = mesh.mesh_dim_names.index("model")
     tp = mesh.size(tp_dim)
+    hq, hkv = q.shape[2], k.shape[2]
     by_seq = k.placements[tp_dim] == Shard(1)
-    by_head = not by_seq and q.shape[2] % tp == 0 and k.shape[2] % tp == 0
+    by_head = not by_seq and hq % tp == 0 and hkv % tp == 0
+    by_q_head = not by_seq and not by_head and hq % tp == 0 and tp % hkv == 0
     pl = []
     for i, p in enumerate(q.placements):
         if i == tp_dim:
-            pl.append(Shard(2) if by_head else Replicate())
+            pl.append(Shard(2) if by_head or by_q_head else Replicate())
         else:
             pl.append(Shard(0) if p == Shard(0) else Replicate())
     kv_pl = list(pl)
     if by_seq:
         kv_pl[tp_dim] = Shard(1)
+    elif by_q_head:
+        kv_pl[tp_dim] = Replicate()
     q = q.redistribute(mesh, pl)
     k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
+    if by_q_head:
+        # each device's kv head from k and v whole over 'model'; the
+        # devices' gradients of them add up (Partial over 'model')
+        kv_grad = [Partial() if i == tp_dim else p for i, p in enumerate(kv_pl)]
+        ql = q.to_local(grad_placements=pl)
+        kl, vl = (t.to_local(grad_placements=kv_grad) for t in (k, v))
+        head = mesh.get_coordinate()[tp_dim] * (hq // tp) // (hq // hkv)
+        out = attention_core(ql, kl[:, :, head:head + 1], vl[:, :, head:head + 1],
+                             causal=causal, q_offset=q_offset, window=window,
+                             q_chunk=q_chunk)
+        return DTensor.from_local(out, mesh, pl, run_check=False)
     if not by_seq:
         out = attention_core(q.to_local(grad_placements=pl), k.to_local(grad_placements=pl),
                              v.to_local(grad_placements=pl), causal=causal,
@@ -372,13 +464,91 @@ def split_heads(x, heads: int, head_dim: int):
 
 
 def project_halves(h, w, n: int):
-    """((h @ w)[..., :n], (h @ w)[..., n:]).  With a DTensor weight the
-    weight is cut instead (`halves` of its columns, gathered and sharded
-    again), and each half projected: the activations are never gathered."""
+    """((h @ w)[..., :n], (h @ w)[..., n:]).  With a DTensor weight whose
+    columns are sharded over 'model' in chunks that cut both halves evenly,
+    each device projects its own columns of both halves (`_HalvesOfShard`:
+    one all_to_all of the weight's shard over 'model', never the weight
+    gathered), so the halves come out sharded by columns over 'model' as the
+    weights that follow them (conv, dt, D, out_proj) are; otherwise the
+    weight is cut (`halves` of its columns, gathered and sharded again) and
+    each half projected.  The activations are never gathered."""
     if not isinstance(w, DTensor):
         return halves(h @ w, n)
+    mesh = w.device_mesh
+    tp_dim = model_dim(mesh)
+    tp = 1 if tp_dim is None else mesh.size(tp_dim)
+    if tp > 1 and w.placements[tp_dim] == Shard(1) and n % tp == 0 and w.shape[1] == 2 * n:
+        return _project_halves_sharded(h, w, n, tp_dim)
     wa, wb = halves(w, n)
     return h @ wa, h @ wb
+
+
+def _project_halves_sharded(h, w, n: int, tp_dim: int):
+    mesh = w.device_mesh
+    h = sharding.as_dtensor(h, mesh)
+    hpl = [Replicate() if i == tp_dim else (Shard(0) if p == Shard(0) else Replicate())
+           for i, p in enumerate(h.placements)]
+    h = h.redistribute(mesh, hpl)
+    split = [p == Shard(0) for p in hpl]
+    wpl = [Shard(1) if i == tp_dim else Replicate() for i in range(mesh.ndim)]
+    w_grad = [Shard(1) if i == tp_dim else (Partial() if split[i] else Replicate())
+              for i in range(mesh.ndim)]
+    wl = w.redistribute(mesh, wpl).to_local(grad_placements=w_grad)
+    hl = h.to_local(grad_placements=[Partial() if i == tp_dim else p
+                                     for i, p in enumerate(hpl)])
+    both = _HalvesOfShard.apply(wl, mesh, tp_dim)                # (2, in, n / tp)
+    opl = [Shard(hl.dim() - 1) if i == tp_dim else p for i, p in enumerate(hpl)]
+    return tuple(DTensor.from_local(hl @ both[j], mesh, opl, run_check=False) for j in (0, 1))
+
+
+class _HalvesOfShard(torch.autograd.Function):
+    """Device t's shard of a (in, 2n) weight sharded by columns over the tp
+    devices of mesh dim `dim` (columns [t c, (t + 1) c), c = 2n / tp, two
+    chunks of q = n / tp) -> (2, in, q): columns [t q, (t + 1) q) of the
+    first half and of the second, by one all_to_all over the dim.  Global
+    chunk k of the 2 tp (chunk k of the first half for k < tp, chunk k - tp
+    of the second after) goes to device k mod tp; device t sends its chunks
+    2t and 2t + 1 and receives chunk t (from device t // 2) and chunk tp + t
+    (from device (tp + t) // 2), in that order.  The backward sends the
+    gradients back the same way."""
+
+    @staticmethod
+    def _plan(t: int, tp: int, rows: int):
+        send = [0] * tp
+        for k in (2 * t, 2 * t + 1):
+            send[k % tp] += rows
+        recv = [0] * tp
+        for k in (t, tp + t):
+            recv[k // 2] += rows
+        return send, recv
+
+    @staticmethod
+    def forward(ctx, wl, mesh, dim):
+        tp, t = mesh.size(dim), mesh.get_coordinate()[dim]
+        d_in, q = wl.shape[0], wl.shape[1] // 2
+        pieces = wl.reshape(d_in, 2, q).permute(1, 0, 2)          # chunks 2t, 2t + 1
+        dests = [(2 * t) % tp, (2 * t + 1) % tp]
+        order = [0, 1] if dests[0] < dests[1] else [1, 0]         # by destination rank
+        send, recv = _HalvesOfShard._plan(t, tp, d_in)
+        src = pieces[order].reshape(2 * d_in, q).contiguous()
+        out = torch.empty_like(src)
+        group = mesh.get_group(dim)
+        dist.all_to_all_single(out, src, recv, send, group=group)
+        ctx.mesh, ctx.dim, ctx.order = mesh, dim, order
+        return out.reshape(2, d_in, q)                            # sources t // 2 < (tp + t) // 2
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, dim, order = ctx.mesh, ctx.dim, ctx.order
+        tp, t = mesh.size(dim), mesh.get_coordinate()[dim]
+        _, d_in, q = grad.shape
+        send, recv = _HalvesOfShard._plan(t, tp, d_in)
+        back = torch.empty((2 * d_in, q), dtype=grad.dtype, device=grad.device)
+        dist.all_to_all_single(back, grad.reshape(2 * d_in, q).contiguous(), send, recv,
+                               group=mesh.get_group(dim))
+        pieces = torch.empty((2, d_in, q), dtype=grad.dtype, device=grad.device)
+        pieces[order] = back.reshape(2, d_in, q)
+        return pieces.permute(1, 0, 2).reshape(d_in, 2 * q), None, None
 
 
 def halves(x, n: int):
@@ -394,6 +564,20 @@ def halves(x, n: int):
 def attn_out(p, o):
     b, s, h, d = o.shape
     return batch_sharded(o.reshape(b, s, h * d) @ p["wo"])
+
+
+def pointwise(fn, x):
+    """fn(x) for an elementwise fn.  A DTensor runs fn on its local shard
+    (partial sums added first) and keeps its placements, so the op needs no
+    sharding rule of DTensor's: without one (softplus on torch 2.11) DTensor
+    replicates the input whole on every device."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return DTensor.from_local(fn(x.to_local(grad_placements=pl)), x.device_mesh, pl,
+                              run_check=False, shape=x.shape, stride=x.stride())
 
 
 def batch_sharded(x):
@@ -454,21 +638,49 @@ def cross_entropy(logits, labels, mask=None):
 
 def _nll(logits, labels):
     """-log softmax(logits)[label] at every position, float32.  DTensor
-    logits have their vocab dim gathered, and each device takes its own
-    positions (labels sharded as logits are along the leading dims)."""
+    logits are read vocab-parallel over 'model' (the vocab dim sharded
+    there, each device its own positions: labels sharded as logits are
+    along the leading dims): each device's max, sum of exponentials and
+    gold logit over its vocab shard, all-reduced over 'model' (max, sum,
+    sum), so the whole vocab is never gathered; with no 'model' dim wider
+    than 1, the vocab dim is gathered and the plain function runs."""
     if not isinstance(logits, DTensor):
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
         return logz - gold
     mesh = logits.device_mesh
-    whole_v = sharding.replicated(logits, dims=[-1])
-    if any(not isinstance(p, (Shard, Replicate)) for p in whole_v.placements):
-        whole_v = whole_v.redistribute(mesh, [p if isinstance(p, Shard) else Replicate()
-                                              for p in whole_v.placements])
-    labels = sharding.as_dtensor(labels, mesh).redistribute(mesh, whole_v.placements)
-    nll = _nll(whole_v.to_local(), labels.to_local())
-    return DTensor.from_local(nll, mesh, whole_v.placements, run_check=False)
+    tp_dim = model_dim(mesh)
+    if tp_dim is None or mesh.size(tp_dim) == 1:
+        whole_v = sharding.replicated(logits, dims=[-1])
+        if any(not isinstance(p, (Shard, Replicate)) for p in whole_v.placements):
+            whole_v = whole_v.redistribute(mesh, [p if isinstance(p, Shard) else Replicate()
+                                                  for p in whole_v.placements])
+        labels = sharding.as_dtensor(labels, mesh).redistribute(mesh, whole_v.placements)
+        nll = _nll(whole_v.to_local(), labels.to_local())
+        return DTensor.from_local(nll, mesh, whole_v.placements, run_check=False)
+    v_dim = logits.dim() - 1
+    labels = sharding.as_dtensor(labels, mesh)
+    # each device its own positions: the batch sharded as the labels' (or
+    # the logits') is, a local slice where the logits hold it whole
+    pl = [Shard(v_dim) if i == tp_dim else
+          (Shard(0) if Shard(0) in (p, q) else Replicate())
+          for i, (p, q) in enumerate(zip(logits.placements, labels.placements))]
+    if pl != list(logits.placements):
+        logits = logits.redistribute(mesh, pl)
+    out_pl = [Replicate() if i == tp_dim else p for i, p in enumerate(pl)]
+    lab = labels.redistribute(mesh, out_pl).to_local()
+    ll = logits.to_local(grad_placements=pl).float()
+    group = mesh.get_group(tp_dim)
+    with torch.no_grad():                     # the max only steadies the exponentials
+        m = ll.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    se = sum_over(torch.sum(torch.exp(ll - m[..., None]), dim=-1), group)
+    lo = shard_offset(logits.shape[-1], mesh, tp_dim)
+    keep = (lab >= lo) & (lab < lo + ll.shape[-1])
+    gold = torch.gather(ll, -1, torch.where(keep, lab - lo, 0)[..., None].long())[..., 0]
+    gold = sum_over(torch.where(keep, gold, 0.0), group)
+    return DTensor.from_local(m + torch.log(se) - gold, mesh, out_pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------

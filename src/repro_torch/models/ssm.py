@@ -163,7 +163,7 @@ class MambaLM(LM):
         xi, z = L.project_halves(h, lp["in_proj"], di)
         xc = F.silu(causal_conv(xi, lp["conv_w"], lp["conv_b"]))
         dbc = L.batch_sharded(xc @ lp["x_proj"])
-        dtv = F.softplus(dbc[..., :R] @ lp["dt_proj"] + lp["dt_bias"])
+        dtv = L.pointwise(F.softplus, dbc[..., :R] @ lp["dt_proj"] + lp["dt_bias"])
         Bm = dbc[..., R:R + N]
         Cm = dbc[..., R + N:]
         y, h_last = self._ssm_scan(lp, xc, dtv, Bm, Cm)
@@ -213,13 +213,12 @@ class MambaLM(LM):
         for i, lp in enumerate(self.layers):
             conv_state, h = cache["conv"][i], cache["ssm"][i]
             hN = L.rmsnorm(x, lp["norm"]["w"])
-            xz = hN @ lp["in_proj"]
-            xi, z = L.halves(xz, di)                        # (B, di)
+            xi, z = L.project_halves(hN, lp["in_proj"], di)   # (B, di) each
             window = torch.cat([conv_state, xi[:, None, :]], dim=1)   # (B, K, di)
             xc = torch.einsum("bkd,kd->bd", window, lp["conv_w"]) + lp["conv_b"]
             xc = F.silu(xc)
             dbc = L.batch_sharded(xc @ lp["x_proj"])
-            dtv = F.softplus(dbc[..., :R] @ lp["dt_proj"] + lp["dt_bias"])
+            dtv = L.pointwise(F.softplus, dbc[..., :R] @ lp["dt_proj"] + lp["dt_bias"])
             Bm, Cm = dbc[..., R:R + N], dbc[..., R + N:]
             dA = torch.exp(dtv.float()[..., None] * (-torch.exp(lp["A_log"]))[None])
             h = dA * h + (dtv * xc).float()[..., None] * Bm.float()[:, None, :]

@@ -34,7 +34,10 @@ shards, not the global op) and counts
     "reduce-scatter", "all-to-all", and send / recv as
     "collective-permute");
   * the peak of the bytes of live tensors that ops made during the trace
-    (the storages of the tensors registered as arguments are not counted).
+    (the storages of the tensors registered as arguments are not counted),
+    and what was live near it (`peak_breakdown()`: bytes by the op that
+    made them, and the largest tensors), taken whenever the live bytes pass
+    the last such record by 1 %.
 Eager mode runs every iteration, so no trip count is needed, except for the
 SSM families' loops over time, which the dry run traces one step of
 (`one_step_scans=True`, read by `models.layers.time_scan`): `scaled(steps)` multiplies what ops count
@@ -49,6 +52,8 @@ does not give per-device FLOPs; the trace here counts local ops only.
 from __future__ import annotations
 
 import contextlib
+import heapq
+import itertools
 import weakref
 from collections import defaultdict
 from typing import Dict
@@ -112,6 +117,9 @@ class TraceCostModel(TorchDispatchMode):
         self._seen = WeakIdKeyDictionary()
         self._scale = 1
         self._propagating = 0
+        self._live: Dict[int, tuple] = {}        # key -> (op, shape, bytes) of live tensors
+        self._keys = itertools.count()
+        self._near_peak = (0, [])               # (live bytes, live entries) when recorded
 
     # -- arguments and memory ------------------------------------------------
     def register_args(self, tree) -> int:
@@ -128,7 +136,7 @@ class TraceCostModel(TorchDispatchMode):
                     total += st.nbytes()
         return total
 
-    def _track(self, out) -> None:
+    def _track(self, out, op: str = "") -> None:
         for t in tree_leaves(out):
             if not isinstance(t, torch.Tensor) or isinstance(t, DTensor):
                 continue
@@ -138,11 +146,30 @@ class TraceCostModel(TorchDispatchMode):
             n = st.nbytes()
             self._seen[st] = n
             self.live += n
+            key = next(self._keys)
+            self._live[key] = (op, tuple(t.shape), n)
             self.peak_bytes = max(self.peak_bytes, self.live)
-            weakref.finalize(st, self._free, n)
+            if self.live > 1.01 * self._near_peak[0]:
+                self._near_peak = (self.live, list(self._live.values()))
+            weakref.finalize(st, self._free, key, n)
 
-    def _free(self, n: int) -> None:
+    def _free(self, key: int, n: int) -> None:
         self.live -= n
+        self._live.pop(key, None)
+
+    def peak_breakdown(self, top: int = 8) -> dict:
+        """What was live when the live bytes were last recorded near their
+        peak (within 1 %): {"live_bytes", "by_op": [[op, bytes], ...] largest
+        first, "largest": [[op, shape, bytes], ...]}."""
+        live, entries = self._near_peak
+        by_op: Dict[str, int] = defaultdict(int)
+        for op, _, n in entries:
+            by_op[op] += n
+        return {"live_bytes": live,
+                "by_op": [[op, n] for op, n in heapq.nlargest(top, by_op.items(),
+                                                              key=lambda kv: kv[1])],
+                "largest": [[op, list(shape), n] for op, shape, n in
+                            heapq.nlargest(top, entries, key=lambda e: e[2])]}
 
     # -- scaling of one-step scans -------------------------------------------
     @contextlib.contextmanager
@@ -224,7 +251,7 @@ class TraceCostModel(TorchDispatchMode):
         if kind is not None:
             name, which = kind
             self.coll[name] += m * _nbytes(out if which == "out" else args[which])
-        self._track(out)
+        self._track(out, str(packet))
         return out
 
     def collective_bytes(self):

@@ -200,3 +200,55 @@ def test_full_config_cell(arch, shape, mesh, tmp_path):
     assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert rec["memory"]["temp_gb_per_dev"] > 0
     assert re.search(r"^PASS ", r.stdout, re.M)
+
+
+def test_shape_lists_and_jobs_run_an_arch_a_process(monkeypatch, tmp_path, capsys):
+    """`--shape` takes a comma-separated list; `--all` prints the
+    reference's SKIP lines, starts one process an architecture with its
+    runnable shapes, no more at a time than the cores it may use, and
+    appends their records to --out in the architectures' order (the
+    children faked here: a full config is never traced on this CPU)."""
+    from repro_torch.launch import dryrun
+
+    ap = dryrun.parser()
+    assert ap.parse_args(["--shape", "train_4k,decode_32k"]).shape == "train_4k,decode_32k"
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--shape", "train_4k,nope"])
+    started, live = [], []
+
+    class FakeChild:
+        def __init__(self, argv, **kw):
+            arch, shapes, out = (argv[argv.index(f) + 1] for f in ("--arch", "--shape", "--out"))
+            started.append((arch, shapes, argv[argv.index("--out") + 2:]))
+            live.append(len(started) - sum(done))
+            with open(out, "w") as f:
+                for s in shapes.split(","):
+                    f.write(json.dumps({"arch": arch, "shape": s, "ok": True}) + "\n")
+            self.returncode = 1 if arch == ARCH_IDS[2] else 0
+
+        def poll(self):
+            return self.returncode
+
+        def communicate(self):
+            done.append(1)
+            return "PASS", None
+
+    done = []
+    monkeypatch.setattr(subprocess, "Popen", FakeChild)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0, 1, 2})
+    out = tmp_path / "all.jsonl"
+    args = ap.parse_args(["--all", "--device", "cpu", "--mesh-shape", "2,2",
+                          "--out", str(out)])
+    try:
+        assert dryrun.run(args) == 1                        # the one failing child
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    skips = [r for r in recs if r.get("skipped")]
+    ran = [(r["arch"], r["shape"]) for r in recs if not r.get("skipped")]
+    want = [(a, s.name) for a in ARCH_IDS for s in SHAPES if cell_runnable(a, s.name)[0]]
+    assert ran == want and len(skips) == 4 * len(ARCH_IDS) - len(want)
+    assert [a for a, _, _ in started] == list(ARCH_IDS) and max(live) == 3
+    assert all(extra == ["--mesh-shape", "2,2", "--device", "cpu"] for _, _, extra in started)
+    assert capsys.readouterr().out.count("SKIP ") == len(skips)

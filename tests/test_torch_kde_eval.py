@@ -6,7 +6,8 @@ tree, the float64 second pass and the normalisation applied there, with the
 points per warp and the row ranges read from the launcher) against the
 plain version `ref.kde_eval` and the JAX package's Pallas kernel in
 interpret mode; the cut of the grid (every row in one range, every point in
-one tile, within two waves of resident blocks on 132 SMs); and the folded
+one tile, the ranges from n alone, so a point's density has the same bits
+alone and in a batch); and the folded
 exponent against float64 on data far from 0.  On a machine with a CUDA
 device, the kernel itself: one launch a call, two launches bit-equal, edge
 shapes, and data far from 0 against float64.
@@ -17,6 +18,7 @@ the float64 sum of an exact float64 product rounded once to float32 and
 ex2.approx as exp2 correctly rounded (the card's is within 2 ulp), so it
 stands for the kernel within that tolerance, not bit for bit.
 """
+import inspect
 import math
 import re
 from pathlib import Path
@@ -34,8 +36,6 @@ from repro_torch.kernels._launch import GRID_Y_MAX
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
 KDE_TOL = dict(rtol=5e-4, atol=1e-7)
 F32 = np.float32
-SMS = 132                     # H100 SXM
-BPS = 8                       # resident 256-thread blocks an SM holds at <= 32 registers
 
 
 def _source() -> dict:
@@ -54,23 +54,21 @@ def _scale(h) -> F32:
     return F32(F32(_source()["kSqrtHalfLog2e"]) / F32(h))
 
 
-def _terms(points, x, h, per_warp, centred=True):
-    """(m, n) float32 terms 2^(-sum v^2) of the kernel, v = c p - c x formed
-    about the warp's first point o as fmaf(c, ., -(c o)) (centred) or as
-    c p - c x about 0."""
+def _terms(points, x, h, centred=True):
+    """(m, n) float32 terms 2^(-sum v^2) of the kernel: v = c x - c p formed
+    about each point as fmaf(c, x, -(c p)) - (the product's error)
+    (centred), or as c p - c x about 0."""
     c = _scale(h)
     m = points.shape[0]
     out = np.empty((m, x.shape[0]), F32)
-    for s in range(0, m, 256):                       # whole warps: 256 % per_warp == 0
+    for s in range(0, m, 256):
         p = points[s:s + 256]
         if centred:
-            o = points[s + (np.arange(p.shape[0]) // per_warp) * per_warp]
-            nco = -(c * o).astype(F32)
-            pc = _fma(c, p, nco)
-            xr = _fma(c, x[None], nco[:, None])
+            nhi = -(c * p).astype(F32)
+            lo = _fma(c, p, nhi)
+            v = (_fma(c, x[None], nhi[:, None]) - lo[:, None]).astype(F32)
         else:
-            pc, xr = (c * p).astype(F32), (c * x).astype(F32)[None]
-        v = (pc[:, None, :] - xr).astype(F32)
+            v = ((c * p).astype(F32)[:, None] - (c * x).astype(F32)[None]).astype(F32)
         acc = (-(v[..., 0] * v[..., 0])).astype(F32)
         for k in range(1, x.shape[1]):
             acc = _fma(-v[..., k], v[..., k], acc)
@@ -95,16 +93,15 @@ def _lanes(vals, dtype):
     return acc[..., 0]
 
 
-def kernel_model(points, x, h, bps=BPS, sms=SMS):
+def kernel_model(points, x, h):
     """The two kernels of one call on (m, d) points and (n, d) rows: the
     terms, each warp's lanes over each row range, one partial per (point,
     range), then per point the float64 sum of its partials times
     (2 pi)^(-d/2) h^(-d) / n."""
     m, d = points.shape
     n = x.shape[0]
-    per_warp = tkde.point_tile(d) // tkde.WARPS
-    rows = tkde.row_range(n, m, d, sms, bps)
-    terms = _terms(points, x, h, per_warp)
+    rows = tkde.row_range(n)
+    terms = _terms(points, x, h)
     partials = np.stack([_lanes(terms[:, r:r + rows], F32) for r in range(0, n, rows)], 1)
     hd = float(F32(h))
     for _ in range(1, d):
@@ -155,8 +152,10 @@ def test_kernel_model_matches_plain_and_reference_kernel(rng, m, n, d):
 @pytest.mark.parametrize("d", [1, 3, 16])
 @pytest.mark.parametrize("m", [1, 513, 4096])
 def test_cut_covers_rows_and_points_once_and_fills_its_waves(m, d, bps):
+    """The cut is n's alone; at path E's 513-point grids it opens about one
+    wave of `bps` resident blocks on an H100's 132 SMs when bps = 8."""
     n = 32_768
-    rows = tkde.row_range(n, m, d, SMS, bps)
+    rows = tkde.row_range(n)
     assert rows % 32 == 0 and 32 <= rows <= tkde.TILE
     n_ranges = -(-n // rows)
     seen = np.zeros(n, np.int64)
@@ -174,16 +173,28 @@ def test_cut_covers_rows_and_points_once_and_fills_its_waves(m, d, bps):
             written[p0:min(m, p0 + per_warp)] += 1
     assert np.all(written == 1)
     blocks = -(-m // tile) * n_ranges
-    if rows < tkde.TILE:             # else the tile caps the ranges: more blocks, no fewer
-        assert blocks <= tkde.WAVES * SMS * bps
-    if 128 < rows < tkde.TILE:       # ranges long enough that rounding them up costs little
-        assert blocks >= 0.8 * tkde.WAVES * SMS * bps
+    assert n_ranges <= tkde.RANGES
+    if m == 513 and d == 1 and bps == 8:   # one wave of 132 x 8 resident blocks
+        assert 0.8 * 132 * bps <= blocks <= 132 * bps
     assert blocks > 96 or m == 1     # the first design's grid at m = 513
+
+
+@pytest.mark.parametrize("n", [1, 31, 513, 32_768, 1_000_000])
+def test_cut_depends_on_n_alone(rng, n):
+    """The launcher's cut reads n and the tile only, and the model of the
+    kernel gives a point the same bits alone and inside a 4 096-point grid."""
+    assert tkde.row_range(n) == tkde.row_range(n, tkde.TILE)
+    assert list(inspect.signature(tkde.row_range).parameters) == ["n", "tile"]
+    if n <= 513:
+        pts, x, h = _data(rng, 4096, n, 1)
+        both = kernel_model(pts, x, h)
+        alone = kernel_model(pts[100:101], x, h)
+        assert alone.tobytes() == both[100:101].tobytes()
 
 @pytest.mark.parametrize("n", [1, 31, 4097, 32_768, 1_000_000, 100_000_000])
 def test_ranges_stay_within_the_grid_limit(n):
     for m, d in ((1, 1), (513, 1), (4096, 3), (100_000, 16)):
-        rows = tkde.row_range(n, m, d, SMS, BPS)
+        rows = tkde.row_range(n)
         assert -(-n // rows) <= GRID_Y_MAX
 
 
@@ -211,14 +222,13 @@ def _rel(got, want):
 @pytest.mark.parametrize("d", [1, 3])
 @pytest.mark.parametrize("ratio", [1e3, 1e4, 1e5])
 def test_folded_exponent_holds_float64_far_from_zero(rng, ratio, d):
-    """Scaling points and rows by c about the warp's first point keeps the
-    terms within the tolerance however far the data lies from 0; scaling
+    """Scaling by c about each point (its product's rounding error carried)
+    keeps the terms within the tolerance however far the data lies from 0; scaling
     about 0 loses digits in proportion to |x| / h."""
     pts, x, h = _telemetry(rng, ratio, d)
     want = _f64(pts, x, h)
-    per_warp = tkde.point_tile(d) // tkde.WARPS
-    centred = _terms(pts, x, h, per_warp).astype(np.float64).sum(1)
-    about0 = _terms(pts, x, h, per_warp, centred=False).astype(np.float64).sum(1)
+    centred = _terms(pts, x, h).astype(np.float64).sum(1)
+    about0 = _terms(pts, x, h, centred=False).astype(np.float64).sum(1)
     assert _rel(centred, want) < 2e-5
     print(f"|x|/h={ratio:g} d={d}: centred {_rel(centred, want):.3g}, "
           f"about 0 {_rel(about0, want):.3g}")

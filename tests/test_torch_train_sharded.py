@@ -1,8 +1,11 @@
 """The port's sharded train step and elastic restore on 4 gloo ranks (4
 processes, a file store; `tests/torch_mesh_worker.py`): float32 copies of
-llama3.2-1b's and granite-moe-1b-a400m's smoke configs, parameters as
-DTensors on a 2 x 2 (data, model) mesh under the train specs, one train
-step with and without `param_constraint` (the serve specs, the reference's
+llama3.2-1b's and granite-moe-1b-a400m's smoke configs on a 2 x 2 (data,
+model) mesh, and of qwen3-moe-235b-a22b's (4 q heads, 2 kv heads on model
+4: attention by q heads, the MoE's count exchange) and falcon-mamba-7b's
+(the in_proj halves projected from each device's columns) on a 1 x 4
+mesh, parameters as DTensors under the train specs, one train step with
+and without `param_constraint` (the serve specs, the reference's
 gather-once), held against the reference's jitted `make_train_step` on the
 same parameters and batch on the CPU.
 
@@ -10,7 +13,8 @@ Tolerance: loss and grad norm rtol 1e-5; each parameter within 1e-5 x its
 leaf's max |value| of the reference's (the default AdamWConfig, whose
 first step moves a parameter by at most about 3e-6).  Checkpoints: the
 state saved from the 2 x 2 mesh and restored with `shardings` onto a 4 x 1
-mesh gives the same whole tensors bit for bit on every rank.
+mesh gives the same whole tensors bit for bit on every rank.  Only rank 0
+writes a checkpoint, so each architecture restores rank 0's directory.
 """
 import dataclasses
 import json
@@ -30,7 +34,8 @@ from repro.train import make_train_step as ref_make_train_step
 from repro_torch import convert
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m")
+ARCHS = ("llama3.2-1b", "granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "falcon-mamba-7b")
+MESHES = {"qwen3-moe-235b-a22b": (1, 4), "falcon-mamba-7b": (1, 4)}     # else 2 x 2
 B, S, N_MICRO, WORLD = 8, 16, 2, 4
 
 
@@ -77,7 +82,8 @@ def sharded(tmp_path_factory):
         arrays.update({f"{arch}/{k}": np.asarray(v, np.float32) for k, v in flat.items()})
         arrays.update({f"{arch}/batch.{k}": v for k, v in batch.items()})
         refs[arch] = (loss, gnorm, after)
-    run_ranks("train", WORLD, arrays, {"archs": list(ARCHS), "n_micro": N_MICRO}, tmp)
+    run_ranks("train", WORLD, arrays, {"archs": list(ARCHS), "n_micro": N_MICRO,
+                                       "meshes": MESHES}, tmp)
     results = [json.loads((tmp / f"result_{r}.json").read_text()) for r in range(WORLD)]
     return tmp, refs, results
 
