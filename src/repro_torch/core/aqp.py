@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DTYPE, DeviceLike, resolve_backend, resolve_device
 from repro_torch.kernels import ref as kref
 
@@ -175,7 +176,15 @@ class KDESynopsis:
         reference's jax.random rows."""
         dev = resolve_device(device)
         backend = resolve_backend(backend, dev)
-        data = torch.as_tensor(data, dtype=DTYPE, device=dev)
+        with obs.span("synopsis.fit", backend=backend, selector=selector) as sp:
+            data = torch.as_tensor(data, dtype=DTYPE, device=dev)
+            sp.set(n=min(data.shape[0], max_sample),
+                   d=1 if data.dim() == 1 else data.shape[1])
+            return cls._fit(data, selector, max_sample, seed, backend, dev)
+
+    @classmethod
+    def _fit(cls, data: torch.Tensor, selector: str, max_sample: int, seed: int,
+             backend: str, dev: torch.device) -> "KDESynopsis":
         n_source = data.shape[0]
         if n_source > max_sample:   # numerosity reduction (paper §2.1)
             gen = torch.Generator().manual_seed(seed)

@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DTYPE
 from repro_torch.kernels import ref as kref
 
@@ -252,6 +253,13 @@ def _qmc_plan(x_host: np.ndarray, H: np.ndarray, lo: np.ndarray,
 
     Returns (glo, ghi, clo, chi, n_nodes) float64 host arrays, or None when
     every box is zero-measure."""
+    # repro: allow[instrument-drift] port span, listed in repro_torch.obs's docstring
+    with obs.span("qmc.plan", q=len(lo), d=H.shape[0], n_qmc=n_qmc):
+        return _plan_boxes(x_host, H, lo, hi, n_qmc)
+
+
+def _plan_boxes(x_host: np.ndarray, H: np.ndarray, lo: np.ndarray,
+                hi: np.ndarray, n_qmc: int):
     lo = np.asarray(lo, np.float64).reshape(lo.shape[0], -1)
     hi = np.asarray(hi, np.float64).reshape(hi.shape[0], -1)
     sig = np.sqrt(np.diag(np.asarray(H, np.float64)))

@@ -1140,7 +1140,11 @@ class QueryEngine:
         if mode != "batch":
             raise ValueError(f"unknown mode {mode!r}; "
                              f"expected 'batch' or 'progressive'")
-        return self.run_compiled(self.compile(queries), selector=selector,
+        # repro: allow[instrument-drift] port span, listed in repro_torch.obs's docstring
+        with obs.span("engine.compile") as sp:
+            compiled = self.compile(queries)
+            sp.set(n=len(compiled))
+        return self.run_compiled(compiled, selector=selector,
                                  backend=backend, kde_backend=kde_backend)
 
     def progressive(self, queries: Union[AqpQuery, Sequence[AqpQuery]],

@@ -16,6 +16,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import obs
+
 
 class NMResult(NamedTuple):
     x: torch.Tensor
@@ -25,7 +27,11 @@ class NMResult(NamedTuple):
 
 
 def _value(fun: Callable, p: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(fun(p)).detach().to("cpu", torch.float32).reshape(())
+    """One evaluation and the copy of its value to the host (one `nm.eval`
+    span each: as many as `nfev` counts)."""
+    # repro: allow[instrument-drift] port span, listed in repro_torch.obs's docstring
+    with obs.span("nm.eval"):
+        return torch.as_tensor(fun(p)).detach().to("cpu", torch.float32).reshape(())
 
 
 def minimize(fun: Callable, x0, *, init_scale: float = 0.1,

@@ -1022,6 +1022,16 @@ class TelemetryStore:
             self._sessions.append(weakref.ref(session))
 
     def add_batch(self, stats: Dict[str, np.ndarray]) -> None:
+        t_ingest = time.perf_counter() if obs.enabled() else 0.0
+        # repro: allow[instrument-drift] port span, listed in repro_torch.obs's docstring
+        with obs.span("store.add_batch", columns=len(stats),
+                      rows=np.size(next(iter(stats.values()), ()))):
+            self._ingest(stats)
+        if t_ingest:
+            self.metrics.histogram("aqp.ingest.us").observe(
+                (time.perf_counter() - t_ingest) * 1e6)
+
+    def _ingest(self, stats: Dict[str, np.ndarray]) -> None:
         # joint rows are built before any reservoir changes: a ragged batch
         # fails without leaving the per-column reservoirs ahead of the joints
         joint_rows = {}
@@ -1033,7 +1043,6 @@ class TelemetryStore:
                     raise ValueError(f"joint {cols} needs row-aligned columns, "
                                      f"got lengths {sizes}")
                 joint_rows[cols] = np.stack(arrays, axis=1)
-        t_ingest = time.perf_counter() if obs.enabled() else 0.0
         with self._write_lock:
             for name, values in stats.items():
                 if name not in self.columns:
@@ -1062,9 +1071,6 @@ class TelemetryStore:
                     bumped[cols] = self.joints[cols].version
                 for fn in list(self._listeners):
                     fn(bumped)
-        if t_ingest:
-            self.metrics.histogram("aqp.ingest.us").observe(
-                (time.perf_counter() - t_ingest) * 1e6)
 
     def synopsis(self, column: str, selector: str = "plugin",
                  backend: Optional[str] = None,

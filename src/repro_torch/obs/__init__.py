@@ -19,6 +19,28 @@ Two kinds of instrumentation with different costs:
     `fence()` returns at once and the kernel wrappers take the branch that
     calls the launcher directly: answers are bit-identical either way.
 
+  * **While a `torch.profiler` records**: `span()` also opens a profiler
+    range of the span's name, with obs enabled or not: an op-level range
+    (`_RecordFunctionFast`, a seventh of `record_function`'s cost), a
+    CPU event of that name, not a user annotation.  Disabled, that range
+    is all it does: no ring span, no fence, so a profiled window keeps the
+    unfenced timing and its host timeline names the program's spans beside
+    the card's kernels, on the profiler's clock.
+
+Span catalogue: the reference's spans (`docs/observability.md`) keep their
+names and labels here; `synopsis.fit` also wraps every exact fit
+(`KDESynopsis.fit`: `backend`, `selector`, `n`, `d`).  The port adds four:
+
+    store.add_batch  rows, columns  TelemetryStore.add_batch, joint
+                                    stacking included
+    engine.compile   n              QueryEngine.execute's compile of its
+                                    specs, before engine.run_compiled
+    nm.eval          -              one Nelder-Mead objective evaluation and
+                                    the copy of its value to the host (as
+                                    many as the result's nfev)
+    qmc.plan         q, d, n_qmc    quasi-MC host planning (_qmc_plan),
+                                    inside engine.kernel / engine.ci
+
 Scoping: each `TelemetryStore` owns a registry (`store.metrics`); kernel
 profiling writes to the process-global registry (`get_registry()`), since
 kernels have no store handle.  `export_json` merges registries into one
@@ -34,9 +56,10 @@ import time
 from typing import Optional, Tuple
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from .registry import Counter, Gauge, Histogram, LATENCY_BUCKETS_US, MetricsRegistry
-from .trace import NOOP_SPAN, Span, Tracer
+from .trace import NOOP_SPAN, Span, Tracer, _NoopSpan
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "LATENCY_BUCKETS_US", "MetricsRegistry",
@@ -82,13 +105,39 @@ def set_tracer(tracer: Tracer) -> Tracer:
     return prev
 
 
+class _ProfilerRange(_NoopSpan):
+    """A span while a `torch.profiler` records and obs is disabled: a
+    profiler range of the span's name, on the host timeline of the trace
+    that holds the card's kernels.  Nothing goes to the ring; as on the
+    no-op, `ctx` is None and `set` drops its attributes."""
+
+    __slots__ = ("range",)
+
+    def __init__(self, name: str):
+        self.range = _RecordFunctionFast(name)
+
+    def __enter__(self) -> "_ProfilerRange":
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.range.__exit__(*exc)
+
+
 def span(name: str, parent: Optional[Tuple[int, int]] = None, **attrs):
-    """Open a span on the global tracer, or the shared no-op when disabled
-    (a disabled `with obs.span(...):` costs one call and no allocation)."""
+    """Open a span.  With nothing on, the shared no-op (a disabled
+    `with obs.span(...):` costs one call, a flag check and no allocation);
+    while a `torch.profiler` records, a profiler range of the same name;
+    when enabled, a span on the global tracer, which also opens that range
+    while the profiler records.  None of them fences or changes an answer."""
+    profiling = torch.autograd._profiler_enabled()
     if not _enabled:
-        return NOOP_SPAN
+        return _ProfilerRange(name) if profiling else NOOP_SPAN
     # repro: allow[instrument-drift] plumbing: callers pass literal span names
-    return _tracer.span(name, parent=parent, **attrs)
+    sp = _tracer.span(name, parent=parent, **attrs)
+    if profiling:
+        sp.range = _RecordFunctionFast(name)
+    return sp
 
 
 def fence(*values) -> None:

@@ -42,7 +42,7 @@ class Span:
     (coerced to str at export so they stay JSON-safe)."""
 
     __slots__ = ("tracer", "name", "trace_id", "span_id", "parent_id",
-                 "t0", "t1", "attrs", "_token")
+                 "t0", "t1", "attrs", "_token", "range")
 
     def __init__(self, tracer: "Tracer", name: str, trace_id: int,
                  parent_id: Optional[int], attrs: Dict[str, Any]):
@@ -55,6 +55,9 @@ class Span:
         self.t0 = 0.0
         self.t1 = 0.0
         self._token = None
+        # a context manager entered and left with the span (`obs.span` sets
+        # a profiler range here while a torch.profiler records)
+        self.range = None
 
     @property
     def ctx(self) -> Tuple[int, int]:
@@ -70,6 +73,8 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
+        if self.range is not None:
+            self.range.__enter__()
         self.t0 = self.tracer.clock()
         self._token = _CURRENT.set(self)
         return self
@@ -80,6 +85,8 @@ class Span:
             _CURRENT.reset(self._token)
             self._token = None
         self.tracer._record(self)
+        if self.range is not None:
+            self.range.__exit__(*exc)
 
     def as_dict(self) -> Dict[str, Any]:
         return {

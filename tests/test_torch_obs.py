@@ -379,3 +379,148 @@ def test_export_json_merges_registries_as_the_reference(tmp_path):
         doc.pop("ts")
         docs[pkg] = doc
     assert docs["port"] == docs["ref"]
+
+
+def _fake_cuda_tensor():
+    """A tensor whose device reads cuda, made without a card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return torch.empty(2, device="cuda")
+
+
+def test_span_opens_a_profiler_range_while_obs_is_disabled(monkeypatch):
+    """With a torch.profiler recording and obs disabled, a span is a CPU
+    event of its exact name on the profiler's timeline (an op-level range,
+    not a user annotation); the ring stays empty and the fence waits for
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def no_sync(*a, **k):
+        raise AssertionError("the fence must not wait while obs is disabled")
+
+    monkeypatch.setattr(torch.cuda, "current_stream", no_sync)
+    on_card = _fake_cuda_tensor()
+    assert not tobs.enabled()
+    assert tobs.span("engine.plan") is tobs.NOOP_SPAN
+    prev = tobs.set_tracer(tobs.Tracer())
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            sp = tobs.span("engine.plan", n=3)
+            assert sp is not tobs.NOOP_SPAN and sp.ctx is None
+            with sp as inner:
+                assert inner.set(n=4) is inner
+                torch.ones(3).sum()
+                tobs.fence(on_card, torch.ones(2))
+        assert tobs.get_tracer().spans() == []
+        # the same fence with obs on would wait on the card's stream
+        tobs.enable()
+        with pytest.raises(AssertionError, match="must not wait"):
+            tobs.fence(on_card)
+    finally:
+        tobs.disable()
+        tobs.set_tracer(prev)
+    events = prof.profiler.kineto_results.events()
+    ranges = [(str(ev.device_type()), ev.is_user_annotation())
+              for ev in events if ev.name() == "engine.plan"]
+    assert ranges == [("DeviceType.CPU", False)]
+    assert tobs.span("engine.plan") is tobs.NOOP_SPAN
+
+
+def test_enabled_span_also_opens_the_profiler_range(enabled):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tobs.span("engine.plan", n=2) as sp:
+            torch.ones(3).sum()
+    assert [s.name for s in enabled.spans()] == ["engine.plan"]
+    assert sp.attrs == {"n": 2}
+    assert [str(ev.device_type()) for ev in prof.profiler.kineto_results.events()
+            if ev.name() == "engine.plan"] == ["DeviceType.CPU"]
+
+
+def _fit_store(seed=0):
+    rng = np.random.default_rng(seed)
+    store = tstore.TelemetryStore(capacity=192, seed=seed, device="cpu")
+    store.track_joint(("a", "b"))
+    a = rng.normal(0, 1, 3000).astype(np.float32)
+    store.add_batch({"a": a, "b": (0.5 * a + rng.normal(0, 1, 3000)).astype(np.float32)})
+    return store
+
+
+def test_exact_fits_open_one_synopsis_fit_and_nfev_nm_evals(monkeypatch):
+    """An LSCV_h and an LSCV_H fit on the CPU store under obs.enable() (fake
+    clock): one `synopsis.fit` each with its selector, and as many `nm.eval`
+    spans, nested in the LSCV_H fit's, as Nelder-Mead's nfev."""
+    from repro_torch.core import aqp as taqp
+    fits = []
+
+    def lscv_H(*a, **k):
+        fits.append(real(*a, **k))
+        return fits[-1]
+
+    real = taqp.lscv_H
+    monkeypatch.setattr(taqp, "lscv_H", lscv_H)
+    store = _fit_store()
+    ticks = iter(range(10 ** 6))
+    prev = tobs.set_tracer(tobs.Tracer(clock=lambda: float(next(ticks)), capacity=1 << 16))
+    tobs.enable()
+    try:
+        store.add_batch({"a": np.zeros(10, np.float32), "b": np.ones(10, np.float32)})
+        store.synopsis("a", selector="lscv_h")
+        store.joint_synopsis(("a", "b"), selector="lscv_H")
+        spans = tobs.get_tracer().spans()
+    finally:
+        tobs.disable()
+        tobs.set_tracer(prev)
+    ingest = [s for s in spans if s.name == "store.add_batch"]
+    assert len(ingest) == 1 and ingest[0].attrs == {"rows": 10, "columns": 2}
+    fit = [s for s in spans if s.name == "synopsis.fit"]
+    assert [s.attrs for s in fit] == [
+        {"backend": "torch", "selector": "lscv_h", "n": 192, "d": 1},
+        {"backend": "torch", "selector": "lscv_H", "n": 192, "d": 2}]
+    evals = [s for s in spans if s.name == "nm.eval"]
+    assert len(fits) == 1 and len(evals) == fits[0].nfev > 0
+    assert {s.parent_id for s in evals} == {fit[1].span_id}
+    assert all(s.t1 > s.t0 for s in spans)
+
+
+def _refresh(state):
+    """One refresh of a small store, with `state` on: nothing, a CPU
+    torch.profiler recording, or obs enabled.  Returns (answers, names of
+    the program's profiler ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+    store = _fit_store(1)
+    engine = store.engine(selector="lscv_H")
+    specs = [tq.AqpQuery("count", (tq.Range("a", -1.0, 0.5),)),
+             tq.AqpQuery("avg", (tq.Box(("a", "b"), (-1.0, -1.0), (1.0, 0.8)),), target="b"),
+             tq.AqpQuery("sum", (tq.Box(("a", "b"), (-0.5, -2.0), (2.0, 1.0)),), target="a")]
+    batch = {"a": np.linspace(-2, 2, 500, dtype=np.float32),
+             "b": np.linspace(1, -1, 500, dtype=np.float32)}
+    prof = profile(activities=[ProfilerActivity.CPU]) if state == "profiler" else None
+    prev = tobs.set_tracer(tobs.Tracer(capacity=1 << 16)) if state == "obs" else None
+    if prof is not None:
+        prof.start()
+    if state == "obs":
+        tobs.enable()
+    try:
+        store.add_batch(batch)
+        res = engine.execute(specs)
+    finally:
+        tobs.disable()
+        if prof is not None:
+            prof.stop()
+        if prev is not None:
+            tobs.set_tracer(prev)
+    names = set() if prof is None else {
+        ev.name() for ev in prof.profiler.kineto_results.events() if "::" not in ev.name()}
+    return np.asarray([(r.estimate, r.ci_lo, r.ci_hi) for r in res], np.float64), names
+
+
+def test_refresh_answers_are_bit_identical_with_nothing_the_profiler_or_obs_on():
+    plain, none = _refresh("none")
+    profiled, names = _refresh("profiler")
+    traced, _ = _refresh("obs")
+    assert none == set()
+    assert plain.tobytes() == profiled.tobytes() == traced.tobytes()
+    assert np.isfinite(plain).all()
+    assert {"store.add_batch", "engine.run_compiled", "engine.plan", "synopsis.fit",
+            "nm.eval", "engine.kernel", "engine.ci", "qmc.plan"} <= names
