@@ -178,7 +178,8 @@ non-zero and prints no result line):
  17. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
-     gh_fused_sum also path D's first 1-D call, for qmc_box_reduce also the
+     gh_fused_sum path B's first batch of bandwidths and path D's first
+     1-D batch, each through `gh_fused_sums` as the fit launches it, for qmc_box_reduce also the
      joint's d = 3 call of path D exact, for kde_eval also the joint's grid
      and a 513-point trapezoid grid), beside the bound and the SFU floor at
      the SM clock read after the kernel's windows.
@@ -294,6 +295,13 @@ WRAPPERS["aqp_box_sums"] = ("aqp_box_sums", "aqp_box_moments")
 WRAPPERS["aqp_grouped_sums"] = ("aqp_grouped_sums", "aqp_grouped_moments")
 WRAPPERS["qmc_box_reduce"] = ("qmc_box_reduce", "qmc_box_reduce_split")
 WRAPPERS["rff_density"] = ("rff_density", "rff_density_blocks")
+WRAPPERS["gh_fused_sum"] = ("gh_fused_sum", "gh_fused_sums")
+
+
+def wrapper_launches(name: str, args) -> int:
+    """Launches one recorded wrapper call makes: `gh_fused_sums` one per row
+    of its params, any other wrapper one."""
+    return args[1].shape[0] if name == "gh_fused_sums" else 1
 
 
 class SmokeFailure(RuntimeError):
@@ -371,6 +379,8 @@ def call_shape(name: str, args, kwargs) -> str:
         return f"m={args[0].shape[0]} D={args[1].shape[0]} d={args[0].shape[1]}{blocks}"
     if name == "kde_eval":
         return f"m={args[0].shape[0]} n={args[1].shape[0]} d={args[1].shape[-1]}"
+    if name == "gh_fused_sums":
+        return f"B={args[1].shape[0]} n={args[0].shape[0]} d={args[0].shape[1]}"
     return f"n={args[0].shape[0]} d={args[0].shape[1]}"
 
 
@@ -513,7 +523,7 @@ def driven(torch, ops, what: str, fn):
     counts = ops.launch_counts()
     print(f"{what}: {sec * 1e3:.1f} ms; launches {counts}")
     for kernel, wrappers in WRAPPERS.items():
-        made = sum(len(calls[w]) for w in wrappers)
+        made = sum(wrapper_launches(w, a) for w in wrappers for a, _ in calls[w])
         check(made == counts[kernel],
               f"{what}: {kernel}: {made} wrapper calls but {counts[kernel]} launches")
     for name, made in calls.items():
@@ -1197,7 +1207,7 @@ def path_f(torch, rt, args, stream, specs):
     print(f"path F (progressive, {N_TIERS} tiers) first run, fits included: {sec * 1e3:.1f} ms; "
           f"launches {counts}")
     for kernel, wrappers in WRAPPERS.items():
-        made = sum(len(calls[w]) for w in wrappers)
+        made = sum(wrapper_launches(w, a) for w in wrappers for a, _ in calls[w])
         check(made == counts[kernel],
               f"path F: {kernel}: {made} wrapper calls but {counts[kernel]} launches")
     check(passes == {"moments_1d": 0, "moments_box": 0},
@@ -3689,17 +3699,18 @@ def oracle_quadform_sum(x, m, c_k, c_kk) -> float:
 
 
 def first_d1_gh(calls_d):
-    """The inputs of path D's first 1-D gh_fused_sum call."""
-    return next(c for c in calls_d["gh_fused_sum"] if c[0][0].shape[1] == 1)
+    """The inputs of path D's first 1-D gh_fused_sums call."""
+    return next(c for c in calls_d["gh_fused_sums"] if c[0][0].shape[1] == 1)
 
 
 def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d):
     """The LSCV kernels against their plain versions on the inputs of every
-    call of path A (sv_matrix, lscv_grid_sums), the first and last calls of
-    path B and the first 1-D call of path D (gh_fused_sum), at edge shapes
-    (n not a multiple of a tile, d = 1..8 for gh_fused_sum), and against
-    float64; two launches of lscv_grid_sums and gh_fused_sum on the same
-    inputs give the same bits; all five sums of path A's aqp_batch /
+    call of path A (sv_matrix, lscv_grid_sums), the first and last batches
+    of path B and the first 1-D batch of path D (gh_fused_sums, each sum of
+    a batch), at edge shapes (n not a multiple of a tile, d = 1..8 for
+    gh_fused_sums and gh_fused_sum), and against float64; two launches of
+    lscv_grid_sums and gh_fused_sums on the same inputs give the same bits,
+    as do a batch and its rows launched one by one; all five sums of path A's aqp_batch /
     aqp_boxes calls against theirs and float64; LSCV_h at n = 512 on the
     card against the paper's sequential float64 oracle."""
     ops, ref, lscv = rt["ops"], rt["ref"], rt["lscv"]
@@ -3769,33 +3780,48 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d):
           f"n=512 d=3 on the kernels within {worst:.2g} relative of the sequential float64 "
           f"oracle at 4 grid points")
 
-    made = calls_b["gh_fused_sum"]
+    made = calls_b["gh_fused_sums"]
     errs = []
     for tag, (args, kw) in (("first path-B", made[0]), ("last path-B", made[-1]),
                             ("first 1-D path-D", first_d1_gh(calls_d))):
-        errs.append(held(float(ops.gh_fused_sum(*args, **kw)),
-                         float(ref.gh_fused_sum(*args, **kw)), GH_RTOL, GH_ATOL,
-                         f"gh_fused_sum {tag} call"))
+        errs.append(held(ops.gh_fused_sums(*args, **kw).cpu(),
+                         ref.gh_fused_sums(*args, **kw).cpu(), GH_RTOL, GH_ATOL,
+                         f"gh_fused_sums {tag} call ({call_shape('gh_fused_sums', args, kw)})"))
     out["gh_fused_sum"] = max(errs)
-    args, kw = made[0]
-    check(torch.equal(ops.gh_fused_sum(*args, **kw), ops.gh_fused_sum(*args, **kw)),
-          "gh_fused_sum: two launches on path B's first inputs differ")
-    x, h_inv, c_k, c_kk = made[-1][0]
+    (x, params), kw = made[0]
+    sums = ops.gh_fused_sums(x, params, **kw)
+    check(torch.equal(sums, ops.gh_fused_sums(x, params, **kw)),
+          "gh_fused_sums: two launches on path B's first inputs differ")
+    d = x.shape[1]
+    alone = torch.stack([ops.gh_fused_sum(x, row[:d * d].reshape(d, d), row[d * d],
+                                          row[d * d + 1], **kw) for row in params])
+    check(torch.equal(sums, alone),
+          "gh_fused_sums: path B's first batch differs from its rows launched one by one")
+    x, params = made[-1][0]
     sub = x[:4096].contiguous()
-    held(float(ops.gh_fused_sum(sub, h_inv, c_k, c_kk)),
-         oracle_quadform_sum(sub.cpu().numpy(), h_inv.cpu().numpy(), float(c_k), float(c_kk)),
-         GH_RTOL, GH_ATOL, "gh_fused_sum vs float64")
+    p64 = params.double().cpu().numpy()
+    held(ops.gh_fused_sums(sub, params).cpu(),
+         [oracle_quadform_sum(sub.cpu().numpy(), p[:d * d].reshape(d, d), p[d * d], p[d * d + 1])
+          for p in p64], GH_RTOL, GH_ATOL, "gh_fused_sums vs float64")
     for n in (1, 2, 513, 4097):
         for d in range(1, 9):
             xs = torch.as_tensor(rng.normal(0, 1, (n, d)).astype(np.float32), device=dev)
-            m0 = rng.normal(0, 1, (d, d))
-            ms = torch.as_tensor((0.1 * m0 @ m0.T + np.eye(d)).astype(np.float32), device=dev)
-            held(float(ops.gh_fused_sum(xs, ms, 0.31, 0.17)),
-                 float(ref.gh_fused_sum(xs, ms, 0.31, 0.17)), GH_RTOL, GH_ATOL,
-                 f"gh_fused_sum n={n} d={d}")
-    print(f"gh_fused_sum: first and last of {len(made)} path-B calls and path D's first 1-D "
-          f"call match plain, max |err| {max(errs):.3g}; two launches give the same bits; "
-          f"n=4096 within tolerance of float64; edge shapes n=1/2/513/4097 x d=1..8 match plain")
+            hs = []
+            for _ in range(3):
+                m0 = rng.normal(0, 1, (d, d))
+                hs.append((0.1 * m0 @ m0.T + np.eye(d)).astype(np.float32))
+            ps = ref.gh_params(torch.as_tensor(np.stack(hs), device=dev),
+                               torch.tensor([0.31, 0.29, 0.33], device=dev),
+                               torch.tensor([0.17, 0.19, 0.15], device=dev))
+            held(ops.gh_fused_sums(xs, ps).cpu(), ref.gh_fused_sums(xs, ps).cpu(),
+                 GH_RTOL, GH_ATOL, f"gh_fused_sums n={n} d={d} B=3")
+            held(float(ops.gh_fused_sum(xs, ps[0, :d * d].reshape(d, d), 0.31, 0.17)),
+                 float(ref.gh_fused_sum(xs, ps[0, :d * d].reshape(d, d), 0.31, 0.17)),
+                 GH_RTOL, GH_ATOL, f"gh_fused_sum n={n} d={d}")
+    print(f"gh_fused_sums: first and last of {len(made)} path-B batches and path D's first "
+          f"1-D batch match plain, max |err| {max(errs):.3g}; two launches give the same bits, "
+          f"as do the first batch's rows launched one by one; n=4096 within tolerance of "
+          f"float64; edge shapes n=1/2/513/4097 x d=1..8 (batches of 3, and one H) match plain")
     torch.cuda.synchronize()
     return out
 
@@ -4112,7 +4138,8 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         the grid phase alone, the strict upper triangle of S read once;
       gh_fused_sum: d subs, the quadratic form as in sv_matrix, the exp2,
         two FMAs per pair: (d^2 + 3d + 4) / 1 (the kernel issues one FMA
-        more: its sum of d products starts from 0);
+        more: its sum of d products starts from 0); gh_fused_sums B times
+        that, each launch reading x again;
       aqp_grouped_moments (F families over W window tables in one call):
         per (row, window of a table) the Phi difference, 11 / 2 erfc (z_a,
         z_b: sub, mul each; the tail select's add, 2 mul, 2 erfc, sub, mul),
@@ -4162,10 +4189,10 @@ def bound_ms(name: str, args, kwargs, poly_share: float = 0.0) -> tuple:
         nbytes = 4 * n * (n - 1) // 2 + 8 * n_h + 8
         terms = n_h * n * (n - 1) // 2
         ops, mufu = 6 * terms, round((1.0 - poly_share) * terms)
-    elif name == "gh_fused_sum":
-        n, d = args[0].shape
-        nbytes = 4 * n * d + 4 * d * d + 8 + 4
-        pairs = n * (n - 1) // 2
+    elif name in ("gh_fused_sum", "gh_fused_sums"):
+        (n, d), B = args[0].shape, (args[1].shape[0] if name == "gh_fused_sums" else 1)
+        nbytes = B * (4 * n * d + 4 * d * d + 8 + 4)
+        pairs = B * (n * (n - 1) // 2)
         ops, mufu = (d * d + 3 * d + 4) * pairs, pairs
     elif name == "aqp_grouped_moments":
         x, _h, lo, _hi, wlo, _whi, win, g_axes, tgts = args
@@ -4275,13 +4302,13 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx, calls_e):
           f"call on path A): kernel {k1:.4f} / {k2:.4f} ms, "
           f"bound {bound_ms('sv_matrix', (x, m), {})[0]:.4f} ms")
     args, kw = first_d1_gh(calls_d)
-    p1 = time_ms(torch, lambda: ref.gh_fused_sum(*args, **kw))
-    k1 = time_ms(torch, lambda: ops.gh_fused_sum(*args, **kw))
-    k2 = time_ms(torch, lambda: ops.gh_fused_sum(*args, **kw))
+    p1 = time_ms(torch, lambda: ref.gh_fused_sums(*args, **kw))
+    k1 = time_ms(torch, lambda: ops.gh_fused_sums(*args, **kw))
+    k2 = time_ms(torch, lambda: ops.gh_fused_sums(*args, **kw))
     mhz = sm_clock_mhz()
-    p2 = time_ms(torch, lambda: ref.gh_fused_sum(*args, **kw))
-    b, by, mufu = bound_ms("gh_fused_sum", args, kw)
-    print(f"time gh_fused_sum second shape ({call_shape('gh_fused_sum', args, kw)}, the first "
+    p2 = time_ms(torch, lambda: ref.gh_fused_sums(*args, **kw))
+    b, by, mufu = bound_ms("gh_fused_sums", args, kw)
+    print(f"time gh_fused_sum second shape ({call_shape('gh_fused_sums', args, kw)}, the first "
           f"1-D call on path D): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms, "
           f"bound {b:.4f} ms ({by}), SFU floor {sfu_floor_ms(mufu, mhz):.4f} ms at {mhz:.0f} MHz")
     args, kw = next(c for c in calls_dx["qmc_box_reduce_split"] if c[0][1].shape[1] == 3)

@@ -14,11 +14,17 @@ LSCV_H  — full SPD bandwidth matrix: Nelder-Mead over a log-Cholesky
           from the fused quadratic-form + T_H + reduce pass of §6.3 (the
           gh_fused kernel on backend "cuda").
 
-The small linear algebra (det, inv, cholesky, eigh of (d, d) matrices) runs
-in float32 with torch.linalg on the fit's device, as the reference runs it
-in float32 with jnp.linalg.  `multi_start > 1` draws its jitter from a
-seeded torch.Generator: the reference's jax.random draws cannot be
-reproduced, but start 0 is H_start in both.
+LSCV_H evaluates a Nelder-Mead step's candidate bandwidths in one round trip
+(`g_of_H_batch`): the simplex's parameters live on the host, so each H, its
+det, inverse and constants are formed there in float32 with batched
+torch.linalg on CPU tensors (LAPACK, as the reference's jnp.linalg runs in
+float32 in the tests); on backend "cuda" the inverses and constants go to
+the card in one copy, one gh_fused launch per H is queued back to back, and
+the sums come back in one read.  The rest of the small linear algebra
+(Sigma's det and inverse, H_start's cholesky and eigh) runs in float32 on
+the fit's device.  `multi_start > 1` draws its jitter from a seeded
+torch.Generator: the reference's jax.random draws cannot be reproduced, but
+start 0 is H_start in both.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from repro_torch.device import DTYPE, DeviceLike, resolve_backend, resolve_devic
 from repro_torch.kernels import ref as kref
 
 from . import gaussian as G
-from .nelder_mead import minimize as nm_minimize
+from .nelder_mead import minimize_batch
 from .reductions import (pairwise_quadform_chunks, pairwise_quadform_reduce,
                          pairwise_sv_matrix)
 
@@ -216,27 +222,48 @@ class LSCVHResult(NamedTuple):
     nfev: int
 
 
-def g_of_H(x, H: torch.Tensor, chunk: int = 128, backend: Optional[str] = None,
-           device: DeviceLike = None) -> torch.Tensor:
-    """Objective g(H) (eq. 32) on `device` (default: the CUDA device),
-    evaluated with the fused pass of §6.3: the gh_fused kernel on backend
-    "cuda", the chunked plain pass on "torch"."""
-    x = _as_rows(x, device)
+def g_of_H_batch(x: torch.Tensor, H, chunk: int = 128,
+                 backend: Optional[str] = None) -> torch.Tensor:
+    """Objective g(H) (eq. 32) of B bandwidths in one round trip to x's
+    device.  x: (n, d) float32 rows on the fit's device; H: (B, d, d).
+    Returns the B values, float32 on the CPU.
+
+    H's det and inverse (LU, no raise on a singular H) and the constants of
+    eqs. 34-36 are formed in float32 on the CPU, batched.  Backend "cuda"
+    packs each H^-1 and its c_k, c_kk into one row of a pinned (B, d d + 2)
+    buffer, sends it in one non-blocking copy, queues one gh_fused launch per
+    row (`ops.gh_fused_sums`) and reads the B sums back in one copy; backend
+    "torch" runs the chunked plain pass for each H in turn."""
     backend = resolve_backend(backend, x.device)
-    H = torch.as_tensor(H, dtype=DTYPE, device=x.device)
     n, d = x.shape
+    H = torch.as_tensor(H).to("cpu", DTYPE).reshape(-1, d, d)
     det_H = torch.linalg.det(H)
     H_inv = _inv(H)
     c_k, c_kk, r_k = G.lscv_H_consts(d, det_H)
 
     if backend == "cuda":
         from repro_torch.kernels import ops as kops
-        t_sum = kops.gh_fused_sum(x, H_inv, c_k, c_kk)
+        params = kref.gh_params(H_inv, c_k, c_kk)
+        if x.device.type == "cuda":
+            params = params.pin_memory().to(x.device, non_blocking=True)
+        t_sum = kops.gh_fused_sums(x, params).cpu()
     else:
-        def fun1(s):
-            return c_kk * torch.exp(-0.25 * s) - 2.0 * c_k * torch.exp(-0.5 * s)
-        t_sum = pairwise_quadform_reduce(fun1, x, H_inv, chunk)
+        def t_sum_of(b):
+            ck, ckk = c_k[b].to(x.device), c_kk[b].to(x.device)
+
+            def fun1(s):
+                return ckk * torch.exp(-0.25 * s) - 2.0 * ck * torch.exp(-0.5 * s)
+            return pairwise_quadform_reduce(fun1, x, H_inv[b].to(x.device), chunk)
+        t_sum = torch.stack([t_sum_of(b) for b in range(H.shape[0])]).cpu()
     return 2.0 / (n * n) * t_sum + r_k / n
+
+
+def g_of_H(x, H: torch.Tensor, chunk: int = 128, backend: Optional[str] = None,
+           device: DeviceLike = None) -> torch.Tensor:
+    """Objective g(H) (eq. 32) on `device` (default: the CUDA device):
+    `g_of_H_batch` of one H, as a 0-d tensor there."""
+    x = _as_rows(x, device)
+    return g_of_H_batch(x, torch.as_tensor(H)[None], chunk, backend)[0].to(x.device)
 
 
 def matrix_sqrt(a: torch.Tensor) -> torch.Tensor:
@@ -254,13 +281,14 @@ def h_start(x: torch.Tensor) -> torch.Tensor:
 
 
 def _theta_to_H(theta: torch.Tensor, d: int) -> torch.Tensor:
-    """log-Cholesky: theta packs L's lower triangle, diagonal stored as log."""
+    """log-Cholesky: theta (..., k) packs L's lower triangle, diagonal
+    stored as log; H (..., d, d)."""
     il, jl = torch.tril_indices(d, d, device=theta.device)
-    L = torch.zeros((d, d), dtype=theta.dtype, device=theta.device)
-    L[il, jl] = theta
+    L = torch.zeros(theta.shape[:-1] + (d, d), dtype=theta.dtype, device=theta.device)
+    L[..., il, jl] = theta
     idx = torch.arange(d, device=theta.device)
-    L[idx, idx] = torch.exp(torch.diagonal(L))
-    return L @ L.T
+    L[..., idx, idx] = torch.exp(torch.diagonal(L, dim1=-2, dim2=-1))
+    return L @ L.transpose(-2, -1)
 
 
 def _H_to_theta(H: torch.Tensor) -> torch.Tensor:
@@ -290,9 +318,8 @@ def lscv_H(x, max_iter: int = 150, chunk: int = 128,
     H0 = h_start(x)
     theta0 = _H_to_theta(H0).cpu()
 
-    def objective(theta):
-        return g_of_H(x, _theta_to_H(theta.to(x.device), d), chunk=chunk,
-                      backend=backend, device=x.device)
+    def objective(thetas):
+        return g_of_H_batch(x, _theta_to_H(thetas, d), chunk=chunk, backend=backend)
 
     starts = [theta0]
     if multi_start > 1:
@@ -300,8 +327,8 @@ def lscv_H(x, max_iter: int = 150, chunk: int = 128,
         jitter = 0.25 * torch.randn((multi_start - 1, theta0.shape[0]),
                                     generator=gen, dtype=DTYPE)
         starts += [theta0 + j for j in jitter]
-    runs = [nm_minimize(objective, t, max_iter=max_iter) for t in starts]
+    runs = [minimize_batch(objective, t, max_iter=max_iter) for t in starts]
     best = min(range(len(runs)), key=lambda r: float(runs[r].fun))
-    H = _theta_to_H(runs[best].x.to(x.device), d)
+    H = _theta_to_H(runs[best].x, d).to(x.device)
     return LSCVHResult(H=H, g=runs[best].fun.to(x.device), H_start=H0,
                        it=runs[best].it, nfev=sum(r.nfev for r in runs))

@@ -6,6 +6,9 @@ Counterpart: `repro/kernels/gh_fused.py` (`gh_fused_sum`).
 The kernel walks the upper-triangle tiles of side K (eqs. 49/50), each
 block with K / ROWS threads that own ROWS rows apiece; `tile_shape` picks K
 and the grid, and `block_pairs` mirrors which pairs a block sums.
+`gh_fused_sums` queues one launch per bandwidth of a batch (a Nelder-Mead
+step's candidates), each row of its parameters packed as `ref.gh_params`
+lays them out; `gh_fused_sum` is the batch of one.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from . import _build
 from ._launch import (LaunchCounter, check_tensor, check_tile, ptr, raise_on,
                       scalar_arg, stream)
+from .ref import gh_params
 from .triangle import bx_to_ql, n_tri_tiles
 
 TILE = 512          # side K of a triangle tile: 128 threads x ROWS rows each
@@ -65,30 +69,50 @@ def block_pairs(bx: int, n: int, k: int):
     return q * k + ii.reshape(-1), l * k + cc.reshape(-1)
 
 
-def gh_fused_sum(x: torch.Tensor, h_inv: torch.Tensor, c_k, c_kk,
-                 tile: int) -> torch.Tensor:
-    """0-d float32 sum on x's device.  x: (n, d) float32 CUDA with
-    1 <= d <= 8, h_inv: (d, d) float32 on the same device; c_k, c_kk:
-    numbers or one-element tensors (read on the device, a tensor never
-    synced to the host, a number copied there first); `tile` as `tile_shape` takes it.  n < 2 gives 0 and
-    launches nothing."""
+def _check_x(x: torch.Tensor, tile: int):
+    """(n, d, threads, n_tri) of a launch over x, after its checks."""
     check_tensor(x, "x", torch.float32, (None, None))
     n, d = x.shape
     if not 1 <= d <= MAX_D:
         raise ValueError(f"gh_fused_sum takes 1 <= d <= {MAX_D}, got d={d}")
-    check_tensor(h_inv, "h_inv", torch.float32, (d, d), x.device)
     k, threads, n_tri = tile_shape(n, tile)
+    if n >= 2 and n_tri >= 2 ** 31:
+        raise ValueError(f"n={n} with tile {k} needs {n_tri} blocks; raise the tile")
+    return n, d, threads, n_tri
+
+
+def gh_fused_sum(x: torch.Tensor, h_inv: torch.Tensor, c_k, c_kk,
+                 tile: int) -> torch.Tensor:
+    """0-d float32 sum on x's device: `gh_fused_sums` of one bandwidth.
+    x: (n, d) float32 CUDA with 1 <= d <= 8, h_inv: (d, d) float32 on the
+    same device; c_k, c_kk: numbers or one-element tensors (a tensor never
+    synced to the host, a number copied there first); `tile` as
+    `tile_shape` takes it."""
+    _, d, _, _ = _check_x(x, tile)
+    check_tensor(h_inv, "h_inv", torch.float32, (d, d), x.device)
     ck = scalar_arg(c_k, "c_k", x.device)
     ckk = scalar_arg(c_kk, "c_kk", x.device)
+    return gh_fused_sums(x, gh_params(h_inv[None], ck[None], ckk[None]), tile)[0]
+
+
+def gh_fused_sums(x: torch.Tensor, params: torch.Tensor, tile: int) -> torch.Tensor:
+    """(B,) float32 sums on x's device, one launch per row of `params`:
+    (B, d d + 2) float32 on x's device, as `ref.gh_params` packs them.  Each
+    launch reads its H^-1 and constants as views into `params` and writes
+    its slot of the output; the B launches run in order on the current
+    stream and reuse one partials buffer, so each sum has the bits of a
+    batch of one with the same row.  n < 2 gives zeros and launches
+    nothing."""
+    n, d, threads, n_tri = _check_x(x, tile)
+    check_tensor(params, "params", torch.float32, (None, d * d + 2), x.device)
     if n < 2:
-        return torch.zeros((), dtype=torch.float32, device=x.device)
-    if n_tri >= 2 ** 31:
-        raise ValueError(f"n={n} with tile {k} needs {n_tri} blocks; raise the tile")
-    out = torch.empty((), dtype=torch.float32, device=x.device)
+        return torch.zeros((params.shape[0],), dtype=torch.float32, device=x.device)
+    out = torch.empty((params.shape[0],), dtype=torch.float32, device=x.device)
     partials = torch.empty((n_tri,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _fn()(ptr(x), n, d, ptr(h_inv), ptr(ck), ptr(ckk), threads,
-                    ptr(partials), ptr(out), stream(x.device))
-    raise_on(err, "gh_fused_sum")
-    launches.inc()
+        for b, row in enumerate(params):
+            err = _fn()(ptr(x), n, d, ptr(row), ptr(row[d * d]), ptr(row[d * d + 1]),
+                        threads, ptr(partials), ptr(out[b]), stream(x.device))
+            raise_on(err, "gh_fused_sum")
+            launches.inc()
     return out

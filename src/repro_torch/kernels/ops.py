@@ -26,6 +26,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch import obs
 
 from . import aqp_batch as _ab
@@ -145,6 +147,23 @@ def gh_fused_sum(x, h_inv, c_k, c_kk, tile=None):
     (tile,) = _tune.resolve("gh_fused_sum", shape, tile=(tile, _gh.TILE))
     return _run("gh_fused_sum", lambda: _gh.gh_fused_sum(x, h_inv, c_k, c_kk, tile=tile),
                 **shape, tile=tile)
+
+
+def gh_fused_sums(x, params, tile=None):
+    """The (B,) sums of B bandwidths, one gh_fused_sum launch each, queued
+    back to back: rows of `params` as `ref.gh_params` packs them.  With obs
+    enabled each launch is profiled (and fenced) on its own, so that
+    `kernel.calls` stays a count of launches."""
+    if x.device.type == "cpu":
+        return ref.gh_fused_sums(x, params)
+    shape = {"n": x.shape[0], "d": _d(x)}
+    (tile,) = _tune.resolve("gh_fused_sum", shape, tile=(tile, _gh.TILE))
+    if not obs.enabled():
+        return _gh.gh_fused_sums(x, params, tile=tile)
+    return torch.cat([profiled_call("gh_fused_sum",
+                                    lambda row=row: _gh.gh_fused_sums(x, row, tile=tile),
+                                    **shape, tile=tile)
+                      for row in params.split(1)])
 
 
 def lscv_grid_sums_from_s(s, h_grid, c_k, c_kk, h_tile=None, blocks=None, slab=None):

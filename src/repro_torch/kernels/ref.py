@@ -186,14 +186,35 @@ def _t_h(s: torch.Tensor, c_k, c_kk) -> torch.Tensor:
     return c_kk * torch.exp(-0.25 * s) - 2.0 * c_k * torch.exp(-0.5 * s)
 
 
+def gh_params(h_inv: torch.Tensor, c_k, c_kk) -> torch.Tensor:
+    """The gh_fused kernel's rows of B bandwidths, (B, d d + 2): H_b^-1
+    row-major, then c_k and c_kk.  h_inv: (B, d, d); c_k, c_kk: B values
+    (numbers where B = 1), in h_inv's dtype and on its device."""
+    b, d, _ = h_inv.shape
+
+    def col(c):
+        return torch.as_tensor(c, dtype=h_inv.dtype, device=h_inv.device).reshape(b, 1)
+    return torch.cat([h_inv.reshape(b, d * d), col(c_k), col(c_kk)], dim=1)
+
+
+def gh_fused_sums(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """sum_{i<j} T_H(x_i - x_j)  (LSCV_H eq. 32 inner sum, fused §6.3) of
+    each bandwidth of params (B, d d + 2, as `gh_params` packs them).
+    x: (n, d) -> (B,)."""
+    d = x.shape[1]
+    sums = []
+    for row in params:
+        acc = torch.zeros((), dtype=x.dtype, device=x.device)
+        for _, s in _quad_slabs(x, row[:d * d].reshape(d, d)):
+            acc = acc + torch.sum(_t_h(s, row[d * d], row[d * d + 1]))
+        sums.append(acc)
+    return torch.stack(sums)
+
+
 def gh_fused_sum(x: torch.Tensor, h_inv: torch.Tensor, c_k, c_kk
                  ) -> torch.Tensor:
-    """sum_{i<j} T_H(x_i - x_j)  (LSCV_H eq. 32 inner sum, fused §6.3).
-    x: (n, d), h_inv: (d, d) -> 0-d."""
-    acc = torch.zeros((), dtype=x.dtype, device=x.device)
-    for _, s in _quad_slabs(x, h_inv):
-        acc = acc + torch.sum(_t_h(s, c_k, c_kk))
-    return acc
+    """`gh_fused_sums` of one bandwidth.  x: (n, d), h_inv: (d, d) -> 0-d."""
+    return gh_fused_sums(x, gh_params(h_inv[None], c_k, c_kk))[0]
 
 
 def _grid_fold(acc: torch.Tensor, s: torch.Tensor, inv_h2: torch.Tensor,

@@ -35,9 +35,10 @@ names and labels here; `synopsis.fit` also wraps every exact fit
                                     stacking included
     engine.compile   n              QueryEngine.execute's compile of its
                                     specs, before engine.run_compiled
-    nm.eval          -              one Nelder-Mead objective evaluation and
-                                    the copy of its value to the host (as
-                                    many as the result's nfev)
+    nm.eval          points         one Nelder-Mead round trip: a batch of
+                                    points evaluated and their values copied
+                                    to the host (the start, one a step, one
+                                    a shrink; the points add up to nfev)
     qmc.plan         q, d, n_qmc    quasi-MC host planning (_qmc_plan),
                                     inside engine.kernel / engine.ci
 

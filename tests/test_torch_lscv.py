@@ -18,8 +18,13 @@ Tolerances:
 - rel 2e-3 against the float64 oracle `g_of_h_sequential`, as in
   `tests/test_lscv.py`.
 - rtol 5e-4 on g(H), `tests/test_kernels.py`'s gh_fused tolerance.
-- Nelder-Mead on deterministic 2-D functions: x, it and nfev equal; the
-  value at x to 1e-3 relative (XLA may fuse the function's multiply-adds).
+- Nelder-Mead on deterministic 2-D functions: x, it and nfev equal, with
+  the function called point by point or on each batch at once; the value
+  at x to 1e-3 relative (XLA may fuse the function's multiply-adds).
+- The batched LSCV_H objective (`g_of_H_batch`) has g_of_H's bits point by
+  point on the CPU; on a machine with a CUDA device, each sum of a batch
+  has the bits of a one-H gh_fused_sum launch, and a fit launches the
+  kernel nfev times.
   In more dimensions the centroid's mean may round otherwise under XLA, so
   only LSCV_H's objective is compared there.
 - LSCV_H by its objective: the float64 g of the port's H and of the
@@ -185,14 +190,24 @@ def _spike(p):
     return 1.0 - 1.0 / (1.0 + 64.0 * abs(p[0] * p[1])) + 0.001 * abs(p[0] + p[1])
 
 
+def _minimize(fun, x0, batched, **kw):
+    """The loop over `fun` point by point (`minimize`), or over the batch
+    objective that evaluates fun on a (B, k) batch at once, its columns as
+    the coordinates (`minimize_batch`)."""
+    if batched:
+        return nelder_mead.minimize_batch(lambda p: fun(p.T), x0, **kw)
+    return nelder_mead.minimize(fun, x0, **kw)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["pointwise", "batch"])
 @pytest.mark.parametrize("fun,x0,kw", [
     (_rosen, [-1.2, 1.0], dict(max_iter=400, init_scale=0.5)),
     (_rosen, [0.5, -0.5], dict(max_iter=60)),
     (_quad, [0.3, 0.3], dict(max_iter=200)),
     (_spike, [0.0, 0.0], dict(max_iter=100)),
 ])
-def test_nelder_mead_trajectory_equals_reference(fun, x0, kw):
-    got = nelder_mead.minimize(fun, torch.tensor(x0), **kw)
+def test_nelder_mead_trajectory_equals_reference(fun, x0, kw, batched):
+    got = _minimize(fun, torch.tensor(x0), batched, **kw)
     want = jnm.minimize(fun, jnp.asarray(x0, jnp.float32), **kw)
     np.testing.assert_array_equal(_np(got.x), np.asarray(want.x))
     assert (got.it, got.nfev) == (int(want.it), int(want.nfev))
@@ -202,16 +217,36 @@ def test_nelder_mead_trajectory_equals_reference(fun, x0, kw):
     assert float(got.fun) == pytest.approx(float(want.fun), rel=1e-3, abs=1e-12)
 
 
-def test_nelder_mead_evaluates_shrinks_only_when_taken():
+@pytest.mark.parametrize("batched", [False, True], ids=["pointwise", "batch"])
+def test_nelder_mead_evaluates_shrinks_only_when_taken(batched):
     calls = []
 
     def counted(p):
-        calls.append(1)
+        calls.append(p[0].numel())         # p: (k,) one point, (k, B) a batch
         return _spike(p)
 
-    res = nelder_mead.minimize(counted, torch.tensor([0.0, 0.0]), max_iter=100)
+    res = _minimize(counted, torch.tensor([0.0, 0.0]), batched, max_iter=100)
     assert res.nfev > 3 + 3 * res.it       # k + 1 = 3 start points, 3 per step
-    assert len(calls) == res.nfev
+    assert sum(calls) == res.nfev
+    if batched:                            # one batch a step, the start and each shrink
+        shrinks = (res.nfev - 3 - 3 * res.it) // 3
+        assert len(calls) == 1 + res.it + shrinks
+        assert calls.count(3) == len(calls)  # k + 1 = 3: every batch has 3 points
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("d,B", [(2, 3), (2, 4), (3, 3), (3, 7)])
+def test_g_of_H_batch_equals_g_of_H_point_by_point(rng, backend, d, B):
+    """The LSCV_H objective of a batch of B log-Cholesky points (3 for a
+    step, k + 1 for the start and a shrink) has, point by point, the bits
+    of g(H) of each H alone."""
+    x = torch.as_tensor(rng.normal(0.0, 1.0, (90, d)).astype(np.float32))
+    thetas = torch.as_tensor(rng.normal(0.0, 0.3, (B, d * (d + 1) // 2)).astype(np.float32))
+    H = lscv._theta_to_H(thetas, d)
+    got = lscv.g_of_H_batch(x, H, backend=backend)
+    assert got.shape == (B,) and got.dtype == torch.float32 and got.device.type == "cpu"
+    want = torch.stack([lscv.g_of_H(x, h, backend=backend, device="cpu") for h in H])
+    assert torch.equal(got, want)
 
 
 def _correlated(rng, n):
@@ -296,6 +331,42 @@ def test_lscv_entry_points_default_to_cuda_or_raise():
             lscv.lscv_h(x, n_h=3)
         with pytest.raises(RuntimeError, match="CUDA"):
             lscv.lscv_H(x, max_iter=2)
+
+
+@pytest.fixture()
+def cuda_device():
+    """The CUDA device; the test skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the gh_fused kernel runs only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("d,B", [(2, 4), (3, 3), (3, 7)])
+def test_cuda_batch_sums_have_the_bits_of_one_H_launches(cuda_device, rng, d, B):
+    from repro_torch.kernels import ops
+    x = torch.as_tensor(rng.normal(0.0, 1.0, (700, d)).astype(np.float32), device=cuda_device)
+    thetas = torch.as_tensor(rng.normal(0.0, 0.3, (B, d * (d + 1) // 2)).astype(np.float32))
+    H = lscv._theta_to_H(thetas, d)
+    c_k, c_kk, _ = lscv.G.lscv_H_consts(d, torch.linalg.det(H))
+    params = torch.cat([lscv._inv(H).reshape(B, d * d), c_k[:, None], c_kk[:, None]], dim=1)
+    params = params.to(cuda_device)
+    ops.reset_launch_counts()
+    sums = ops.gh_fused_sums(x, params)
+    assert ops.launch_counts()["gh_fused_sum"] == B
+    for b, row in enumerate(params):
+        one = ops.gh_fused_sum(x, row[:d * d].reshape(d, d).contiguous(),
+                               row[d * d].clone(), row[d * d + 1].clone())
+        assert torch.equal(sums[b], one), f"sum {b} of {B}"
+
+
+def test_cuda_lscv_H_launches_one_gh_fused_sum_per_evaluation(cuda_device, rng):
+    from repro_torch.kernels import ops
+    x = _correlated(rng, 600)
+    ops.reset_launch_counts()
+    res = lscv.lscv_H(x, max_iter=30, device=cuda_device)
+    counts = ops.launch_counts()
+    assert counts["gh_fused_sum"] == res.nfev > 0
+    assert sum(counts.values()) == res.nfev
 
 
 # --- a singular covariance: a constant column, or a joint with one constant axis ---------

@@ -285,13 +285,15 @@ def test_tile_shape_refuses_tiles_the_kernel_cannot_take(tile):
         tgh.tile_shape(4096, tile)
 
 
-@pytest.mark.parametrize("call", ["gh", "grid"])
+@pytest.mark.parametrize("call", ["gh", "gh_batch", "grid"])
 def test_redesigned_launchers_refuse_cpu_tensors(call):
     """The launchers take CUDA tensors only; ops.py hands CPU tensors to
     the plain versions, and nothing falls back."""
     with pytest.raises(ValueError, match="must be on a CUDA device"):
         if call == "gh":
             tgh.gh_fused_sum(torch.zeros(40, 3), torch.eye(3), 0.3, 0.2, tile=tgh.TILE)
+        elif call == "gh_batch":
+            tgh.gh_fused_sums(torch.zeros(40, 3), torch.zeros(3, 11), tile=tgh.TILE)
         else:
             tlg.lscv_grid_sums_from_s(torch.zeros(4, 4), torch.ones(3), 0.3, 0.2,
                                       h_tile=tlg.H_TILE)
@@ -336,6 +338,9 @@ def test_cpu_wrappers_still_take_the_plain_versions(rng):
     ck, ckk = torch.tensor(0.31), torch.tensor(0.17)
     got = ops.gh_fused_sum(x, torch.eye(2), ck, ckk)
     assert torch.equal(got, ref.gh_fused_sum(x, torch.eye(2), ck, ckk))
+    params = torch.tensor([[1.0, 0.0, 0.0, 1.0, 0.31, 0.17], [2.0, 0.5, 0.5, 1.0, 0.2, 0.1]])
+    sums = ops.gh_fused_sums(x, params)
+    assert sums.shape == (2,) and torch.equal(sums[0], got)
     assert ops.launch_counts()["gh_fused_sum"] == 0
 
 

@@ -26,6 +26,7 @@ from repro_torch import obs as tobs
 from repro_torch.core import aqp_query as tq
 from repro_torch.data import aqp_store as tstore
 from repro_torch.kernels import aqp_batch as tab
+from repro_torch.kernels import gh_fused as tgh
 from repro_torch.kernels import ops, tuning
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -300,6 +301,40 @@ def test_wrappers_profile_only_with_obs_enabled(monkeypatch):
         tobs.set_tracer(prev)
 
 
+def test_batch_wrapper_profiles_each_launch(monkeypatch):
+    """gh_fused_sums queues its B launches in one launcher call with obs off;
+    with obs on it profiles each launch on its own, so kernel.calls and
+    kernel.wall_us count launches as for every other kernel (a meta tensor
+    stands in for the card: the launcher is faked)."""
+    rows = []
+
+    def fake_launch(x, params, tile):
+        rows.append(params.shape[0])
+        return torch.arange(params.shape[0], dtype=torch.float32)
+
+    monkeypatch.setattr(tgh, "gh_fused_sums", fake_launch)
+    x = torch.zeros(64, 3, device="meta")
+    params = torch.zeros(7, 11, device="meta")
+    reg = tobs.get_registry()
+
+    def recorded():
+        return reg.sum_counter("kernel.calls", kernel="gh_fused_sum", n=64, d=3)
+
+    before = recorded()
+    assert ops.gh_fused_sums(x, params).shape == (7,)
+    assert rows == [7] and recorded() == before
+    prev = tobs.set_tracer(tobs.Tracer())
+    tobs.enable()
+    try:
+        assert ops.gh_fused_sums(x, params).shape == (7,)
+        assert rows == [7] + [1] * 7 and recorded() == before + 7
+        (_, hist), = reg.collect_histograms("kernel.wall_us", kernel="gh_fused_sum", n=64)
+        assert hist.count >= 7
+    finally:
+        tobs.disable()
+        tobs.set_tracer(prev)
+
+
 def _store_metrics(pkg, q, smod, rng_seed=0):
     rng = np.random.default_rng(rng_seed)
     kw = {"device": "cpu"} if pkg == "port" else {}
@@ -448,8 +483,9 @@ def _fit_store(seed=0):
 
 def test_exact_fits_open_one_synopsis_fit_and_nfev_nm_evals(monkeypatch):
     """An LSCV_h and an LSCV_H fit on the CPU store under obs.enable() (fake
-    clock): one `synopsis.fit` each with its selector, and as many `nm.eval`
-    spans, nested in the LSCV_H fit's, as Nelder-Mead's nfev."""
+    clock): one `synopsis.fit` each with its selector, and one `nm.eval`
+    span a Nelder-Mead round trip, nested in the LSCV_H fit's: the start,
+    one a step and one a shrink, their `points` adding up to nfev."""
     from repro_torch.core import aqp as taqp
     fits = []
 
@@ -478,7 +514,11 @@ def test_exact_fits_open_one_synopsis_fit_and_nfev_nm_evals(monkeypatch):
         {"backend": "torch", "selector": "lscv_h", "n": 192, "d": 1},
         {"backend": "torch", "selector": "lscv_H", "n": 192, "d": 2}]
     evals = [s for s in spans if s.name == "nm.eval"]
-    assert len(fits) == 1 and len(evals) == fits[0].nfev > 0
+    assert len(fits) == 1 and sum(s.attrs["points"] for s in evals) == fits[0].nfev > 0
+    k1 = 2 * 3 // 2 + 1                    # k + 1 points at d = 2: the start, a shrink
+    shrinks = (fits[0].nfev - k1 - 3 * fits[0].it) // k1
+    assert len(evals) == 1 + fits[0].it + shrinks
+    assert {s.attrs["points"] for s in evals} == {3, k1} and evals[0].attrs["points"] == k1
     assert {s.parent_id for s in evals} == {fit[1].span_id}
     assert all(s.t1 > s.t0 for s in spans)
 
