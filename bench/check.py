@@ -21,6 +21,10 @@ Numbers compared, each against its limit in `bench/limits/<cell>.json`:
 
 `checks` lists each as {"value", "limit"}; a number without a reading in a
 cell (no fit of that kind) is left out.
+
+Read beside them and not compared: `stream_err.median` and `stream_err.max`,
+the program's estimates against the stream's exact answers (what the
+synopses approximate, not what the reference computes).
 """
 from __future__ import annotations
 
@@ -42,6 +46,18 @@ def answer_errors(program: np.ndarray, ref: Sequence[tuple]) -> Dict[str, float]
     ci = np.abs(half_p[kde] - half_r[kde]) / half_r[kde] if kde.any() else np.zeros(0)
     return {"answer_err": float(np.max(ans)) if ans.size else 0.0,
             "ci_err": float(np.max(ci)) if ci.size else 0.0}
+
+
+def stream_errors(estimates: np.ndarray, exact: np.ndarray) -> Dict[str, float]:
+    """Median and max of |estimate - exact| / |exact| over the entries
+    whose exact answer is not 0 and whose estimate is finite (a non-finite
+    one is counted as failed); none: an empty dict."""
+    est, ex = np.asarray(estimates, np.float64), np.asarray(exact, np.float64)
+    nz = (ex != 0.0) & np.isfinite(est)
+    if not nz.any():
+        return {}
+    rel = np.abs(est[nz] - ex[nz]) / np.abs(ex[nz])
+    return {"stream_err.median": float(np.median(rel)), "stream_err.max": float(np.max(rel))}
 
 
 def verdict(readings: Dict[str, float], limits: Dict[str, float]) -> tuple:

@@ -12,11 +12,14 @@ The timed path is one *refresh*, back to back for the window:
 `QueryEngine.execute(dashboard)` on the engine of the mix's selector, which
 refits every moved synopsis lazily and answers.  After the window the
 program is freed and its outputs are held to `bench/reference.py`
-(`bench/check.py`).
+(`bench/check.py`), with box answers from the integrator that the
+configuration's `box_estimator` names (`box_integrator`), and read beside
+the check against the stream's exact answers (`stream_errors`).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import importlib.util
 import json
@@ -176,6 +179,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
 
     t_start = time.perf_counter() if t_start is None else t_start
     cfg, tr = cell.config, cell.traffic
+    box_integrator(cfg)            # an unknown estimator fails before set-up
     backend = "cuda" if device == "cuda" else "torch"
     selector = tr["selector"]
     stream = streams.make_stream(seed, cfg, tr)
@@ -286,6 +290,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     readings, own = hold_to_reference(seed, cell, stream, rows, records, device=device,
                                       control=control, log=log)
     log(f"reference {time.perf_counter() - t_ref:.1f} s")
+    t_ref = time.perf_counter()
+    own.update(stream_errors(stream, rows, records, device))
+    log(f"stream's exact answers {time.perf_counter() - t_ref:.1f} s")
     correct, checks = check.verdict(readings, cell.limits)
     result = {"correct": bool(correct and failed == 0), "attempted": attempted,
               "failed": failed, "metrics": metrics}
@@ -319,6 +326,20 @@ def power_limit() -> str:
 
 
 # --- the check ----------------------------------------------------------------
+
+def stream_errors(stream, rows, records: List[Refresh], device: str = "cpu") -> dict:
+    """The program's answers of every refresh of the window against the
+    stream's exact answers over the rows ingested up to it (a reading
+    beside the check, not compared): `stream_err.median` and
+    `stream_err.max` of |estimate - exact| / |exact| over the answers
+    whose exact value is not 0."""
+    done = [r for r in records if r.answers is not None]
+    if not done:
+        return {}
+    exact = reference.stream_answers(stream.setup, stream.pool, rows, [r.k for r in done],
+                                     device=device)
+    return check.stream_errors(np.stack([r.answers[:, 0] for r in done]), exact)
+
 
 def checked_refreshes(seed: int, n_done: int, n_check: int) -> List[int]:
     """Positions in the window's refreshes whose fits and answers the
@@ -432,9 +453,28 @@ def _check_lscv_h(cell: Cell, x, n_seen: int, specs, bw, control: bool, device: 
     return gap, want, got, own
 
 
+def box_integrator(config: dict) -> Callable:
+    """The reference's integrator of full-H boxes that the configuration
+    names by `box_estimator`, called `answer(x, H, specs, n_source,
+    prec=..., device=...)`: "hull_qmc" (the default where the key is
+    absent) is `reference.qmc_box_answers` with `n_qmc` nodes over the
+    boxes' hull, "kernel_qmc" `reference.kernel_box_answers` with
+    `box_draws` draws a sample row.  Both take `qmc_subsamples` row chunks
+    for the CI.  Any other name raises."""
+    name = config.get("box_estimator", "hull_qmc")
+    ci = {"k_sub": int(config["qmc_subsamples"]), "ci_level": float(config["ci_level"])}
+    if name == "hull_qmc":
+        return functools.partial(reference.qmc_box_answers, n_qmc=int(config["n_qmc"]), **ci)
+    if name == "kernel_qmc":
+        return functools.partial(reference.kernel_box_answers,
+                                 draws=int(config["box_draws"]), **ci)
+    raise ValueError(f"unknown box_estimator {name!r}: hull_qmc or kernel_qmc")
+
+
 def _check_lscv_H(cell: Cell, x, n_seen: int, specs, bw, control: bool, device: str,
                   log: Callable[[str], None]):
     cfg = cell.config
+    answer = box_integrator(cfg)
     if control:
         bw = reference.lscv_H_fit(x, int(cfg["nm_max_iter"]), prec="tf32", device=device)[0]
     if bw is None:
@@ -447,8 +487,7 @@ def _check_lscv_H(cell: Cell, x, n_seen: int, specs, bw, control: bool, device: 
     log(f"LSCV_H: g(H) {g_prog!r}, g(H_ref) {g_ref!r}, g(H_start) {g_start!r}, "
         f"|H - H_ref| / |H_ref| {np.linalg.norm(bw - H_ref) / np.linalg.norm(H_ref)!r}")
     ok = shortfall <= float(cell.limits["H_shortfall"])
-    args = (specs, n_seen, int(cfg["n_qmc"]), int(cfg["qmc_subsamples"]), float(cfg["ci_level"]))
-    want = reference.qmc_box_answers(x, bw if ok else H_ref, *args, device=device)
-    own = reference.qmc_box_answers(x, H_ref, *args, device=device) if ok else want
-    got = reference.qmc_box_answers(x, bw, *args, prec="tf32", device=device) if control else None
+    want = answer(x, bw if ok else H_ref, specs, n_seen, device=device)
+    own = answer(x, H_ref, specs, n_seen, device=device) if ok else want
+    got = answer(x, bw, specs, n_seen, prec="tf32", device=device) if control else None
     return shortfall, want, got, own

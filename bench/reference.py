@@ -27,10 +27,15 @@ and summed in float32, which is what a tensor core does with TF32 inputs.
     limit, g(H) from the same Gram form;
   * range COUNT / SUM / AVG (eqs. 9-10) with the normal-theory CI of the
     sample variance of the per-point terms (delta method for AVG);
-  * box COUNT / SUM / AVG under a full H by quasi-MC on Halton nodes over the
-    boxes' support-clipped hull, with the batch-means CI over K row chunks
-    and a Student-t quantile;
-  * Eq on a dictionary column: exact counts of the stream.
+  * box COUNT / SUM / AVG under a full H by quasi-MC, with the batch-means CI
+    over K row chunks and a Student-t quantile, by the integrator the
+    configuration names: Halton nodes over the boxes' support-clipped hull
+    (`qmc_box_answers`, the default), or Halton draws around each sample
+    row's kernel (`kernel_box_answers`);
+  * Eq on a dictionary column: exact counts of the stream;
+  * the stream's exact COUNT / SUM / AVG of every spec over the rows
+    ingested up to a refresh (`stream_answers`), which the synopses
+    approximate: a reading beside the check.
 """
 from __future__ import annotations
 
@@ -427,12 +432,12 @@ def eq_answers(codes: Dict[float, int], specs) -> List[Tuple[float, float, float
 
 # --- box answers under a full H (quasi-MC) -----------------------------------
 
-def halton(n: int, d: int) -> np.ndarray:
-    """The first n points (from index 1) of the Halton sequence in the
-    first d primes, as float64 radical inverses rounded to float32."""
+def halton(n: int, d: int, start: int = 0) -> np.ndarray:
+    """The n points of index start + 1 .. start + n of the Halton sequence
+    in the first d primes, as float64 radical inverses rounded to float32."""
     out = np.zeros((n, d))
     for k, p in enumerate(PRIMES[:d]):
-        i = np.arange(1, n + 1)
+        i = np.arange(start + 1, start + n + 1)
         f, denom = np.zeros(n), float(p)
         while i.max() > 0:
             f += (i % p) / denom
@@ -509,3 +514,113 @@ def qmc_box_answers(x, H: np.ndarray, specs, n_source: int, n_qmc: int, k_sub: i
         se = float(np.std(reps, ddof=1) / math.sqrt(k))
         out.append((est, est - t * se, est + t * se))
     return out
+
+
+def kernel_box_answers(x, H: np.ndarray, specs, n_source: int, draws: int, k_sub: int,
+                       ci_level: float, prec: str = "float64", device="cpu",
+                       row_block: int = 1024):
+    """(estimate, ci_lo, ci_hi) per Box spec under the full bandwidth H, by
+    kernel-centred quasi-MC: the KDE's mass in a box is the mean over the
+    sample rows of the mass of N(X_i, H) in it, and each row's Gaussian is
+    integrated with its own K = `draws` points.
+
+    Draws: with L the lower Cholesky factor of H, draw j of row i is
+    y_ij = X_i + L z_ij, z_ij = Phi^-1(u_t) (float64) for u_t the Halton
+    point t = i K + j + 1 in the first d primes as `halton()` gives it
+    (float32).  No hull, no clipping and no node budget: every draw lies
+    where a row's kernel puts its mass.  COUNT = s / K sum_i sum_j
+    1[lo <= y_ij <= hi] (closed box, every axis), SUM the same with each
+    term weighted by y_ij[target], s = n_source / m; AVG by `_select`.
+    CI: the same sums over k = min(k_sub, m // 2) equal row chunks of
+    m // k rows (s_c = n_source / (m // k)), SE = std(ddof 1) / sqrt(k),
+    est +- t_{k-1} SE.  With `prec="tf32"` (the control) L z goes through
+    `matmul`'s TF32 emulation, and the draws, the box tests and each row
+    block's sums are float32.  Rows are taken `row_block` at a time, so
+    memory stays at row_block K draws whatever m."""
+    x64 = np.asarray(x, np.float64)
+    x64 = x64[:, None] if x64.ndim == 1 else x64
+    m, d = x64.shape
+    K = int(draws)
+    dt = _dtype(prec)
+    k = min(k_sub, m // 2)
+    chunk = m // k
+    L = torch.linalg.cholesky(torch.as_tensor(np.asarray(H, np.float64).reshape(d, d),
+                                              device=device))
+    lt = L.T.to(dt)
+    lo = torch.as_tensor([s.lo for s in specs], device=device, dtype=torch.float64).to(dt)
+    hi = torch.as_tensor([s.hi for s in specs], device=device, dtype=torch.float64).to(dt)
+    tgt = torch.as_tensor([s.target for s in specs], device=device)
+    xt = torch.as_tensor(x64, device=device).to(dt)
+    # per row chunk (columns 0..k-1; rows past k * chunk in column k)
+    cnt = torch.zeros((len(specs), k + 1), device=device, dtype=torch.float64)
+    tot = torch.zeros_like(cnt)
+    for r0 in range(0, m, row_block):
+        r1 = min(m, r0 + row_block)
+        u = torch.as_tensor(halton((r1 - r0) * K, d, start=r0 * K).astype(np.float64),
+                            device=device)
+        z = torch.special.ndtri(u).to(dt)
+        y = torch.repeat_interleave(xt[r0:r1], K, dim=0) + matmul(z, lt, prec).to(dt)
+        inside = torch.ones((len(specs), y.shape[0]), device=device, dtype=torch.bool)
+        for a in range(d):
+            inside &= (y[None, :, a] >= lo[:, a, None]) & (y[None, :, a] <= hi[:, a, None])
+        w = inside.to(dt)
+        wy = w * y[:, tgt].T
+        cid = torch.clamp((torch.arange(r0, r1, device=device) // chunk), max=k)
+        first, last = int(cid[0]), int(cid[-1])
+        for c in range(first, last + 1):
+            sel = torch.repeat_interleave(cid == c, K)
+            cnt[:, c] += w[:, sel].sum(dim=1).double()
+            tot[:, c] += wy[:, sel].sum(dim=1).double()
+    cnt, tot = cnt.cpu().numpy(), tot.cpu().numpy()
+    out = []
+    t = t_ppf(0.5 + ci_level / 2.0, k - 1)
+    for i, sp in enumerate(specs):
+        est = float(_select(sp.aggregate, n_source / (m * K) * cnt[i].sum(keepdims=True),
+                            n_source / (m * K) * tot[i].sum(keepdims=True))[0])
+        reps = _select(sp.aggregate, n_source / (chunk * K) * cnt[i, :k],
+                       n_source / (chunk * K) * tot[i, :k])
+        se = float(np.std(reps, ddof=1) / math.sqrt(k))
+        out.append((est, est - t * se, est + t * se))
+    return out
+
+
+# --- the stream's exact answers ------------------------------------------------
+
+def box_sums(batch: Dict[str, np.ndarray], specs, device="cpu") -> np.ndarray:
+    """(2, q): the exact COUNT and SUM of each spec over one batch's rows.
+    Every spec is a closed box over its columns (a Range or an Eq a box of
+    one column); SUM reads the column `columns[target]`.  float64."""
+    out = np.zeros((2, len(specs)))
+    groups: Dict[tuple, List[int]] = {}
+    for i, sp in enumerate(specs):
+        groups.setdefault(tuple(sp.columns), []).append(i)
+    for cols, idx in groups.items():
+        v = torch.as_tensor(np.stack([np.asarray(batch[c], np.float64) for c in cols]),
+                            device=device)                                 # (d, n)
+        lo = torch.as_tensor([specs[i].lo for i in idx], device=device, dtype=torch.float64)
+        hi = torch.as_tensor([specs[i].hi for i in idx], device=device, dtype=torch.float64)
+        inside = torch.ones((len(idx), v.shape[1]), device=device, dtype=torch.bool)
+        for a in range(len(cols)):
+            inside &= (v[None, a] >= lo[:, a, None]) & (v[None, a] <= hi[:, a, None])
+        w = inside.double()
+        tgt = torch.as_tensor([specs[i].target for i in idx], device=device)
+        out[0, idx] = w.sum(dim=1).cpu().numpy()
+        out[1, idx] = (w * v[tgt]).sum(dim=1).cpu().numpy()
+    return out
+
+
+def stream_answers(setup, pool, specs, ks: Sequence[int], device="cpu") -> np.ndarray:
+    """(len(ks), q): each spec's exact COUNT / SUM / AVG over every row
+    ingested up to refresh k: the set-up batches, then the pool's batches
+    of refreshes 0 .. k (refresh j ingests pool[j % len(pool)]; refresh 0
+    is the warm-up).  Counted once a batch, so a refresh costs a product."""
+    base = sum(box_sums(b, specs, device) for b in setup)                  # (2, q)
+    per = np.stack([box_sums(b, specs, device) for b in pool])             # (P, 2, q)
+    p = len(pool)
+    ks = np.asarray(ks, np.int64)
+    times = (ks[:, None] - np.arange(p)[None]) // p + 1                    # (R, P)
+    times = np.where(np.arange(p)[None] <= ks[:, None], times, 0).astype(np.float64)
+    count = base[0][None] + times @ per[:, 0]
+    total = base[1][None] + times @ per[:, 1]
+    return np.stack([_select(sp.aggregate, count[:, i], total[:, i])
+                     for i, sp in enumerate(specs)], axis=1)

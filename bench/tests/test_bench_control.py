@@ -136,4 +136,5 @@ def test_a_traced_run_reads_spans_apart_from_its_untraced_part(monkeypatch):
     # untraced refreshes first, then the spans' part, then the last part
     assert seen[0] is False and True in seen and seen[-1] is False
     assert seen.index(True) > 0 and not obs.enabled()
-    assert set(res["not_compared"]) == {"answer_err.own_bw", "ci_err.own_bw"}
+    assert set(res["not_compared"]) == {"answer_err.own_bw", "ci_err.own_bw",
+                                        "stream_err.median", "stream_err.max"}
