@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--only kernel-boxes]
 
 (`--child tuned|restore` runs it as phase T's or path H's second process.)
 
@@ -165,7 +165,15 @@ non-zero and prints no result line):
      (d) `dryrun.lower_cell` on a fake 1 x 1 mesh at (a)'s shape, its
      argument + temp bytes within 15 % of (a)'s measured peak, the H100
      roofline terms of that step beside its measured time;
- 16. every kernel against its plain PyTorch version on the card, on the
+ 16. phase K, the kernel-centred box kernel (`--only kernel-boxes` runs the
+     card line, the build and this phase alone): `draw_box_reduce` against
+     its plain version at the cell `joint8.lscv_H.kernel`'s shape (m = 16
+     384 rows, 64 draws a row, 128 boxes, d = 8, 8 CI chunks) and at edge
+     shapes (d = 1..8; m = 1, 2, 513; 0, 8 and 16 chunks), two launches
+     with the same bits, a draw on a face counted, one launch a call, and
+     the kernel and plain-version times at the cell's shape beside the
+     bound;
+ 17. every kernel against its plain PyTorch version on the card, on the
      very inputs of its calls on those paths (recorded while they ran), at
      an extra shape and at edge shapes, and against a float64 oracle on a
      subsample (aqp_batch / aqp_boxes: all five sums of every call of the
@@ -175,7 +183,7 @@ non-zero and prints no result line):
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
      own eqs. 49/50 tile mapping exhaustively;
- 17. kernel and plain-version times (CUDA events, median of warm runs) on
+ 18. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
      gh_fused_sum path B's first batch of bandwidths and path D's first
@@ -200,7 +208,9 @@ their bounds, peak memory, the float32 copy's differences, each other
 architecture's depth and steps, the restart's times, the card), a
 {"phase_m": {...}} line (the sharded steps' losses, times and peak, the
 pipeline's time, each dry-run cell's dominant term, GB a device and trace
-seconds, the traced bytes against the peak, the card), a
+seconds, the traced bytes against the peak, the card), a {"phase_k":
+{...}} line (phase K's cases, largest count error, launches, kernel and
+plain times, bound and roofline share, the card), a
 {"path_f_kernels":
 [...]} line (the path-F kernels at n = 4 096),
 a {"kernels": [...]} JSON line, the card's name and power limit, and last
@@ -4336,6 +4346,97 @@ def timings(torch, rt, first, main_calls, calls_a, calls_d, calls_dx, calls_e):
     return out
 
 
+# --- phase K: the kernel-centred box kernel ---------------------------------------------
+
+K_CELL = (16_384, 64, 128, 8, 8)     # m, draws a row, boxes, d, CI chunks: joint8.lscv_H.kernel
+
+
+def k_inputs(torch, rt, rng, m: int, draws: int, q: int, d: int):
+    """A sample of m rows, an SPD H's float32 Cholesky factor, the cached
+    draws and q boxes of the benchmark's width over the sample's spread."""
+    x = rng.normal(0.0, 1.0, (m, d)).astype(np.float32)
+    a = rng.normal(0.0, 0.3, (d, d))
+    L = np.linalg.cholesky(a @ a.T + 0.05 * np.eye(d)).astype(np.float32)
+    lo = rng.uniform(-1.5, 0.3, (q, d)).astype(np.float32)
+    hi = (lo + rng.uniform(0.6, 2.5, (q, d))).astype(np.float32)
+    dev = torch.device("cuda")
+    z = rt["aqp_multid"].kernel_normals(m, draws, d, dev)
+    return (torch.as_tensor(x, device=dev), z, torch.as_tensor(L, device=dev),
+            torch.as_tensor(lo, device=dev), torch.as_tensor(hi, device=dev),
+            torch.as_tensor(rng.integers(0, d, q).astype(np.int32), device=dev))
+
+
+def k_bound_ms(m: int, draws: int, q: int, d: int, chunks: int) -> float:
+    """`bench/metrics/draw_box_reduce_roofline.py`'s count: per draw d(d+1)
+    FLOPs of x_i + L z, per (draw, box) 2d + 3; bytes of x, L, the boxes
+    and targets and the float64 sums once (z, a constant of the shape, not
+    counted)."""
+    n = m * draws
+    flops = n * d * (d + 1) + n * q * (2 * d + 3)
+    nbytes = 4 * m * d + 4 * d * d + 8 * q * d + 4 * q + 16 * (chunks + 1) * q
+    return 1e3 * max(nbytes / PEAK_BYTES, flops / PEAK_FP32)
+
+
+def phase_k(torch, rt) -> dict:
+    """`ops.draw_box_reduce` against its plain version (`kernels/ref.py`) at
+    the cell's shape and at edge shapes (d = 1..8; m = 1, 2, 513; no chunks,
+    8 and 16; K = 1 and 64): the counts within two draws of the plain
+    version's (a draw within a float32 rounding of a face may fall on the
+    other side when x_i + L z is formed in another order), the sums within
+    1e-5 plus two draws at the largest bound; two launches give the same
+    bits; a draw lying on a face is counted; one launch a call; then the
+    kernel and the plain version timed at the cell's shape beside the
+    bound."""
+    ops, ref = rt["ops"], rt["ref"]
+    rng = np.random.default_rng(33)
+    ops.reset_launch_counts()
+    cases = [K_CELL] + [(m, draws, 17, d, splits) for d in range(1, 9)
+                        for m, draws, splits in ((1, 64, 0), (2, 1, 0), (513, 64, 8))]
+    cases += [(700, 7, 33, 5, 16)]
+    worst = 0.0
+    for m, draws, q, d, splits in cases:
+        args = k_inputs(torch, rt, rng, m, draws, q, d) + (splits,)
+        k = ops.draw_box_reduce(*args)
+        p = ref.draw_box_reduce(*args)
+        torch.cuda.synchronize()
+        bound = float(torch.maximum(args[3].abs(), args[4].abs()).max())
+        dc = float((k[0] - p[0]).abs().max())
+        ds = float(((k[1] - p[1]).abs() - 1e-5 * p[1].abs()).max())
+        check(dc <= 2.0 and ds <= 2.0 * bound,
+              f"draw_box_reduce m={m} K={draws} q={q} d={d} S={splits}: counts off by "
+              f"{dc}, sums by {ds} past 1e-5 (two draws: {2.0 * bound})")
+        worst = max(worst, dc)
+        again = ops.draw_box_reduce(*args)
+        check(torch.equal(k[0], again[0]) and torch.equal(k[1], again[1]),
+              f"draw_box_reduce m={m} d={d}: two launches differ")
+    n_launch = ops.launch_counts()["draw_box_reduce"]
+    check(n_launch == 2 * len(cases), f"draw_box_reduce: {n_launch} launches for "
+          f"{2 * len(cases)} calls")
+    # a draw on a face: L = I makes the draws x_i + z exactly; a point box
+    # at the first draw holds it
+    for d in (1, 8):
+        x, z, _, _, _, tgt = k_inputs(torch, rt, rng, 4, 64, 1, d)
+        eye = torch.eye(d, device=x.device)
+        y0 = (x[0] + z[0])[None].contiguous()
+        cnt, _ = ops.draw_box_reduce(x, z, eye, y0, y0, tgt[:1].contiguous(), 0)
+        check(float(cnt[0, 0]) >= 1.0, f"draw_box_reduce d={d}: the draw on the face missed")
+    m, draws, q, d, splits = K_CELL
+    args = k_inputs(torch, rt, rng, m, draws, q, d) + (splits,)
+    p1 = time_ms(torch, lambda: ref.draw_box_reduce(*args), reps=5, warm=1)
+    k1 = time_ms(torch, lambda: ops.draw_box_reduce(*args))
+    k2 = time_ms(torch, lambda: ops.draw_box_reduce(*args))
+    mhz = sm_clock_mhz()
+    p2 = time_ms(torch, lambda: ref.draw_box_reduce(*args), reps=5, warm=1)
+    b = k_bound_ms(m, draws, q, d, splits)
+    print(f"time draw_box_reduce (m={m}, K={draws}, q={q}, d={d}, {splits} CI chunks, the "
+          f"cell joint8.lscv_H.kernel's launch): kernel {k1:.4f} / {k2:.4f} ms (median of 15), "
+          f"plain {p1:.4f} / {p2:.4f} ms (median of 5), bound {b:.4f} ms (operations) at "
+          f"{mhz:.0f} MHz; replaces no TPU kernel; no single PyTorch call computes it")
+    return {"cases": len(cases), "max_count_err": worst, "launches": n_launch,
+            "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "bound_ms": b,
+            "roofline_pct": 100.0 * b / min(k1, k2), "sm_clock_mhz": mhz, "card": card_line()}
+
+
 def runtime(torch) -> dict:
     """The port's modules, imported from this checkout's `src`."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -4368,6 +4469,8 @@ def main() -> int:
     ap.add_argument("--cache", help="--child tuned: the tile cache to load")
     ap.add_argument("--snapshot", help="--child restore: the snapshot directory")
     ap.add_argument("--out", help="--child: where to write its answers (npz)")
+    ap.add_argument("--only", choices=["kernel-boxes"], default=None,
+                    help="run the card line, the build and phase K alone")
     args = ap.parse_args()
 
     import torch
@@ -4384,6 +4487,12 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s ({', '.join(_build.SOURCES.values())})")
+    if args.only == "kernel-boxes":
+        print(json.dumps({"phase_k": phase_k(torch, rt)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     store, specs, gspecs, stream = build_store(args, rt, rt["query"])
     counts = {}
@@ -4437,6 +4546,10 @@ def main() -> int:
     print(f"phase M: {time.perf_counter() - t_m:.1f} s; through phase M: "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_m": summary_m}))
+    t_k = time.perf_counter()
+    summary_k = phase_k(torch, rt)
+    print(f"phase K: {time.perf_counter() - t_k:.1f} s")
+    print(json.dumps({"phase_k": summary_k}))
     errs = kernels_vs_plain(torch, rt, calls_main, calls_c)
     errs.update(lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d))
     errs.update(fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e))

@@ -20,6 +20,12 @@ splits of the estimate's own launch of the qmc_reduce kernel
 (`qmc_answers_and_se`), so the path runs one kernel launch per group and
 no plain version of a kernel on the card.
 
+kernel-centred qmc (`qmc:kernel`): the same batch-means over K row chunks
+of the draws' sums; on the "cuda" backend the chunks come from the
+estimate's own launch of the draw_box_reduce kernel
+(`kernel_answers_and_se`), on "torch" from a separate plain pass
+(`kernel_subsample_se`).
+
 GROUP BY families on the "cuda" backend take their five moment sums from
 the aqp_grouped kernel's launch (`aqp_multid.grouped_family_moments`) and
 run no moment pass here.
@@ -41,7 +47,8 @@ from repro_torch.kernels import ref as kref
 
 from .aqp import AVG_MIN_COUNT, OP_COUNT, OP_SUM
 from .aqp_multid import (_estimates64, _host64, _qmc_kernel_split_terms,
-                         _qmc_plan, _qmc_shared_terms, _QmcInputs, _select)
+                         _qmc_plan, _qmc_shared_terms, _QmcInputs, _select,
+                         kernel_box_terms)
 
 DEFAULT_CI_LEVEL = 0.95
 
@@ -258,3 +265,52 @@ def qmc_subsample_se(x: torch.Tensor, H: torch.Tensor, lo: np.ndarray,
         ests.append(_estimates64(ops, scale_k, cnt_raw, sum_raw))
     e = np.stack(ests)
     return e.std(axis=0, ddof=1) / math.sqrt(k), k - 1
+
+
+# --- batch-means CI of the kernel-centred quasi-MC path ---------------------
+
+def _kernel_chunk_se(ops: np.ndarray, cnt: torch.Tensor, sm: torch.Tensor,
+                     n_source: int, m: int, k: int, draws: int) -> np.ndarray:
+    """Per-query SE from the k row chunks' sums (rows 1..k of `cnt`, `sm`):
+    each chunk of m // k rows answers with scale n_source / ((m // k) K),
+    SE = std(ddof 1) / sqrt(k)."""
+    ops = np.asarray(ops)
+    scale_k = n_source / ((m // k) * draws)
+    e = np.stack([_estimates64(ops, scale_k, cnt[1 + j], sm[1 + j]) for j in range(k)])
+    return e.std(axis=0, ddof=1) / math.sqrt(k)
+
+
+def kernel_answers_and_se(x: torch.Tensor, H, lo: np.ndarray, hi: np.ndarray,
+                          tgt: np.ndarray, ops: np.ndarray, scale: float,
+                          n_source: int, draws: int, k_sub: int = QMC_SUBSAMPLES
+                          ) -> Tuple[torch.Tensor, np.ndarray, int]:
+    """(answers, per-query SE, t dof) of a full-H group by the kernel-centred
+    estimator: ONE launch of the draw_box_reduce kernel (its plain version
+    for a sample on the CPU) gives the estimate (`batch_query_kernel`) and
+    the k = min(k_sub, m // 2) batch-means replicates over equal row chunks
+    (rows past k (m // k) enter the estimate only), read back in one copy.
+    The answers are a (q,) float64 tensor on the host."""
+    q = np.asarray(lo).shape[0]
+    m = x.shape[0]
+    k = min(k_sub, m // 2)
+    splits = k if k >= 2 else 0
+    cnt, sm = kernel_box_terms(x, H, lo, hi, tgt, draws, splits, "cuda")
+    ans = _select(ops, (scale / draws) * cnt[0], (scale / draws) * sm[0])
+    if splits == 0:
+        return ans, np.full((q,), np.inf), 1
+    return ans, _kernel_chunk_se(ops, cnt, sm, n_source, m, k, draws), k - 1
+
+
+def kernel_subsample_se(x: torch.Tensor, H, lo: np.ndarray, hi: np.ndarray,
+                        tgt: np.ndarray, ops: np.ndarray, n_source: int, draws: int,
+                        k_sub: int = QMC_SUBSAMPLES) -> Tuple[np.ndarray, int]:
+    """(per-query SE, t dof) of a full-H group by the kernel-centred
+    estimator's batch means: the CI pass of the "torch" backend, the
+    replicates of `kernel_answers_and_se` from their own plain pass."""
+    q = np.asarray(lo).shape[0]
+    m = x.shape[0]
+    k = min(k_sub, m // 2)
+    if k < 2:
+        return np.full((q,), np.inf), 1
+    cnt, sm = kernel_box_terms(x, H, lo, hi, tgt, draws, k, "torch")
+    return _kernel_chunk_se(ops, cnt, sm, n_source, m, k, draws), k - 1

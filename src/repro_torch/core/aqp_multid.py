@@ -19,8 +19,12 @@ the group's support-clipped hull, with one density evaluation per group —
 exact (`batch_query_qmc`, eq. 6) or from a fitted RFF synopsis
 (`batch_query_qmc_rff`; on the "cuda" backend `qmc_rff_answers_and_se`
 takes the answers and their feature-block CI from one launch).  The host
-planning (`_qmc_plan`) is float64 numpy, as in the reference.  `BoxQuery`
-and `BoxQueryBatch` are the legacy box surface over the engine.
+planning (`_qmc_plan`) is float64 numpy, as in the reference.  The port
+adds a full-H path with no density pass and no hull: kernel-centred
+quasi-MC (`batch_query_kernel`, `kernel_box_terms`; the draw_box_reduce
+kernel on the card), which counts draws around every sample row in each
+box.  `BoxQuery` and `BoxQueryBatch` are the legacy box surface over the
+engine.
 """
 from __future__ import annotations
 
@@ -399,6 +403,79 @@ def batch_query_qmc_rff(x_host, H, rff, lo: np.ndarray, hi: np.ndarray,
                                             inp.clo, inp.chi, inp.tgt,
                                             float(x64.shape[0]))
     return _select(ops, scale * cnt_raw, scale * sum_raw)
+
+
+# --- kernel-centred quasi-MC (full-H groups) ---------------------------------
+#
+# The KDE's mass in a box is the mean over the sample rows of the mass of
+# N(x_i, H) in it; each row's Gaussian is integrated with its own K draws
+# y_ij = x_i + L z_ij (L L^T = H), z_ij = Phi^-1 of Halton point i K + j + 1
+# in the first d primes (float32, `_halton`).  No hull, clipping or node
+# budget: every draw lies where a row's kernel puts its mass, so a box far
+# smaller than the sample's hull still sees its share of the draws (the hull
+# path's nodes miss most 8-column boxes).  The draws z depend only on
+# (m, K, d): built once on the device and kept.
+
+_normals: Dict[Tuple[int, int, str], torch.Tensor] = {}
+
+
+def kernel_normals(m: int, draws: int, d: int, device) -> torch.Tensor:
+    """(m draws, d) float32 standard-normal draws: row t is Phi^-1 (float64)
+    of the Halton point t + 1.  Draws of m rows are the first m draws rows
+    of any larger m's, so one tensor a (draws, d, device) is kept, of the
+    most rows asked for, and sliced."""
+    key = (int(draws), int(d), str(torch.device(device)))
+    z = _normals.get(key)
+    if z is None or z.shape[0] < m * draws:
+        # repro: allow[instrument-drift] port span, listed in repro_torch.obs's docstring
+        with obs.span("qmc.draws", m=m, K=draws, d=d):
+            u = torch.as_tensor(_halton(m * draws, d).astype(np.float64), device=device)
+            z = _normals[key] = torch.special.ndtri(u).to(DTYPE)
+            obs.fence(z)
+    return z[: m * draws]
+
+
+def _kernel_factor(H) -> np.ndarray:
+    """H's lower Cholesky factor, in float64 on the host (as the fit forms
+    H), rounded to float32."""
+    return np.linalg.cholesky(_host64(H)).astype(np.float32)
+
+
+def kernel_box_terms(x: torch.Tensor, H, lo: np.ndarray, hi: np.ndarray,
+                     tgt: np.ndarray, draws: int, splits: int,
+                     backend: str = "torch") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cnt, sum), each (splits + 1, q) float64 on the host: the draws
+    inside each closed box and the sum of their target coordinate, row 0
+    over the whole sample, row 1 + j over rows [j c, (j + 1) c), c =
+    m // splits.  L and the boxes go to the device in one copy, the sums
+    come back in one.  backend="cuda" runs the draw_box_reduce kernel,
+    "torch" its plain version over slabs of draws; both take 1 <= d <= 8
+    and raise ValueError above."""
+    from repro_torch.kernels import ops as kops
+    m, d = x.shape
+    q = np.asarray(lo).shape[0]
+    buf = torch.as_tensor(np.concatenate([
+        _kernel_factor(H).ravel(), np.asarray(lo, np.float32).ravel(),
+        np.asarray(hi, np.float32).ravel()]), device=x.device)
+    l_chol = buf[:d * d].view(d, d)
+    lo_t, hi_t = buf[d * d:d * d + q * d].view(q, d), buf[d * d + q * d:].view(q, d)
+    tgt_t = torch.as_tensor(np.asarray(tgt, np.int32), device=x.device)
+    z = kernel_normals(m, draws, d, x.device)
+    fn = kops.draw_box_reduce if backend == "cuda" else kref.draw_box_reduce
+    cnt, sm = torch.stack(fn(x, z, l_chol, lo_t, hi_t, tgt_t, splits)).cpu()
+    return cnt, sm
+
+
+def batch_query_kernel(x: torch.Tensor, H, lo: np.ndarray, hi: np.ndarray,
+                       tgt: np.ndarray, ops: np.ndarray, scale: float,
+                       draws: int) -> torch.Tensor:
+    """Answer a mixed box batch against one full-H synopsis by the
+    kernel-centred estimator, on the plain path: COUNT = scale / K times
+    the draws inside the box, SUM the same weighted by the target
+    coordinate, AVG their ratio (scale = n_source / m); (q,) float64 on the
+    host."""
+    cnt, sm = kernel_box_terms(x, H, lo, hi, tgt, draws, 0, "torch")
+    return _select(ops, (scale / draws) * cnt[0], (scale / draws) * sm[0])
 
 
 def _estimates64(ops: np.ndarray, scale: float, cnt_raw: torch.Tensor,

@@ -28,17 +28,23 @@ Counterpart: `repro/core/aqp_query.py`.
       qmc:rff      rows, full H           the same nodes, densities from a
                                           fitted RFF synopsis (the rff_eval
                                           kernel on the card)
+      qmc:kernel   rows, full H           kernel-centred quasi-MC: K draws
+                                          around every sample row, counted in
+                                          each box (`batch_query_kernel`; the
+                                          draw_box_reduce kernel on ":cuda")
 
   `AqpResult`   — estimate, path, confidence interval, synopsis version.
 
 Synopses of every selector plan onto these paths: PLUGIN and silverman fits
 with their per-axis h, LSCV_h fits with one h broadcast to every axis, and
 LSCV_H fits (a full H, 1-D columns included) onto `qmc`.  A full-H group's
-density backend is `kde_backend`: "exact", "rff", or "auto", which takes
-RFF from KDE_CROSSOVER sample rows up.  The reference reads the crossover
-and the RFF feature count from environment knobs; here they are the module
+density backend is `kde_backend`: "exact", "rff", "kernel" (the port's own:
+no density pass, draws around the sample rows), or "auto", which takes RFF
+from KDE_CROSSOVER sample rows up.  The reference reads the crossover and
+the RFF feature count from environment knobs; here they are the module
 constants KDE_CROSSOVER and DEFAULT_RFF_FEATURES, with QueryEngine keywords
-`kde_crossover` and `rff_features`.
+`kde_crossover` and `rff_features`; the kernel path's draws a row are
+KERNEL_DRAWS, keyword `kernel_draws`.
 
 Tiered reservoirs: a `tier` budget resolves each group against one tier of
 a `TieredReservoir` (its own synopsis, plan and cache entries), and
@@ -69,11 +75,12 @@ from repro_torch.device import resolve_backend
 
 from .aqp import (OP_CODES, OP_COUNT, OP_SUM, KDESynopsis, _select_op,
                   batch_query_1d, canonical_selector)
-from .aqp_ci import (DEFAULT_CI_LEVEL, box_answers_and_se, moments_1d,
-                     moments_box, norm_ppf, qmc_answers_and_se, qmc_subsample_se,
-                     range_answers_and_se, se_from_moments, t_ppf)
+from .aqp_ci import (DEFAULT_CI_LEVEL, box_answers_and_se, kernel_answers_and_se,
+                     kernel_subsample_se, moments_1d, moments_box, norm_ppf,
+                     qmc_answers_and_se, qmc_subsample_se, range_answers_and_se,
+                     se_from_moments, t_ppf)
 from .aqp_multid import (batch_query_box, batch_query_box_grouped,
-                         batch_query_qmc, batch_query_qmc_rff,
+                         batch_query_kernel, batch_query_qmc, batch_query_qmc_rff,
                          grouped_family_moments, qmc_rff_answers_and_se,
                          qmc_rff_se)
 from .kde import kde_eval_H
@@ -87,10 +94,13 @@ WIDE = 1e30          # "unconstrained axis": Phi saturates to {0,1}, phi to 0
 #
 # "exact" evaluates eq. 6 against the whole sample (O(n) per node); "rff" a
 # fitted random-Fourier-feature synopsis (O(D) per node after an O(n D) fit
-# per reservoir version); "auto" takes RFF from KDE_CROSSOVER sample rows up.
-KDE_BACKENDS = ("auto", "exact", "rff")
+# per reservoir version); "kernel" no density at all: KERNEL_DRAWS draws
+# around every sample row counted in each box (O(n K) per group); "auto"
+# takes RFF from KDE_CROSSOVER sample rows up.
+KDE_BACKENDS = ("auto", "exact", "rff", "kernel")
 KDE_CROSSOVER = 16384
 DEFAULT_RFF_FEATURES = 2048
+KERNEL_DRAWS = 64
 # one-shot accuracy gate at fit time: mean relative density error on probe
 # points from the fitted sample; above the tolerance the fit is cached as
 # degraded and its group answers on the exact pass
@@ -216,7 +226,7 @@ class AqpQuery:
     `selector` overrides the engine's bandwidth selector for this query only
     (the engine groups by (columns, selector)).  `kde_backend` overrides the
     engine's density backend for this query only ("auto" | "exact" |
-    "rff"); only the full-H (qmc) path reads it.
+    "rff" | "kernel"); only the full-H (qmc) path reads it.
     """
     aggregate: str                               # "count" | "sum" | "avg"
     predicates: Tuple[Predicate, ...] = ()
@@ -266,12 +276,15 @@ class AqpResult:
     estimate         — the approximate answer
     path             — "range1d" | "box" | "box:grouped" | "qmc" | "exact",
                        with a ":cuda" suffix when the hand-written kernels
-                       ran the KDE pass, or "qmc:rff" when the full-H
-                       densities came from the RFF synopsis
+                       ran the KDE pass, "qmc:rff" when the full-H
+                       densities came from the RFF synopsis, or
+                       "qmc:kernel" when the full-H answers counted kernel
+                       draws
     ci_lo / ci_hi    — confidence interval at `ci_level`: analytic
                        product-kernel variance on range1d / box /
-                       box:grouped, subsample batch-means on qmc, feature-
-                       block batch-means on qmc:rff, zero width on exact.
+                       box:grouped, subsample batch-means on qmc and
+                       qmc:kernel, feature-block batch-means on qmc:rff,
+                       zero width on exact.
                        Infinite endpoints mean no finite bound (AVG over an
                        effectively empty selection).
     ci_level         — nominal coverage of [ci_lo, ci_hi] (default 0.95)
@@ -739,7 +752,7 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
                backend: str, n_qmc: int = 4096,
                ci_level: float = DEFAULT_CI_LEVEL, kde_backend: str = "auto",
                rff=None, kde_crossover: int = KDE_CROSSOVER, metrics=None,
-               tier: Optional[int] = None
+               tier: Optional[int] = None, kernel_draws: int = KERNEL_DRAWS
                ) -> List[Tuple[float, str, float, float, int]]:
     """Answer one resolved group in batched passes; returns one
     (estimate, path label, ci_lo, ci_hi, n_effective) per entry, in entry
@@ -753,8 +766,9 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
     the group column's code window — are peeled off onto the factored
     grouped pass when the group runs the diagonal-bandwidth box path.
     Full-H entries whose density backend resolves to "rff" take the RFF
-    pass when a fitted, non-degraded synopsis is given (`rff`); every other
-    full-H entry takes the exact pass.
+    pass when a fitted, non-degraded synopsis is given (`rff`), those that
+    resolve to "kernel" the kernel-centred pass (`kernel_draws` draws a
+    sample row); every other full-H entry takes the exact pass.
 
     With `repro_torch.obs` enabled each pass runs in an engine.kernel span
     (on "cuda" the span also covers the CI sums of the same launch, marked
@@ -797,12 +811,15 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
     suffix = "" if backend == "torch" else f":{backend}"
 
     rff_entries: List[_Compiled] = []
-    if plan.kind == "qmc" and rff is not None:
+    kernel_entries: List[_Compiled] = []
+    if plan.kind == "qmc":
         exact: List[_Compiled] = []
         for c in rest:
-            if _resolve_kde_backend(c.kde_backend, kde_backend, n_eff,
-                                    kde_crossover) == "rff":
+            name = _resolve_kde_backend(c.kde_backend, kde_backend, n_eff, kde_crossover)
+            if name == "rff" and rff is not None:
                 rff_entries.append(c)
+            elif name == "kernel":
+                kernel_entries.append(c)
             else:
                 exact.append(c)
         rest = exact
@@ -931,6 +948,32 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
             metrics.histogram("aqp.synopsis.eval_us", backend="rff").observe(
                 (time.perf_counter() - t_grp) * 1e6)
 
+    if kernel_entries:
+        n = len(kernel_entries)
+        t_grp = time.perf_counter() if enabled else 0.0
+        ops_np, lo, hi, tgt = padded(kernel_entries, _pad_count(n))
+        path = "qmc:kernel" + suffix
+        if metrics is not None:
+            metrics.counter("aqp.synopsis.hits", backend="kernel").inc(n)
+        if backend == "cuda":
+            # one launch: the estimate and its K CI chunks
+            with obs.span("engine.kernel", path=path, n=n, tier=tier, ci="fused"):
+                ans, se, dof = kernel_answers_and_se(x, syn.H, lo, hi, tgt, ops_np,
+                                                     plan.scale, syn.n_source,
+                                                     kernel_draws)
+                obs.fence(ans)
+        else:
+            with obs.span("engine.kernel", path=path, n=n, tier=tier):
+                ans = batch_query_kernel(x, syn.H, lo, hi, tgt, ops_np, plan.scale,
+                                         kernel_draws)
+                obs.fence(ans)
+            with obs.span("engine.ci", path=path, n=n):
+                se, dof = kernel_subsample_se(x, syn.H, lo, hi, tgt, ops_np,
+                                              syn.n_source, kernel_draws)
+                obs.fence(se)
+        emit(kernel_entries, ans[:n], se[:n], t_ppf(p, dof), path)
+        observe(path, t_grp)
+
     fam_path = "box:grouped" + suffix
     if families and backend == "cuda":
         # every family in one launch of the aqp_grouped kernel, whose five
@@ -984,8 +1027,8 @@ def _run_group(key, plan: _GroupPlan, entries: List[_Compiled],
 
 def _execute(compiled: Sequence[_Compiled], n_out: int, resolver, backend: str,
              n_qmc: int = 4096, ci_level: float = DEFAULT_CI_LEVEL,
-             kde_backend: str = "auto",
-             kde_crossover: int = KDE_CROSSOVER) -> List[AqpResult]:
+             kde_backend: str = "auto", kde_crossover: int = KDE_CROSSOVER,
+             kernel_draws: int = KERNEL_DRAWS) -> List[AqpResult]:
     """Answer compiled queries: sketches first (when the resolver offers
     them), then group the rest by resolved synopsis, answer each group in
     batched passes on its path and scatter back to submission order.  The
@@ -1033,7 +1076,7 @@ def _execute(compiled: Sequence[_Compiled], n_out: int, resolver, backend: str,
         answered = _run_group(key, plan, entries, backend, n_qmc,
                               ci_level=ci_level, kde_backend=kde_backend,
                               rff=rff, kde_crossover=kde_crossover,
-                              metrics=metrics, tier=tier)
+                              metrics=metrics, tier=tier, kernel_draws=kernel_draws)
         for c, (est, path, ci_lo, ci_hi, n_eff) in zip(entries, answered):
             results[c.slot] = AqpResult(
                 estimate=est, path=path,
@@ -1059,16 +1102,18 @@ class QueryEngine:
 
     `backend` None picks the kernel path ("cuda") on a CUDA store and the
     plain path ("torch") on a CPU store.  `kde_backend` picks the density
-    backend of full-H groups ("auto" | "exact" | "rff"); "auto" takes RFF
-    from `kde_crossover` sample rows up (default KDE_CROSSOVER), fitted
-    with `rff_features` features (default DEFAULT_RFF_FEATURES).
+    backend of full-H groups ("auto" | "exact" | "rff" | "kernel"); "auto"
+    takes RFF from `kde_crossover` sample rows up (default KDE_CROSSOVER),
+    fitted with `rff_features` features (default DEFAULT_RFF_FEATURES);
+    "kernel" counts `kernel_draws` draws a sample row (default
+    KERNEL_DRAWS).
     """
 
     def __init__(self, store, selector: str = "plugin",
                  backend: Optional[str] = None, n_qmc: int = 4096,
                  max_groups: int = 64, ci_level: float = DEFAULT_CI_LEVEL,
                  kde_backend: str = "auto", kde_crossover: Optional[int] = None,
-                 rff_features: Optional[int] = None):
+                 rff_features: Optional[int] = None, kernel_draws: Optional[int] = None):
         if kde_backend not in KDE_BACKENDS:
             raise ValueError(f"unknown kde_backend {kde_backend!r}; "
                              f"expected one of {KDE_BACKENDS}")
@@ -1082,6 +1127,7 @@ class QueryEngine:
         self.kde_crossover = KDE_CROSSOVER if kde_crossover is None else int(kde_crossover)
         self.rff_features = (DEFAULT_RFF_FEATURES if rff_features is None
                              else int(rff_features))
+        self.kernel_draws = KERNEL_DRAWS if kernel_draws is None else int(kernel_draws)
         self.plans = PlanCache(getattr(store, "metrics", None))
 
     def compile(self, queries: Union[AqpQuery, Sequence[AqpQuery]]
@@ -1123,7 +1169,8 @@ class QueryEngine:
                             self.resolver(selector, backend, tier=tier), backend,
                             n_qmc=self.n_qmc, ci_level=self.ci_level,
                             kde_backend=kde_backend or self.kde_backend,
-                            kde_crossover=self.kde_crossover)
+                            kde_crossover=self.kde_crossover,
+                            kernel_draws=self.kernel_draws)
 
     def execute(self, queries: Union[AqpQuery, Sequence[AqpQuery]],
                 selector: Optional[str] = None,
@@ -1133,7 +1180,7 @@ class QueryEngine:
         group value for GROUP BY queries).  `mode="progressive"` returns the
         `progressive` generator of (tier, results) rounds instead.
         `kde_backend` overrides the engine's density backend for this batch
-        ("auto" | "exact" | "rff", full-H path only)."""
+        ("auto" | "exact" | "rff" | "kernel", full-H path only)."""
         if mode == "progressive":
             return self.progressive(queries, selector=selector, backend=backend,
                                     kde_backend=kde_backend)

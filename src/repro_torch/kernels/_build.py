@@ -35,6 +35,7 @@ SOURCES = {
     "qmc_reduce": "qmc_reduce.cu",
     "rff_eval": "rff_eval.cu",
     "kde_eval": "kde_eval.cu",
+    "draw_box": "draw_box.cu",
 }
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -34,6 +34,7 @@ from . import aqp_batch as _ab
 from . import aqp_boxes as _abx
 from . import aqp_grouped as _agr
 from . import autotune as _tune
+from . import draw_box as _db
 from . import gh_fused as _gh
 from . import kde_eval as _kde
 from . import lscv_grid as _lg
@@ -46,7 +47,7 @@ from .tuning import profiled_call
 
 _COUNTERS = (_pr.launches, _ab.launches, _abx.launches, _sv.launches,
              _lg.launches, _gh.launches, _agr.launches, _qmc.launches,
-             _rff.launches, _kde.launches)
+             _rff.launches, _kde.launches, _db.launches)
 
 
 def _run(kernel: str, fn, **labels):
@@ -249,6 +250,21 @@ def qmc_box_reduce_split(nodes, x, h_inv, log_norm, lo, hi, tgt, splits, tile=No
                 lambda: _qmc.qmc_box_reduce_split(nodes, x, h_inv, log_norm, lo, hi, tgt,
                                                   splits, tile=tile, m_tile=m_tile),
                 **shape, tile=tile, m_tile=m_tile, splits=splits)
+
+
+def draw_box_reduce(x, z, l_chol, lo, hi, tgt, splits, tile=None):
+    """The kernel-centred box sums of the draws y = x_i + L z over the whole
+    sample and over `splits` equal row chunks in one launch: (cnt_sums,
+    sum_sums), each (splits + 1, q) float64.  `tile`: draws a block forms
+    (whole rows)."""
+    if x.device.type == "cpu":
+        return ref.draw_box_reduce(x, z, l_chol, lo, hi, tgt, splits)
+    shape = {"n": x.shape[0], "d": x.shape[1], "G": lo.shape[0],
+             "K": z.shape[0] // max(x.shape[0], 1)}
+    (tile,) = _tune.resolve("draw_box_reduce", shape, tile=(tile, _db.TILE_DRAWS))
+    return _run("draw_box_reduce",
+                lambda: _db.draw_box_reduce(x, z, l_chol, lo, hi, tgt, splits, tile=tile),
+                **shape, tile=tile, splits=splits)
 
 
 def _rff_tiles(points, w, tile, threads):

@@ -406,6 +406,47 @@ def qmc_box_reduce_split(nodes: torch.Tensor, x: torch.Tensor,
     return _box_density_sums(nodes, torch.stack([full] + fs), lo, hi, tgt)
 
 
+DRAW_SLAB = 1 << 15  # kernel draws per slab of the kernel-centred box sums
+
+
+def draw_box_reduce(x: torch.Tensor, z: torch.Tensor, l_chol: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor, tgt: torch.Tensor,
+                    splits: int):
+    """Kernel-centred box sums: draw j of row i is y_ij = x_i + L z_{i K + j}
+    (K = z.shape[0] // m, float32); for each closed box, the count of the
+    draws inside it and the sum of their target coordinate, as float64
+    (cnt_sums, sum_sums), each (splits + 1, q): row 1 + j over rows
+    [j c, (j + 1) c) of x, c = m // splits, row 0 over the whole sample
+    (the chunks' sums, then the tail's).  x: (m, d) with 1 <= d <= 8,
+    z: (m K, d), l_chol: (d, d) lower triangular, lo/hi: (q, d), tgt: (q,)."""
+    m, d = x.shape
+    if not 1 <= d <= 8:
+        raise ValueError(f"draw_box_reduce takes 1 <= d <= 8, got d={d}")
+    splits = int(splits)
+    if not 0 <= splits <= 16 or (m and splits > m):
+        raise ValueError(f"splits={splits} must lie in [0, min(16, m={m})]")
+    q = lo.shape[0]
+    # columns 0..splits-1 the chunks, column `splits` the tail
+    parts = torch.zeros((2, q, splits + 1), dtype=torch.float64, device=x.device)
+    if m and q:
+        draws = z.shape[0] // m
+        c = m // splits if splits else m
+        col = torch.clamp(torch.arange(m, device=x.device) // c, max=splits)
+        tcol = tgt.long()
+        rows_per = max(1, DRAW_SLAB // draws)
+        for r0 in range(0, m, rows_per):
+            r1 = min(m, r0 + rows_per)
+            y = (torch.repeat_interleave(x[r0:r1], draws, dim=0)
+                 + z[r0 * draws:r1 * draws] @ l_chol.T)
+            w = inside_boxes(y, lo, hi).to(torch.float64)             # (q, draws)
+            wy = w * y[:, tcol].T.to(torch.float64)
+            for k, v in enumerate((w, wy)):
+                parts[k].index_add_(1, col[r0:r1], v.view(q, r1 - r0, draws).sum(dim=2))
+    whole = parts[:, :, :splits].sum(dim=2) + parts[:, :, splits]
+    out = torch.cat([whole[:, None], parts[:, :, :splits].transpose(1, 2)], dim=1)
+    return out[0], out[1]
+
+
 POINT_SLAB = 4096    # evaluation points per slab of the density passes
 
 

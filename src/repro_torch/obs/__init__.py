@@ -29,7 +29,9 @@ Two kinds of instrumentation with different costs:
 
 Span catalogue: the reference's spans (`docs/observability.md`) keep their
 names and labels here; `synopsis.fit` also wraps every exact fit
-(`KDESynopsis.fit`: `backend`, `selector`, `n`, `d`).  The port adds four:
+(`KDESynopsis.fit`: `backend`, `selector`, `n`, `d`), and `engine.kernel`
+/ `engine.ci` carry the port's full-H path `qmc:kernel` (`qmc:kernel:cuda`
+on the card, where its CI is `ci="fused"`).  The port adds five spans:
 
     store.add_batch  rows, columns  TelemetryStore.add_batch, joint
                                     stacking included
@@ -41,6 +43,10 @@ names and labels here; `synopsis.fit` also wraps every exact fit
                                     a shrink; the points add up to nfev)
     qmc.plan         q, d, n_qmc    quasi-MC host planning (_qmc_plan),
                                     inside engine.kernel / engine.ci
+    qmc.draws        m, K, d        the kernel-centred path's standard-
+                                    normal draws built on the device
+                                    (kernel_normals), once a (K, d) and
+                                    sample size, inside engine.kernel
 
 Scoping: each `TelemetryStore` owns a registry (`store.metrics`); kernel
 profiling writes to the process-global registry (`get_registry()`), since

@@ -247,7 +247,7 @@ def test_every_kernel_module_has_source_wrapper_plain_version_and_counter():
     assert {m.stem for m in mods} == {"pairwise_reduce", "aqp_batch", "aqp_boxes",
                                       "sv_precompute", "lscv_grid", "gh_fused",
                                       "aqp_grouped", "qmc_reduce", "rff_eval",
-                                      "kde_eval"}
+                                      "kde_eval", "draw_box"}
     for mod in mods:
         text = mod.read_text()
         assert (KERNELS_DIR / "csrc" / f"{mod.stem}.cu").exists(), mod.name
@@ -285,11 +285,13 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing(rng):
                        _t([0], torch.int32))
     ops.rff_density(xd, m, _t([0.1, 0.2]), _t([0.5, 0.5]))
     ops.kde_eval(xd, xd, 0.5)
+    ops.draw_box_reduce(xd, xd.repeat_interleave(2, dim=0), m, _t([[-1, -1]]), _t([[1, 1]]),
+                        _t([0], torch.int32), 2)
     assert ops.launch_counts() == {"pairwise_scaled_ksum": 0, "aqp_batch_sums": 0,
                                    "aqp_box_sums": 0, "sv_matrix": 0,
                                    "lscv_grid_sums": 0, "gh_fused_sum": 0,
                                    "aqp_grouped_sums": 0, "qmc_box_reduce": 0,
-                                   "rff_density": 0, "kde_eval": 0}
+                                   "rff_density": 0, "kde_eval": 0, "draw_box_reduce": 0}
 
 
 @pytest.mark.parametrize("bad", ["cpu", "float64", "2d"])
