@@ -182,7 +182,9 @@ non-zero and prints no result line):
      two launches of every kernel but sv_matrix on the same inputs giving
      the same bits; kde_eval also on data far from 0 against float64;
      PLUGIN and LSCV_h against the paper's sequential oracles; the kernel's
-     own eqs. 49/50 tile mapping exhaustively;
+     own eqs. 49/50 tile mapping exhaustively; gh_fused_sums through an
+     LSCV_H fit's launch plan on path B's first and last batches, and the
+     median `lscv_H.round_trip_host_us` of a d = 3 and a d = 8 fit;
  18. kernel and plain-version times (CUDA events, median of warm runs) on
      the inputs of each kernel's first call on its path (the largest call
      for rff_density, whose first call is the probe gate's; for
@@ -350,7 +352,13 @@ def recording(ops):
 
     def keep(name):
         def wrapper(*args, **kwargs):
-            calls[name].append((args, kwargs))
+            kept_args, kept_kw = args, kwargs
+            if kwargs.get("plan") is not None:
+                # an LSCV_H fit's plan: its rows are rewritten every round
+                # trip, so keep a copy of this batch's, replayed without it
+                kept_args = (args[0], args[1].clone()) + args[2:]
+                kept_kw = {k: v for k, v in kwargs.items() if k != "plan"}
+            calls[name].append((kept_args, kept_kw))
             return originals[name](*args, **kwargs)
         return wrapper
 
@@ -3832,8 +3840,52 @@ def lscv_kernels_vs_plain(torch, rt, calls_a, calls_b, calls_d):
           f"1-D batch match plain, max |err| {max(errs):.3g}; two launches give the same bits, "
           f"as do the first batch's rows launched one by one; n=4096 within tolerance of "
           f"float64; edge shapes n=1/2/513/4097 x d=1..8 (batches of 3, and one H) match plain")
+    fit_plan_vs_plain(torch, rt, made)
     torch.cuda.synchronize()
     return out
+
+
+def fit_plan_vs_plain(torch, rt, made):
+    """An LSCV_H fit's launch path (`ops.gh_fused_plan`, its rows rewritten
+    each round trip) on path B's first and last batches: the sums held to
+    `ref.gh_fused_sums` and bit-equal to the plan-less wrapper's.  Then, obs
+    on, one fit at d = 3 (path B's sample) and one at d = 8 (16 384 rows),
+    whose `lscv_H.round_trip_host_us` medians are printed."""
+    ops, ref, lscv, obs = rt["ops"], rt["ref"], rt["lscv"], rt["obs"]
+    errs = []
+    for tag, ((x, params), kw) in (("first", made[0]), ("last", made[-1])):
+        plan = ops.gh_fused_plan(x, params.shape[0] + 2)
+        b = params.shape[0]
+        plan.params[:b].copy_(params)
+        sums = ops.gh_fused_sums(x, plan.params[:b], plan=plan).cpu()
+        errs.append(held(sums, ref.gh_fused_sums(x, params).cpu(), GH_RTOL, GH_ATOL,
+                         f"gh_fused_sums through a fit's plan, {tag} path-B batch (B={b})"))
+        check(torch.equal(sums, ops.gh_fused_sums(x, params).cpu()),
+              f"gh_fused_sums: the plan's sums of path B's {tag} batch differ from the wrapper's")
+    rng = np.random.default_rng(17)
+    z = rng.normal(0.0, 1.0, (16384, 8))
+    x8 = torch.as_tensor((z + 0.5 * z[:, :1]).astype(np.float32), device=DEV)
+    reg = obs.get_registry()
+    prev = obs.set_tracer(obs.Tracer())
+    obs.enable()
+    try:
+        medians = {}
+        for x in (made[0][0][0], x8):
+            d = x.shape[1]
+            before = reg.sum_histogram("lscv_H.round_trip_host_us", d=d)[1]
+            res = lscv.lscv_H(x, device=DEV)
+            (_, hist), = reg.collect_histograms("lscv_H.round_trip_host_us", d=d)
+            check(hist.count - before >= res.it + 1,
+                  f"lscv_H.round_trip_host_us at d={d}: {hist.count - before} round trips "
+                  f"recorded, {res.it} steps")
+            medians[d] = (hist.summary()["p50"], hist.mean)
+    finally:
+        obs.disable()
+        obs.set_tracer(prev)
+    print(f"gh_fused_sums through a fit's plan: path B's first and last batches match plain "
+          f"(max |err| {max(errs):.3g}) with the wrapper's bits; lscv_H.round_trip_host_us "
+          f"(obs on, launches fenced and excluded) median / mean: d=3 {medians[3][0]:.1f} / "
+          f"{medians[3][1]:.1f} us, d=8 {medians[8][0]:.1f} / {medians[8][1]:.1f} us")
 
 
 def fullh_grouped_vs_plain(torch, rt, calls_c, calls_d, calls_dx, calls_e):

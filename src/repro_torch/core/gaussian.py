@@ -66,10 +66,14 @@ def lscv_h_consts(d: int, det_sigma):
     return c_k, c_kk, c_kk
 
 
+def lscv_H_coefs(d: int):
+    """The factors of det(H)^-1/2 in c_k, c_kk and r_k (eqs. 34-36)."""
+    return ((2.0 * math.pi) ** (-d / 2.0), (4.0 * math.pi) ** (-d / 2.0),
+            2.0 ** (-d) * math.pi ** (-d / 2.0))  # eq. 36 == c_kk
+
+
 def lscv_H_consts(d: int, det_H):
     """Normalisation constants of the H-shaped kernels (eqs. 34-36)."""
     det_root = det_H ** -0.5
-    c_k = (2.0 * math.pi) ** (-d / 2.0) * det_root
-    c_kk = (4.0 * math.pi) ** (-d / 2.0) * det_root
-    r_k = 2.0 ** (-d) * math.pi ** (-d / 2.0) * det_root  # eq. 36 == c_kk
-    return c_k, c_kk, r_k
+    a_k, a_kk, a_r = lscv_H_coefs(d)
+    return a_k * det_root, a_kk * det_root, a_r * det_root

@@ -14,26 +14,30 @@ LSCV_H  — full SPD bandwidth matrix: Nelder-Mead over a log-Cholesky
           from the fused quadratic-form + T_H + reduce pass of §6.3 (the
           gh_fused kernel on backend "cuda").
 
-LSCV_H evaluates a Nelder-Mead step's candidate bandwidths in one round trip
-(`g_of_H_batch`): the simplex's parameters live on the host, so each H, its
-det, inverse and constants are formed there in float32 with batched
-torch.linalg on CPU tensors (LAPACK, as the reference's jnp.linalg runs in
-float32 in the tests); on backend "cuda" the inverses and constants go to
-the card in one copy, one gh_fused launch per H is queued back to back, and
-the sums come back in one read.  The rest of the small linear algebra
-(Sigma's det and inverse, H_start's cholesky and eigh) runs in float32 on
-the fit's device.  `multi_start > 1` draws its jitter from a seeded
-torch.Generator: the reference's jax.random draws cannot be reproduced, but
-start 0 is H_start in both.
+LSCV_H evaluates a Nelder-Mead step's candidate bandwidths in one round trip:
+the simplex's parameters live on the host, so each H (log-Cholesky θ -> L ->
+H), its det, inverse and constants are formed there in numpy float32, in
+place on buffers built once a fit (`_RoundTrips`; numpy's batched LAPACK
+works in float64 and rounds to float32), with no torch operator dispatched
+on the way; on backend "cuda" the inverses and constants go to the card in
+one copy, one gh_fused launch per H is queued back to back through a launch
+plan resolved once a fit, and the sums come back in one read.
+`g_of_H_batch` forms any B bandwidths the same way.  The rest of the small
+linear algebra (Sigma's det and inverse, H_start's cholesky and eigh) runs
+in float32 on the fit's device.  `multi_start > 1` draws its jitter from a
+seeded torch.Generator: the reference's jax.random draws cannot be
+reproduced, but start 0 is H_start in both.
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DTYPE, DeviceLike, resolve_backend, resolve_device
 from repro_torch.kernels import ref as kref
 
@@ -222,40 +226,173 @@ class LSCVHResult(NamedTuple):
     nfev: int
 
 
+def _log_cholesky_index(d: int):
+    """Where log-Cholesky θ (k = d (d + 1) / 2 entries, L's lower triangle
+    row by row) goes in a flattened (d, d) L, and which of θ's entries are
+    L's diagonal (stored as logs)."""
+    il, jl = np.tril_indices(d)
+    return il * d + jl, np.flatnonzero(il == jl)
+
+
+def _theta_to_H_into(theta: np.ndarray, index, L: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """H = L L^T of B log-Cholesky points theta (B, k), in float32 numpy:
+    L (B, d d) is zero above its diagonal (entries never written), H (B, d,
+    d) is written and returned."""
+    flat, diag = index
+    with np.errstate(all="ignore"):
+        L[:, flat] = theta
+        L[:, flat[diag]] = np.exp(theta[:, diag])
+        Ls = L.reshape(H.shape)
+        return np.matmul(Ls, Ls.transpose(0, 2, 1), out=H)
+
+
+def _det_inv(H: np.ndarray):
+    """det and inverse of B float32 bandwidths H (B, d, d), float32:
+    numpy's batched LAPACK, which works in float64 and rounds.  It raises
+    on a singular H where LU without the singularity check gives inf / NaN
+    entries, so a singular or non-finite H takes torch's float32 LU
+    (`_inv`): such an H gives the non-finite values it always gave and
+    never raises."""
+    if np.isfinite(H).all():
+        try:
+            with np.errstate(all="ignore"):     # an inverse past float32's range: inf
+                return np.linalg.det(H), np.linalg.inv(H)
+        except np.linalg.LinAlgError:
+            pass
+    Ht = torch.from_numpy(H)
+    return torch.linalg.det(Ht).numpy(), _inv(Ht).numpy()
+
+
+def _pack_rows(H: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Write the gh_fused rows of B bandwidths H (B, d, d) into rows (B, d d
+    + 2), as `ref.gh_params` lays them out: H^-1 row-major, c_k, c_kk (eqs.
+    34-35), in float32 numpy; returns r_k (eq. 36)."""
+    b, d, _ = H.shape
+    det, inv = _det_inv(H)
+    a_k, a_kk, a_r = (np.float32(a) for a in G.lscv_H_coefs(d))
+    with np.errstate(all="ignore"):
+        det_root = np.float32(1.0) / np.sqrt(det)   # det ** -0.5 as torch forms it
+        rows[:, :d * d] = inv.reshape(b, d * d)
+        np.multiply(a_k, det_root, out=rows[:, d * d])
+        np.multiply(a_kk, det_root, out=rows[:, d * d + 1])
+        return a_r * det_root
+
+
+def _g_values(n: int, t_sum: np.ndarray, r_k: np.ndarray) -> np.ndarray:
+    """eq. (32) from the inner sums, in float32."""
+    return np.float32(2.0 / (n * n)) * t_sum + r_k / np.float32(n)
+
+
+def _t_sums(x: torch.Tensor, rows: torch.Tensor, backend: str, chunk: int) -> np.ndarray:
+    """sum_{i<j} T_H(x_i - x_j) of each packed row (B, d d + 2) on the CPU,
+    returned on the CPU: backend "cuda" sends the rows in one non-blocking
+    copy, queues one gh_fused launch per row (`ops.gh_fused_sums`) and reads
+    the B sums back in one copy; "torch" runs the chunked plain pass of
+    each row in turn."""
+    if backend == "cuda":
+        from repro_torch.kernels import ops as kops
+        params = rows
+        if x.device.type == "cuda":
+            params = rows.pin_memory().to(x.device, non_blocking=True)
+        return kops.gh_fused_sums(x, params).cpu().numpy()
+    d = x.shape[1]
+
+    def t_sum_of(row):
+        ck, ckk = row[d * d].to(x.device), row[d * d + 1].to(x.device)
+
+        def fun1(s):
+            return ckk * torch.exp(-0.25 * s) - 2.0 * ck * torch.exp(-0.5 * s)
+        return pairwise_quadform_reduce(fun1, x, row[:d * d].reshape(d, d).to(x.device),
+                                        chunk)
+    return torch.stack([t_sum_of(row) for row in rows]).cpu().numpy()
+
+
 def g_of_H_batch(x: torch.Tensor, H, chunk: int = 128,
                  backend: Optional[str] = None) -> torch.Tensor:
     """Objective g(H) (eq. 32) of B bandwidths in one round trip to x's
     device.  x: (n, d) float32 rows on the fit's device; H: (B, d, d).
-    Returns the B values, float32 on the CPU.
-
-    H's det and inverse (LU, no raise on a singular H) and the constants of
-    eqs. 34-36 are formed in float32 on the CPU, batched.  Backend "cuda"
-    packs each H^-1 and its c_k, c_kk into one row of a pinned (B, d d + 2)
-    buffer, sends it in one non-blocking copy, queues one gh_fused launch per
-    row (`ops.gh_fused_sums`) and reads the B sums back in one copy; backend
-    "torch" runs the chunked plain pass for each H in turn."""
+    Returns the B values, float32 on the CPU.  Each H's inverse and
+    constants are packed as an LSCV_H fit packs them (`_pack_rows`), then
+    summed (`_t_sums`)."""
     backend = resolve_backend(backend, x.device)
     n, d = x.shape
-    H = torch.as_tensor(H).to("cpu", DTYPE).reshape(-1, d, d)
-    det_H = torch.linalg.det(H)
-    H_inv = _inv(H)
-    c_k, c_kk, r_k = G.lscv_H_consts(d, det_H)
+    H = torch.as_tensor(H).to("cpu", DTYPE).reshape(-1, d, d).contiguous().numpy()
+    rows = torch.empty((H.shape[0], d * d + 2), dtype=DTYPE)
+    r_k = _pack_rows(H, rows.numpy())
+    return torch.from_numpy(_g_values(n, _t_sums(x, rows, backend, chunk), r_k))
 
-    if backend == "cuda":
-        from repro_torch.kernels import ops as kops
-        params = kref.gh_params(H_inv, c_k, c_kk)
-        if x.device.type == "cuda":
-            params = params.pin_memory().to(x.device, non_blocking=True)
-        t_sum = kops.gh_fused_sums(x, params).cpu()
-    else:
-        def t_sum_of(b):
-            ck, ckk = c_k[b].to(x.device), c_kk[b].to(x.device)
 
-            def fun1(s):
-                return ckk * torch.exp(-0.25 * s) - 2.0 * ck * torch.exp(-0.5 * s)
-            return pairwise_quadform_reduce(fun1, x, H_inv[b].to(x.device), chunk)
-        t_sum = torch.stack([t_sum_of(b) for b in range(H.shape[0])]).cpu()
-    return 2.0 / (n * n) * t_sum + r_k / n
+# `lscv_H.round_trip_host_us`'s buckets: a round trip's host part lies
+# between tens of microseconds and a few milliseconds, where the registry's
+# default 1-2-5 steps would put most of it in one bucket
+ROUND_TRIP_US = tuple(m * 10.0 ** e for e in range(1, 5) for m in (1, 1.5, 2, 3, 5, 7))
+
+
+class _RoundTrips:
+    """The LSCV_H objective of one fit: B log-Cholesky points (a (B, k)
+    float32 CPU tensor, B <= `rows`) to their B values g (float32 numpy).
+    Built once a fit: θ -> L -> H and `_pack_rows` write in place into
+    numpy buffers, the rows into one staging buffer (`rows` x (d d + 2));
+    on the card the buffer is pinned, with its device twin, output slots and
+    launch path in one `gh_fused` plan (`ops.gh_fused_plan`) and a pinned
+    buffer for the sums, so that a round trip is one non-blocking copy of
+    the rows in use, B launches and one blocking read of B floats.
+
+    With obs enabled, each round trip observes `lscv_H.round_trip_host_us`
+    (label d) in the global registry: host microseconds from the end of the
+    previous round trip (the simplex's bookkeeping between them included)
+    to this one's launches, plus its arithmetic after the read."""
+
+    def __init__(self, x: torch.Tensor, backend: str, chunk: int, rows: int):
+        self.x, self.backend, self.chunk = x, backend, chunk
+        d = x.shape[1]
+        self.index = _log_cholesky_index(d)
+        self.L = np.zeros((rows, d * d), np.float32)
+        self.H = np.empty((rows, d, d), np.float32)
+        self.plan = None
+        on_card = backend == "cuda" and x.device.type == "cuda"
+        self.staging = torch.empty((rows, d * d + 2), dtype=DTYPE, pin_memory=on_card)
+        self.rows = self.staging.numpy()
+        if on_card:
+            from repro_torch.kernels import ops
+            self.ops = ops
+            self.plan = ops.gh_fused_plan(x, rows)
+            self.sums = torch.empty((rows,), dtype=DTYPE, pin_memory=True)
+            self.views = {}
+        self.last = None                  # when the previous round trip ended
+
+    def __call__(self, thetas: torch.Tensor) -> np.ndarray:
+        start = time.perf_counter()
+        theta = thetas.numpy()
+        b = theta.shape[0]
+        H = _theta_to_H_into(theta, self.index, self.L[:b], self.H[:b])
+        r_k = _pack_rows(H, self.rows[:b])
+        launch = time.perf_counter()
+        if self.plan is None:
+            t_sum = _t_sums(self.x, self.staging[:b], self.backend, self.chunk)
+        else:
+            t_sum = self._card_sums(b)
+        read = time.perf_counter()
+        g = _g_values(self.x.shape[0], t_sum, r_k)
+        end = time.perf_counter()
+        if obs.enabled():
+            host = launch - (start if self.last is None else self.last) + end - read
+            # repro: allow[instrument-drift] port histogram, listed in repro_torch.obs's docstring
+            obs.get_registry().histogram("lscv_H.round_trip_host_us", buckets=ROUND_TRIP_US,
+                                         d=self.x.shape[1]).observe(host * 1e6)
+        self.last = end
+        return g
+
+    def _card_sums(self, b: int) -> np.ndarray:
+        views = self.views.get(b)
+        if views is None:
+            views = self.views[b] = (self.staging[:b], self.plan.params[:b], self.sums[:b])
+        staged, params, sums = views
+        # Rewriting the staging rows next round trip is safe only because
+        # this one ends in a blocking read on the stream the copy runs on.
+        params.copy_(staged, non_blocking=True)
+        sums.copy_(self.ops.gh_fused_sums(self.x, params, plan=self.plan))
+        return sums.numpy()
 
 
 def g_of_H(x, H: torch.Tensor, chunk: int = 128, backend: Optional[str] = None,
@@ -281,14 +418,13 @@ def h_start(x: torch.Tensor) -> torch.Tensor:
 
 
 def _theta_to_H(theta: torch.Tensor, d: int) -> torch.Tensor:
-    """log-Cholesky: theta (..., k) packs L's lower triangle, diagonal
-    stored as log; H (..., d, d)."""
-    il, jl = torch.tril_indices(d, d, device=theta.device)
-    L = torch.zeros(theta.shape[:-1] + (d, d), dtype=theta.dtype, device=theta.device)
-    L[..., il, jl] = theta
-    idx = torch.arange(d, device=theta.device)
-    L[..., idx, idx] = torch.exp(torch.diagonal(L, dim1=-2, dim2=-1))
-    return L @ L.transpose(-2, -1)
+    """log-Cholesky: theta (..., k) float32 packs L's lower triangle,
+    diagonal stored as log; H (..., d, d) on theta's device, formed on the
+    host as a fit forms it (`_theta_to_H_into`)."""
+    t = theta.detach().to("cpu", DTYPE).reshape(-1, theta.shape[-1]).numpy()
+    H = np.empty((t.shape[0], d, d), np.float32)
+    _theta_to_H_into(t, _log_cholesky_index(d), np.zeros((t.shape[0], d * d), np.float32), H)
+    return torch.from_numpy(H).reshape(theta.shape[:-1] + (d, d)).to(theta.device)
 
 
 def _H_to_theta(H: torch.Tensor) -> torch.Tensor:
@@ -314,13 +450,12 @@ def lscv_H(x, max_iter: int = 150, chunk: int = 128,
     parallelisation the paper proposes in §6.3; `nfev` sums all runs."""
     x = _as_rows(x, device)
     backend = resolve_backend(backend, x.device)
-    n, d = x.shape
+    d = x.shape[1]
     H0 = h_start(x)
     theta0 = _H_to_theta(H0).cpu()
 
-    def objective(thetas):
-        return g_of_H_batch(x, _theta_to_H(thetas, d), chunk=chunk, backend=backend)
-
+    # batches of k + 1 (the start and a shrink) and of 3 (a step)
+    objective = _RoundTrips(x, backend, chunk, max(theta0.shape[0] + 1, 3))
     starts = [theta0]
     if multi_start > 1:
         gen = torch.Generator().manual_seed(seed)

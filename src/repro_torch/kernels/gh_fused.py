@@ -8,7 +8,9 @@ block with K / ROWS threads that own ROWS rows apiece; `tile_shape` picks K
 and the grid, and `block_pairs` mirrors which pairs a block sums.
 `gh_fused_sums` queues one launch per bandwidth of a batch (a Nelder-Mead
 step's candidates), each row of its parameters packed as `ref.gh_params`
-lays them out; `gh_fused_sum` is the batch of one.
+lays them out; `gh_fused_sum` is the batch of one.  Both launch through a
+`Plan`, which resolves what every launch over the same x and rows reuses:
+a fit builds one and launches through it at each round trip.
 """
 from __future__ import annotations
 
@@ -18,8 +20,7 @@ from functools import lru_cache
 import torch
 
 from . import _build
-from ._launch import (LaunchCounter, check_tensor, check_tile, ptr, raise_on,
-                      scalar_arg, stream)
+from ._launch import LaunchCounter, check_tensor, check_tile, raise_on, scalar_arg, stream
 from .ref import gh_params
 from .triangle import bx_to_ql, n_tri_tiles
 
@@ -95,24 +96,65 @@ def gh_fused_sum(x: torch.Tensor, h_inv: torch.Tensor, c_k, c_kk,
     return gh_fused_sums(x, gh_params(h_inv[None], ck[None], ckk[None]), tile)[0]
 
 
-def gh_fused_sums(x: torch.Tensor, params: torch.Tensor, tile: int) -> torch.Tensor:
+class Plan:
+    """What every gh_fused_sum launch over x for the rows of `params` (R, d
+    d + 2; float32 on x's device, as `ref.gh_params` packs them) reuses,
+    resolved once: the tile's threads and blocks, the output slots `out`
+    (R,), one partials buffer, the stream and each row's argument pointers,
+    by address arithmetic into `params` and `out`.  A fit builds one over
+    its own `params` and rewrites their rows each round trip; a launch
+    through it is then one ctypes call."""
+
+    def __init__(self, x: torch.Tensor, params: torch.Tensor, tile: int):
+        n, d, threads, n_tri = _check_x(x, tile)
+        width = d * d + 2
+        check_tensor(params, "params", torch.float32, (None, width), x.device)
+        self.n, self.d, self.tile = n, d, tile
+        self.params = params
+        self.row_bytes = width * params.element_size()
+        # n < 2 launches nothing: its sums are zeros
+        self.out = (torch.zeros if n < 2 else torch.empty)(
+            (params.shape[0],), dtype=torch.float32, device=x.device)
+        self._keep = (x, torch.empty((max(n_tri, 1),), dtype=torch.float32,
+                                     device=x.device))   # the pointers below are into these
+        self.on_device = torch.cuda.device(x.device)
+        p, o, f = params.data_ptr(), self.out.data_ptr(), params.element_size()
+        s = stream(x.device)
+        self.args = [(x.data_ptr(), n, d, p + b * self.row_bytes,
+                      p + b * self.row_bytes + d * d * f, p + b * self.row_bytes + (d * d + 1) * f,
+                      threads, self._keep[1].data_ptr(), o + b * f, s)
+                     for b in range(params.shape[0])]
+        self._outs = {}
+
+    def out_rows(self, first: int, count: int) -> torch.Tensor:
+        """`out[first:first + count]`, one view kept per range."""
+        view = self._outs.get((first, count))
+        if view is None:
+            view = self._outs[(first, count)] = self.out[first:first + count]
+        return view
+
+
+def gh_fused_sums(x: torch.Tensor, params: torch.Tensor, tile: int,
+                  plan: Plan = None) -> torch.Tensor:
     """(B,) float32 sums on x's device, one launch per row of `params`:
     (B, d d + 2) float32 on x's device, as `ref.gh_params` packs them.  Each
-    launch reads its H^-1 and constants as views into `params` and writes
-    its slot of the output; the B launches run in order on the current
-    stream and reuse one partials buffer, so each sum has the bits of a
-    batch of one with the same row.  n < 2 gives zeros and launches
-    nothing."""
-    n, d, threads, n_tri = _check_x(x, tile)
-    check_tensor(params, "params", torch.float32, (None, d * d + 2), x.device)
-    if n < 2:
-        return torch.zeros((params.shape[0],), dtype=torch.float32, device=x.device)
-    out = torch.empty((params.shape[0],), dtype=torch.float32, device=x.device)
-    partials = torch.empty((n_tri,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        for b, row in enumerate(params):
-            err = _fn()(ptr(x), n, d, ptr(row), ptr(row[d * d]), ptr(row[d * d + 1]),
-                        threads, ptr(partials), ptr(out[b]), stream(x.device))
-            raise_on(err, "gh_fused_sum")
-            launches.inc()
-    return out
+    launch reads its H^-1 and constants in place and writes its slot of the
+    output; the B launches run in order on the stream and reuse one partials
+    buffer, so each sum has the bits of a batch of one with the same row.
+    `plan`: a `Plan` over x whose `params` hold these rows (a fit's, built
+    once), launched through with nothing resolved again and returned as a
+    view of its `out`; None, a plan of these rows.  n < 2 gives zeros and
+    launches nothing."""
+    if plan is None:
+        plan = Plan(x, params, tile)
+    first, rest = divmod(params.data_ptr() - plan.params.data_ptr(), plan.row_bytes)
+    b = params.shape[0]
+    if rest or first < 0 or first + b > plan.params.shape[0]:
+        raise ValueError("gh_fused_sums: params must be rows of the plan's params")
+    if plan.n >= 2:
+        fn = _fn()
+        with plan.on_device:
+            for args in plan.args[first:first + b]:
+                raise_on(fn(*args), "gh_fused_sum")
+                launches.inc()
+    return plan.out_rows(first, b)

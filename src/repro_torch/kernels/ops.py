@@ -9,11 +9,13 @@ launcher counts its launches (`launch_counts`).
 
 Tiles resolve at call time, as the reference's do: explicit keyword > tuned
 cache (`kernels/autotune.py`, keyed by the kernel and its bucketed shape) >
-the launcher module's constant.  The range, box and GROUP BY kernels'
-tunable is `ranges`, the count of sample ranges their launchers cut n into
-(at the main path's shapes `tile` never binds); their cache key leaves out
-the batch, so a tuned cut stays a function of n and d alone and a query's
-bits do not depend on its micro-batch.
+the launcher module's constant; an LSCV_H fit resolves its gh_fused tile
+once (`gh_fused_plan`) and launches its round trips through the plan.  The
+range, box and GROUP BY kernels' tunable is `ranges`, the count of sample
+ranges their launchers cut n into (at the main path's shapes `tile` never
+binds); their cache key leaves out the batch, so a tuned cut stays a
+function of n and d alone and a query's bits do not depend on its
+micro-batch.
 
 With `repro_torch.obs` enabled, a launch goes through
 `tuning.profiled_call`, which records its fenced wall time, dispatch time
@@ -24,6 +26,7 @@ profiled.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict
 
 import torch
@@ -150,20 +153,36 @@ def gh_fused_sum(x, h_inv, c_k, c_kk, tile=None):
                 **shape, tile=tile)
 
 
-def gh_fused_sums(x, params, tile=None):
-    """The (B,) sums of B bandwidths, one gh_fused_sum launch each, queued
-    back to back: rows of `params` as `ref.gh_params` packs them.  With obs
-    enabled each launch is profiled (and fenced) on its own, so that
-    `kernel.calls` stays a count of launches."""
-    if x.device.type == "cpu":
-        return ref.gh_fused_sums(x, params)
+def gh_fused_plan(x, rows, tile=None):
+    """A fit's launch path for batches of up to `rows` bandwidths over x on
+    the card, resolved once: the tile, and a `gh_fused.Plan` over device
+    rows `plan.params` (rows, d d + 2) that the fit rewrites each round
+    trip before `gh_fused_sums(x, plan.params[:B], plan=plan)`."""
     shape = {"n": x.shape[0], "d": _d(x)}
     (tile,) = _tune.resolve("gh_fused_sum", shape, tile=(tile, _gh.TILE))
+    params = torch.empty((rows, shape["d"] ** 2 + 2), dtype=torch.float32, device=x.device)
+    return _gh.Plan(x, params, tile)
+
+
+def gh_fused_sums(x, params, tile=None, plan=None):
+    """The (B,) sums of B bandwidths, one gh_fused_sum launch each, queued
+    back to back: rows of `params` as `ref.gh_params` packs them.  `plan`
+    (`gh_fused_plan`, x's): params are rows of its `params`, launched
+    through it with nothing resolved again.  With obs enabled each launch is
+    profiled (and fenced) on its own, so that `kernel.calls` stays a count
+    of launches."""
+    if x.device.type == "cpu":
+        return ref.gh_fused_sums(x, params)
+    if plan is None:
+        shape = {"n": x.shape[0], "d": _d(x)}
+        (tile,) = _tune.resolve("gh_fused_sum", shape, tile=(tile, _gh.TILE))
+        launch = partial(_gh.gh_fused_sums, x, tile=tile)
+    else:
+        shape, tile = {"n": plan.n, "d": plan.d}, plan.tile
+        launch = partial(_gh.gh_fused_sums, x, tile=tile, plan=plan)
     if not obs.enabled():
-        return _gh.gh_fused_sums(x, params, tile=tile)
-    return torch.cat([profiled_call("gh_fused_sum",
-                                    lambda row=row: _gh.gh_fused_sums(x, row, tile=tile),
-                                    **shape, tile=tile)
+        return launch(params)
+    return torch.cat([profiled_call("gh_fused_sum", launch, row, **shape, tile=tile)
                       for row in params.split(1)])
 
 

@@ -48,6 +48,17 @@ on the card, where its CI is `ci="fused"`).  The port adds five spans:
                                     (kernel_normals), once a (K, d) and
                                     sample size, inside engine.kernel
 
+and one histogram in the process-global registry, observed only when
+enabled:
+
+    lscv_H.round_trip_host_us  d    host microseconds of one LSCV_H
+                                    Nelder-Mead round trip outside its
+                                    launches and blocking read: from the
+                                    previous round trip's end (the
+                                    simplex's bookkeeping included) to the
+                                    launches, plus the values' arithmetic
+                                    after the read (core/lscv.py)
+
 Scoping: each `TelemetryStore` owns a registry (`store.metrics`); kernel
 profiling writes to the process-global registry (`get_registry()`), since
 kernels have no store handle.  `export_json` merges registries into one

@@ -235,7 +235,7 @@ def test_nelder_mead_evaluates_shrinks_only_when_taken(batched):
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
-@pytest.mark.parametrize("d,B", [(2, 3), (2, 4), (3, 3), (3, 7)])
+@pytest.mark.parametrize("d,B", [(2, 3), (2, 4), (3, 3), (3, 7), (8, 3), (8, 37)])
 def test_g_of_H_batch_equals_g_of_H_point_by_point(rng, backend, d, B):
     """The LSCV_H objective of a batch of B log-Cholesky points (3 for a
     step, k + 1 for the start and a shrink) has, point by point, the bits
@@ -247,6 +247,116 @@ def test_g_of_H_batch_equals_g_of_H_point_by_point(rng, backend, d, B):
     assert got.shape == (B,) and got.dtype == torch.float32 and got.device.type == "cpu"
     want = torch.stack([lscv.g_of_H(x, h, backend=backend, device="cpu") for h in H])
     assert torch.equal(got, want)
+
+
+# --- the fit's host arithmetic: numpy float32 against the torch formulas it replaced ---
+
+def _torch_theta_to_H(theta, d):
+    """θ -> H as torch operators formed it on the CPU before the fit's host
+    arithmetic moved to numpy: the reference of the numpy path."""
+    il, jl = torch.tril_indices(d, d)
+    L = torch.zeros(theta.shape[:-1] + (d, d), dtype=theta.dtype)
+    L[..., il, jl] = theta
+    idx = torch.arange(d)
+    L[..., idx, idx] = torch.exp(torch.diagonal(L, dim1=-2, dim2=-1))
+    return L @ L.transpose(-2, -1)
+
+
+def _host_arithmetic(thetas, d):
+    """(H, det, H^-1, c_k, c_kk, packed rows, r_k) of the numpy path, and
+    (H, det, H^-1, c_k, c_kk, r_k) of the torch formulas, from one θ batch."""
+    b = thetas.shape[0]
+    L = np.zeros((b, d * d), np.float32)
+    H = lscv._theta_to_H_into(thetas, lscv._log_cholesky_index(d), L,
+                              np.empty((b, d, d), np.float32))
+    det, inv = lscv._det_inv(H)
+    rows = np.empty((b, d * d + 2), np.float32)
+    r_k = lscv._pack_rows(H, rows)
+    Ht = _torch_theta_to_H(torch.from_numpy(thetas), d)
+    det_t = torch.linalg.det(Ht)
+    c_k, c_kk, r_k_t = lscv.G.lscv_H_consts(d, det_t)
+    return ((H, det, inv, rows[:, d * d], rows[:, d * d + 1], rows, r_k),
+            tuple(_np(t) for t in (Ht, det_t, lscv._inv(Ht), c_k, c_kk, r_k_t)))
+
+
+@pytest.mark.parametrize("batch", ["step", "simplex"])
+@pytest.mark.parametrize("d", range(1, 9))
+def test_numpy_host_arithmetic_matches_the_torch_formulas(rng, d, batch):
+    """A step's 3 or a simplex's k + 1 log-Cholesky points: H, det, H^-1,
+    c_k and c_kk of the numpy path against the torch formulas, and the
+    packed rows are `ref.gh_params`' layout of them.  H (exp and a product
+    of float32s in another order) to rtol 1e-6 of its largest entry; the
+    rest to rtol 1e-6 where H is well conditioned, else to 4 κ(H) float32
+    ulps: the torch formulas' float32 LU errs by a few κ(H) ulps, numpy's
+    LAPACK works in float64."""
+    from repro_torch.kernels import ref as kref
+    k = d * (d + 1) // 2
+    b = 3 if batch == "step" else k + 1
+    thetas = rng.normal(0.0, 0.3, (b, k)).astype(np.float32)
+    (H, det, inv, c_k, c_kk, rows, r_k), (Ht, det_t, inv_t, c_k_t, c_kk_t, r_k_t) = \
+        _host_arithmetic(thetas, d)
+    assert H.dtype == det.dtype == inv.dtype == rows.dtype == r_k.dtype == np.float32
+    np.testing.assert_allclose(H, Ht, rtol=1e-6, atol=1e-6 * np.abs(Ht).max())
+    np.testing.assert_array_equal(H, _np(lscv._theta_to_H(torch.from_numpy(thetas), d)))
+    for i in range(b):
+        tol = max(1e-6, 4 * np.linalg.cond(Ht[i].astype(np.float64)) * np.finfo(np.float32).eps)
+        np.testing.assert_allclose(inv[i], inv_t[i], rtol=tol, atol=tol * np.abs(inv_t[i]).max())
+        for got, want in ((det, det_t), (c_k, c_k_t), (c_kk, c_kk_t), (r_k, r_k_t)):
+            np.testing.assert_allclose(got[i], want[i], rtol=tol)
+    packed = kref.gh_params(torch.from_numpy(inv), torch.from_numpy(c_k.copy()),
+                            torch.from_numpy(c_kk.copy()))
+    assert torch.equal(torch.from_numpy(rows), packed)
+
+
+@pytest.mark.parametrize("d", range(1, 9))
+def test_numpy_host_arithmetic_keeps_the_non_finite_pattern(rng, d):
+    """A failed start's NaN θ, an L whose last row underflows to zero (H
+    singular: numpy's inverse would raise) and one whose first diagonal
+    entry squared overflows (inf in H) give the torch formulas' inf / NaN
+    pattern in H, det, H^-1, c_k and c_kk, without raising; the healthy
+    point beside them keeps its finite values."""
+    k = d * (d + 1) // 2
+    thetas = rng.normal(0.0, 0.3, (4, k)).astype(np.float32)
+    thetas[0] = np.nan
+    thetas[1, k - d:] = 0.0                      # L's last row: zeros ...
+    thetas[1, k - 1] = -60.0                     # ... and a diagonal exp(-60)^2 = 0
+    thetas[2, 0] = 60.0
+    got, want = _host_arithmetic(thetas, d)
+    for g, w in zip(got[:5], want[:5]):
+        _same_pattern(g, w)
+    inv, inv_t = got[2][3], want[2][3]
+    assert np.all(np.isfinite(inv))
+    np.testing.assert_allclose(inv, inv_t, rtol=1e-5, atol=1e-5 * np.abs(inv_t).max())
+
+
+def test_nelder_mead_step_dispatches_no_torch_op():
+    """A minimize_batch step with a numpy objective dispatches the same
+    small constant of CPU aten ops at k = 2 as at k = 36, at most the two
+    that hand the objective its points (`torch.from_numpy` under a dispatch
+    mode): the simplex's bookkeeping stays off torch's operator dispatch (a
+    start and a result dispatch a few, once)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def bowl(points):
+        return np.sum((points.numpy() - np.float32(0.3)) ** 2, axis=1)
+
+    per_step = {}
+    for k in (2, 36):
+        counts = []
+        for steps in (1, 9):
+            with Count() as c:
+                res = nelder_mead.minimize_batch(bowl, np.zeros(k), max_iter=steps)
+            assert res.it == steps
+            counts.append(c.n)
+        per_step[k] = (counts[0], (counts[1] - counts[0]) / 8)
+    assert per_step[2] == per_step[36] and per_step[2][1] <= 2, per_step
 
 
 def _correlated(rng, n):

@@ -8,6 +8,7 @@ tensors through (its card case skips without a CUDA device), the kernel
 wrappers take the profiled branch only with obs enabled, and the store's
 and engine's instruments match the reference's names and values.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -333,6 +334,54 @@ def test_batch_wrapper_profiles_each_launch(monkeypatch):
     finally:
         tobs.disable()
         tobs.set_tracer(prev)
+
+
+def test_fit_launch_plan_resolves_once_and_launches_each_row(monkeypatch):
+    """An LSCV_H fit's launch path: `ops.gh_fused_plan` resolves the tile
+    once a fit, and each round trip's `gh_fused_sums(..., plan=plan)` with
+    obs off makes B launches, one a row of the plan's params at B distinct
+    row pointers, and raises `launches` by B; with obs on each launch is
+    one profiled call (a meta tensor stands in for the card, the ctypes
+    launcher is faked)."""
+    made = []
+    monkeypatch.setattr(tgh, "_fn", lambda: lambda *args: made.append(args) or 0)
+    monkeypatch.setattr(tgh, "check_tensor", lambda *a, **k: None)
+    monkeypatch.setattr(tgh, "stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    resolved = []
+    real_resolve = ops._tune.resolve
+    monkeypatch.setattr(ops._tune, "resolve",
+                        lambda kernel, *a, **k: resolved.append(kernel) or
+                        real_resolve(kernel, *a, **k))
+    x = torch.zeros(64, 3, device="meta")
+    plan = ops.gh_fused_plan(x, 7)
+    width = 4 * (3 * 3 + 2)                    # bytes a packed row
+    before = tgh.launches.value
+    for b in (7, 3, 3):                        # the start simplex, two steps
+        made.clear()
+        assert ops.gh_fused_sums(x, plan.params[:b], plan=plan).shape == (b,)
+        rows = [args[3] for args in made]
+        assert rows == [plan.params.data_ptr() + r * width for r in range(b)]
+        assert len(set(rows)) == b
+    assert tgh.launches.value == before + 13
+    reg = tobs.get_registry()
+
+    def recorded():
+        return reg.sum_counter("kernel.calls", kernel="gh_fused_sum", n=64, d=3)
+
+    calls = recorded()
+    prev = tobs.set_tracer(tobs.Tracer())
+    tobs.enable()
+    try:
+        made.clear()
+        ops.gh_fused_sums(x, plan.params[:3], plan=plan)
+        assert len(made) == 3 and recorded() == calls + 3
+    finally:
+        tobs.disable()
+        tobs.set_tracer(prev)
+    assert resolved == ["gh_fused_sum"]
+    with pytest.raises(ValueError, match="rows of the plan"):
+        ops.gh_fused_sums(x, torch.zeros(9, 11, device="meta"), plan=plan)
 
 
 def _store_metrics(pkg, q, smod, rng_seed=0):
